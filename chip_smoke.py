@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's DIB-R inverse-rendering step on one NVIDIA GPU and
-check it.
+"""Run the PyTorch port's two main paths on one NVIDIA GPU and check them:
+the DIB-R inverse-rendering step and the SPC first-hit raster.
 
     python3 chip_smoke.py
 
@@ -12,14 +12,22 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
 3. hold each kernel against its plain PyTorch version on the card: winner
    ids exactly, the soft-mask forward within 1e-5, the soft-mask backward
    within 1e-4 of the plain gradient's largest entry (atomics reorder the
-   sums); at 100x72 with B = 2, and at the config-2 shapes;
-4. the main path: ``config2_step`` (512², a 4992-face UV sphere, forward and
-   backward, 5 steps) with every launch counter set to 0 before and read
-   after, its first step held against the same step through the plain
+   sums); at 100x72 with B = 2, and at the config-2 shapes. The SPC tile
+   and untile kernels bitwise (depths) and exactly (ids), on a clustered
+   level-5 octree at 64² with 8-px tiles and on config 3;
+4. the DIB-R path: ``config2_step`` (512², a 4992-face UV sphere, forward
+   and backward, 5 steps) with every launch counter set to 0 before and
+   read after, its first step held against the same step through the plain
    versions; then the 64² silhouette optimisation of
    ``examples/torch_dibr_optimization.py`` (final loss < 0.30, |shift| <
    0.05);
-5. time each kernel and the whole step against the plain versions with CUDA
+5. the SPC path: ``config3_frames`` of ``examples/torch_spc_raster.py``
+   (a level-9 sphere shell, 512², 60 frames, capacities grown until no
+   overflow), counters set to 0 before and read after; frame 0 held against
+   the plain versions and against a brute-force slab test of every leaf on
+   4,096 sampled pixels; then a camera inside the shell, whose slot
+   overflow must clear as ``s_max`` grows;
+6. time each kernel and each path against the plain versions with CUDA
    events, in the order plain, kernel, kernel, plain.
 
 Prints a JSON line with each kernel's launches, error and times, and as the
@@ -30,14 +38,23 @@ line, when there is no CUDA device or any phase fails.
 import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 import traceback
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RES = 512
 STEPS = 5
+# config 3: level, resolution, frames; pixels of the brute-force check
+SPC_LEVEL = 9
+SPC_RES = 512
+SPC_FRAMES = 60
+ORACLE_PIXELS = 4096
+INSIDE_EYE = (0.05, 0.02, 0.04)
 
 KERNELS = {
     "winner": {
@@ -55,7 +72,19 @@ KERNELS = {
         "source": "kaolin_tpu_torch/render/mesh/csrc/soft_mask.cu",
         "replaces": "kaolin_tpu/render/mesh/pallas_soft_mask.py:207",
     },
+    "spc_raster": {
+        "route": "cuda",
+        "source": "kaolin_tpu_torch/render/spc/csrc/raster.cu",
+        "replaces": "kaolin_tpu/render/spc/raster.py:324",
+    },
+    "spc_untile": {
+        "route": "cuda",
+        "source": "kaolin_tpu_torch/render/spc/csrc/raster.cu",
+        "replaces": "kaolin_tpu/render/spc/raster.py:614",
+    },
 }
+DIBR_KERNELS = ("winner", "soft_mask_fwd", "soft_mask_bwd")
+SPC_KERNELS = ("spc_raster", "spc_untile")
 
 
 def card_line():
@@ -67,41 +96,71 @@ def card_line():
         else f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def load_example():
-    path = os.path.join(ROOT, "examples", "torch_dibr_optimization.py")
-    spec = importlib.util.spec_from_file_location("torch_dibr_optimization",
-                                                  path)
+def load_example(name):
+    path = os.path.join(ROOT, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def blob_points(seed=1, level=5):
+    """The clustered random octree of tests/render/test_spc_raster.py: four
+    blobs of 300 points and 100 points of dust, quantized at ``level``."""
+    rng = np.random.RandomState(seed)
+    centers = rng.uniform(-0.6, 0.6, (4, 3)).astype(np.float32)
+    pts = np.concatenate(
+        [c + 0.12 * rng.randn(300, 3).astype(np.float32) for c in centers]
+        + [rng.uniform(-1, 1, (100, 3)).astype(np.float32)])
+    grid = 2 ** level
+    return np.unique(np.clip(((pts + 1) * 0.5 * grid).astype(np.int64), 0,
+                             grid - 1), axis=0).astype(np.int16)
 
 
 class Smoke:
     def __init__(self):
         import torch
 
+        from kaolin_tpu_torch.render.camera import Camera
         from kaolin_tpu_torch.render.mesh import (
             cuda_rasterize,
             cuda_soft_mask,
             dibr,
             rasterization,
         )
+        from kaolin_tpu_torch.render.spc import cuda_raster, raster
         from kaolin_tpu_torch.utils import cuda_build, from_numpy_tree
 
         self.torch = torch
+        self.device = "cuda"
         self.cr, self.cs = cuda_rasterize, cuda_soft_mask
         self.dibr, self.rast = dibr, rasterization
+        self.craster, self.sr = cuda_raster, raster
+        self.Camera = Camera
         self.cuda_build = cuda_build
         self.from_numpy_tree = from_numpy_tree
-        self.ex = load_example()
+        self.ex = load_example("torch_dibr_optimization")
+        self.spc_ex = load_example("torch_spc_raster")
         self.failures = []
         self.results = {name: dict(meta) for name, meta in KERNELS.items()}
+        self._config3 = None
 
     # -- helpers ---------------------------------------------------------
     def counters(self):
         return {"winner": self.cr.rasterize_search_cuda,
                 "soft_mask_fwd": self.cs.soft_mask_fwd_cuda,
-                "soft_mask_bwd": self.cs.soft_mask_bwd_cuda}
+                "soft_mask_bwd": self.cs.soft_mask_bwd_cuda,
+                "spc_raster": self.craster.raster_tiles_cuda,
+                "spc_untile": self.craster.untile_cuda}
+
+    def drive(self, names, path):
+        """Run ``path`` with every launch counter set to 0 just before →
+        (its result, the launches of the kernels ``names`` just after)."""
+        for fn in self.counters().values():
+            fn.launches = 0
+        out = path()
+        self.torch.cuda.synchronize()
+        return out, {k: self.counters()[k].launches for k in names}
 
     def check(self, ok, what):
         print(("PASS " if ok else "FAIL ") + what, flush=True)
@@ -118,7 +177,6 @@ class Smoke:
         (face_normals_z < 0), one with face_normals_z == 0 (kept), and two
         zero-area faces, a point on a pixel centre and a segment along a
         pixel row, which cover pixels only inside their bounding boxes."""
-        import numpy as np
         rng = np.random.RandomState(0)
         tri = (rng.randn(2, 64, 3, 3) * 0.4).astype(np.float32)
         fvi = tri[..., :2] * np.float32(1000.0)
@@ -170,7 +228,6 @@ class Smoke:
 
     def compare_times(self, kernel_fn, plain_fn, reps, plain_reps):
         """Medians over plain, kernel, kernel, plain runs."""
-        import statistics
         p = self.time_ms(plain_fn, plain_reps)
         k = self.time_ms(kernel_fn, reps)
         k += self.time_ms(kernel_fn, reps)
@@ -268,11 +325,9 @@ class Smoke:
 
     def phase_main_path(self):
         torch = self.torch
-        for fn in self.counters().values():
-            fn.launches = 0
-        out = self.ex.config2_step("cuda", res=RES, steps=STEPS)
-        torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in self.counters().items()}
+        out, launches = self.drive(
+            DIBR_KERNELS,
+            lambda: self.ex.config2_step("cuda", res=RES, steps=STEPS))
         print(f"config2_step {RES}x{RES}, {STEPS} steps: losses "
               f"{out['losses']}; launches {launches}")
         for k, n in launches.items():
@@ -300,10 +355,8 @@ class Smoke:
             self.check(ratio <= 1e-4, f"config-2 grad {name} kernels vs "
                        f"plain within 1e-4 of max: {ratio:.2e}")
 
-        counts0 = {k: fn.launches for k, fn in self.counters().items()}
-        losses, shift = self.ex.main("cuda", res=64, iters=60)
-        counts1 = {k: fn.launches - counts0[k]
-                   for k, fn in self.counters().items()}
+        (losses, shift), counts1 = self.drive(
+            DIBR_KERNELS, lambda: self.ex.main("cuda", res=64, iters=60))
         self.check(losses[-1] < 0.30 and abs(shift) < 0.05,
                    f"64x64 optimisation: final loss {losses[-1]:.4f} "
                    f"(< 0.30), shift {shift:+.4f} (|.| < 0.05); "
@@ -352,9 +405,241 @@ class Smoke:
               f"faces: kernels {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"[{self.card}]", flush=True)
 
+    # -- the SPC raster ----------------------------------------------------
+    def config3(self):
+        """Config 3 built once: (rspc, camera, (tile_px, s_max, c_cap))."""
+        if self._config3 is None:
+            ex = self.spc_ex
+            rspc, cam, _ = ex.build_scene(ex.config3_inputs(SPC_LEVEL),
+                                          self.device, SPC_RES)
+            caps, _ = ex.grow_caps(rspc, cam)
+            self._config3 = rspc, cam, caps
+        return self._config3
+
+    def spc_camera(self, eye, res, fov):
+        return self.Camera.from_args(
+            eye=self.torch.tensor(eye), at=self.torch.zeros(3),
+            up=self.torch.tensor([0.0, 1.0, 0.0]), fov=fov, width=res,
+            height=res, device=self.device)
+
+    def spc_bins(self, rspc, cam, caps):
+        """The binning of one frame and the camera vector → dict of the
+        tile kernel's inputs."""
+        tile_px, s_max, c_cap = caps
+        params = self.sr._prep_camera(cam)
+        tab, counts, dz, ov = self.sr._bin_units(
+            rspc.uaabb, *params, width=cam.width, height=cam.height,
+            tile_h=tile_px, tile_w=tile_px, s_max=s_max, c_cap=c_cap)
+        return {"tab": tab, "counts": counts, "dz": dz, "overflow": ov,
+                "cam": self.sr._camera_vector(*params),
+                "size": dict(width=cam.width, height=cam.height,
+                             tile_px=tile_px)}
+
+    def spc_tiles(self, kernel, rspc, b):
+        fn = (self.craster.raster_tiles_cuda if kernel
+              else self.sr.raster_tiles_plain)
+        return fn(b["tab"], b["counts"], b["dz"], b["cam"], rspc.l3boxes,
+                  rspc.units, **b["size"])
+
+    def spc_plain_frame(self, rspc, cam, caps):
+        """raster_first_hit with the plain versions in place of the
+        kernels."""
+        b = self.spc_bins(rspc, cam, caps)
+        depth, ids = self.sr.untile_plain(*self.spc_tiles(False, rspc, b),
+                                          **b["size"])
+        return self.sr._finish(depth, ids, b["overflow"])
+
+    def spc_oracle(self, rspc, cam, pix):
+        """Every leaf slab-tested against the rays of pixels ``pix``, with
+        the raster's ray and slab formulas but no binning → (depth, id,
+        leaf boxes by point-hierarchy id, first id), 3e38 and -1 on a
+        miss."""
+        torch, sr = self.torch, self.sr
+        res = cam.width
+        cam_vec = sr._camera_vector(*sr._prep_camera(cam))
+        origin, inv = sr._rays(cam_vec, pix // res, pix % res, res,
+                               cam.height)
+        lanes = rspc.units.permute(0, 2, 1).reshape(-1, 8)
+        lanes = lanes[lanes[:, 0] < 1.0e38].contiguous()
+        ids = lanes[:, 6].contiguous().view(torch.int32)
+        n = pix.shape[0]
+        best = torch.full((n,), 3.0e38, device=pix.device)
+        best_id = torch.full((n,), 2 ** 30, dtype=torch.int32,
+                             device=pix.device)
+        for s in range(0, lanes.shape[0], 8192):
+            chunk = lanes[s:s + 8192]
+            t_in, _, hit = sr._slab([chunk[:, k] for k in range(3)],
+                                    [chunk[:, 3 + k] for k in range(3)],
+                                    origin, [i[:, None] for i in inv])
+            cand = torch.where(hit, t_in, 3.0e38)
+            m = cand.amin(dim=1)
+            sel = torch.where(cand == m[:, None], ids[None, s:s + 8192],
+                              2 ** 30).amin(dim=1)
+            best_id = torch.where(m < best, sel, torch.where(
+                m == best, torch.minimum(best_id, sel), best_id))
+            best = torch.minimum(best, m)
+        first = int(ids.min())
+        boxes = torch.empty((lanes.shape[0], 6), device=pix.device)
+        boxes[(ids - first).long()] = lanes[:, :6]
+        return best, torch.where(best < 1.0e38, best_id, -1), boxes, first
+
+    def check_oracle(self, rspc, cam, t, nidx, label):
+        """The raster's frame against the brute-force oracle on
+        ORACLE_PIXELS pixels drawn with a seeded generator: equal hits,
+        bitwise equal depths, and where the ids differ, a tie in depth."""
+        torch = self.torch
+        res = cam.width
+        pix = torch.from_numpy(np.random.default_rng(0).choice(
+            res * cam.height, ORACLE_PIXELS, replace=False)).to(self.device)
+        depth_o, id_o, boxes, first = self.spc_oracle(rspc, cam, pix)
+        t_r, id_r = t[pix], nidx[pix]
+        hit_o, hit_r = depth_o < 1.0e38, torch.isfinite(t_r)
+        same_hits = bool((hit_o == hit_r).all())
+        bitwise = bool((t_r[hit_r].view(torch.int32)
+                        == depth_o[hit_r].view(torch.int32)).all())
+        differ = hit_r & (id_r != id_o)
+        ties = True
+        if bool(differ.any()):
+            cam_vec = self.sr._camera_vector(*self.sr._prep_camera(cam))
+            q = pix[differ]
+            origin, inv = self.sr._rays(cam_vec, q // res, q % res, res,
+                                        cam.height)
+            box = boxes[(id_r[differ] - first).long()]
+            t_in, _, hit = self.sr._slab([box[:, k] for k in range(3)],
+                                         [box[:, 3 + k] for k in range(3)],
+                                         origin, inv)
+            ties = bool((hit & (t_in == depth_o[differ])).all())
+        self.check(same_hits and bitwise and ties and int(hit_r.sum()) > 0,
+                   f"SPC raster vs brute-force oracle [{label}], "
+                   f"{ORACLE_PIXELS} pixels: {int(hit_r.sum())} hit, hits "
+                   f"equal {same_hits}, depths bitwise {bitwise}, "
+                   f"{int(differ.sum())} ids differ, all ties {ties}")
+
+    def phase_spc_parity(self):
+        torch = self.torch
+        blobs = self.spc_ex.build_scene(
+            {"points": blob_points(), "level": 5,
+             "eye": np.float32([1.5, 0.9, -1.2]), "at": np.zeros(3, "f4"),
+             "up": np.float32([0, 1, 0]), "fov": 0.9}, self.device, 64)[:2]
+        caps, _ = self.spc_ex.grow_caps(*blobs, caps=(8, 16, 128))
+        rspc, cam, caps3 = self.config3()
+        for label, (rspc, cam, caps) in (
+                (f"blobs L5 64x64, caps {caps}", (*blobs, caps)),
+                (f"config 3 L{SPC_LEVEL} {SPC_RES}x{SPC_RES}, caps {caps3}",
+                 (rspc, cam, caps3))):
+            b = self.spc_bins(rspc, cam, caps)
+            dk, ik = self.spc_tiles(True, rspc, b)
+            dp, ip = self.spc_tiles(False, rspc, b)
+            same = bool((dk.view(torch.int32) == dp.view(torch.int32)).all())
+            bad = int((ik != ip).sum())
+            hits = int((dp < 1.0e38).sum())
+            self.check(same and bad == 0 and hits > 0 and
+                       all(int(v) == 0 for v in b["overflow"].values()),
+                       f"spc_raster vs plain [{label}]: depths bitwise "
+                       f"{same}, {bad} ids differ, {hits} pixels hit")
+            self.record_err("spc_raster", max(float((dk - dp).abs().max()),
+                                              float((ik - ip).abs().max())))
+            uk = self.craster.untile_cuda(dk, ik, **b["size"])
+            up = self.sr.untile_plain(dk, ik, **b["size"])
+            same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                       for x, y in zip(uk, up))
+            self.check(same, f"spc_untile vs plain [{label}]: bitwise {same}")
+            self.record_err("spc_untile", max(
+                float((uk[0] - up[0]).abs().max()),
+                float((uk[1] - up[1]).abs().max())))
+        torch.cuda.synchronize()
+
+    def phase_spc_main_path(self):
+        torch = self.torch
+        out, launches = self.drive(SPC_KERNELS, lambda: self.spc_ex.
+                                   config3_frames(self.device, SPC_RES,
+                                                  SPC_FRAMES, SPC_LEVEL))
+        t, nidx, valid = out["depth"], out["nidx"], out["valid"]
+        print(f"config3_frames L{SPC_LEVEL} {SPC_RES}x{SPC_RES}, "
+              f"{SPC_FRAMES} frames: caps (tile_px, s_max, c_cap) "
+              f"{out['caps']}, overflow {out['overflow']}, "
+              f"{int(valid[0].sum())} pixels hit; launches {launches}")
+        for k, n in launches.items():
+            self.results[k]["launches"] = n
+            self.check(n > 0, f"main path launched {k} ({n} times)")
+        self.check(all(v == 0 for v in out["overflow"].values()),
+                   f"config-3 overflow after growth {out['overflow']}")
+        hw = SPC_RES * SPC_RES
+        self.check(t.shape == (SPC_FRAMES, hw) and nidx.shape == t.shape
+                   and bool(valid.any(dim=1).all())
+                   and bool(torch.isfinite(t[valid]).all())
+                   and bool((t[valid] > 0).all())
+                   and bool((nidx[~valid] == -1).all()),
+                   f"config-3 frames of shape {tuple(t.shape)}: finite "
+                   "positive depths where hit, -1 ids where missed")
+        self.check(bool((t == t[0]).all() and (nidx == nidx[0]).all()),
+                   "config-3 frames of one camera are identical")
+
+        rspc, cam, caps = out["rspc"], out["camera"], out["caps"]
+        tp, ip, vp, _ = self.spc_plain_frame(rspc, cam, caps)
+        same = bool((t[0].view(torch.int32) == tp.view(torch.int32)).all()
+                    and (nidx[0] == ip).all() and (valid[0] == vp).all())
+        self.check(same, "config-3 frame 0 through the kernels equals the "
+                   "plain frame bit for bit")
+        self.check_oracle(rspc, cam, t[0], nidx[0], f"config 3 {SPC_RES}²")
+
+        inside = self.spc_camera(list(INSIDE_EYE), SPC_RES, 0.8)
+        caps_in, (ti, ii, vi, ov) = self.spc_ex.grow_caps(rspc, inside)
+        tp, ip, vp, _ = self.spc_plain_frame(rspc, inside, caps_in)
+        same = bool((ti.view(torch.int32) == tp.view(torch.int32)).all()
+                    and (ii == ip).all())
+        # the shell's random points leave some cells empty, so a few rays
+        # escape: the oracle below checks each sampled pixel
+        ov = {k: int(v) for k, v in ov.items()}
+        self.check(caps_in[1] > caps[1] and same and bool(vi.any()),
+                   f"camera inside the shell at {SPC_RES}²: caps grew to "
+                   f"{caps_in}, overflow {ov}, {int(vi.sum())} pixels hit, "
+                   f"kernels equal the plain frame {same}")
+        self.check_oracle(rspc, inside, ti, ii, f"inside {SPC_RES}²")
+
+    def phase_spc_timing(self):
+        torch = self.torch
+        print(f"timing on {self.card}", flush=True)
+        rspc, cam, caps = self.config3()
+        b = self.spc_bins(rspc, cam, caps)
+        dt, it = self.spc_tiles(True, rspc, b)
+        size = b["size"]
+        bins_ms = statistics.median(self.time_ms(
+            lambda: self.spc_bins(rspc, cam, caps), 20))
+        print(f"SPC binning (plain torch) at config 3: {bins_ms:.4f} ms")
+        pairs = {
+            "spc_raster": (lambda: self.spc_tiles(True, rspc, b),
+                           lambda: self.spc_tiles(False, rspc, b), 20, 3),
+            "spc_untile": (lambda: self.craster.untile_cuda(dt, it, **size),
+                           lambda: self.sr.untile_plain(dt, it, **size), 50,
+                           20),
+        }
+        for name, (kern, plain, reps, plain_reps) in pairs.items():
+            k_ms, p_ms = self.compare_times(kern, plain, reps, plain_reps)
+            self.results[name]["ms"] = k_ms
+            self.results[name]["plain_ms"] = p_ms
+            print(f"{name} at config 3 (L{SPC_LEVEL}, {SPC_RES}², caps "
+                  f"{caps}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms",
+                  flush=True)
+        tile_px, s_max, c_cap = caps
+        kw = dict(tile_px=tile_px, s_max=s_max, c_cap=c_cap)
+        k_ms, p_ms = self.compare_times(
+            lambda: self.sr.raster_first_hit(rspc, cam, **kw),
+            lambda: self.spc_plain_frame(rspc, cam, caps), 20, 3)
+        print(f"config-3 frame at {SPC_RES}²: kernels {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms [{self.card}]", flush=True)
+        seq_ms = statistics.median(self.time_ms(
+            lambda: self.sr.raster_first_hit_sequence(
+                rspc, [cam] * SPC_FRAMES, **kw), 3))
+        print(f"config-3 sequence of {SPC_FRAMES} frames at {SPC_RES}²: "
+              f"{seq_ms:.4f} ms, {seq_ms / SPC_FRAMES:.4f} ms/frame "
+              f"[{self.card}]", flush=True)
+
     def run(self):
         for phase in (self.phase_card, self.phase_build, self.phase_parity,
-                      self.phase_main_path, self.phase_timing):
+                      self.phase_spc_parity, self.phase_main_path,
+                      self.phase_spc_main_path, self.phase_timing,
+                      self.phase_spc_timing):
             print(f"== {phase.__name__}", flush=True)
             try:
                 phase()

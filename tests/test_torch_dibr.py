@@ -231,7 +231,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
     names = sorted(p.name for p in cuda_build.sources())
-    assert names == ["rasterize.cu", "soft_mask.cu", "status.cu"]
+    assert names == ["raster.cu", "rasterize.cu", "soft_mask.cu",
+                     "status.cu"]
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     path = cuda_build.library_path()
     assert path.parts[-4:-2] == ("build", "kaolin_tpu_torch")
@@ -259,7 +260,9 @@ def test_interop_round_trip(dtype):
 
 def test_import_leaves_out_jax_and_kaolin_tpu():
     code = ("import sys, kaolin_tpu_torch, kaolin_tpu_torch.render.mesh, "
-            "kaolin_tpu_torch.metrics.render\n"
+            "kaolin_tpu_torch.metrics.render, kaolin_tpu_torch.ops.spc, "
+            "kaolin_tpu_torch.render.camera, kaolin_tpu_torch.render.spc, "
+            "kaolin_tpu_torch.render.spc.cuda_raster\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'kaolin_tpu.')) or m == 'kaolin_tpu']\n"
             "print(bad)\n"

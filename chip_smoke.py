@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's two main paths on one NVIDIA GPU and check them:
-the DIB-R inverse-rendering step and the SPC first-hit raster.
+"""Run the PyTorch port's three paths on one NVIDIA GPU and check them:
+the DIB-R inverse-rendering step, the SPC first-hit raster and the
+primitive-cost probe with its table-gather kernel.
 
     python3 chip_smoke.py
 
@@ -27,15 +28,36 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    the plain versions and against a brute-force slab test of every leaf on
    4,096 sampled pixels; then a camera inside the shell, whose slot
    overflow must clear as ``s_max`` grows;
-6. time each kernel and each path against the plain versions with CUDA
-   events, in the order plain, kernel, kernel, plain.
+6. the table gather's two routes (shared memory, L2) held bit for bit
+   against ``table_gather_plain``: the probe's shape, 2^14 and 2^20
+   tables, 58,112 and 58,113 floats (either side of the route rule),
+   negative and out-of-range indices, counts that are not a multiple of 4
+   and unaligned views;
+7. the probe path: ``primitives_bench.main([])`` at its full sizes, counters
+   set to 0 before and read after; every probe printed its line, both
+   gather routes launched, and ``correct`` is true;
+8. time each kernel and each path against the plain versions with CUDA
+   events, in the order plain, kernel, kernel, plain;
+9. ``torch.profiler`` (``kaolin_tpu_torch.utils.profiling.trace``) over 10
+   config-2 steps and 10 config-3 frames after warm-up: each kernel's
+   device ms and launches per step or frame, each path's device-busy and
+   idle share; the gathers and the library calls beside the kernels
+   (``library_ms``), warm, at the probe's shapes; both gather routes on
+   tables of 2^10 to 58,112 floats, to show where the route rule belongs;
+10. each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
+   and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), the
+   operations counted from this run's inputs, a term that depends on the
+   face alone once per face; then the kernels in the order
+   in which to make them faster.
 
-Prints a JSON line with each kernel's launches, error and times, and as the
-last line ``{"ok": true, "device": {...}}``. Exits non-zero, without that
-line, when there is no CUDA device or any phase fails.
+Prints a JSON line with each kernel's launches, error, times and bound, and
+as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, without
+that line, when there is no CUDA device or any phase fails.
 """
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import statistics
@@ -55,6 +77,42 @@ SPC_RES = 512
 SPC_FRAMES = 60
 ORACLE_PIXELS = 4096
 INSIDE_EYE = (0.05, 0.02, 0.04)
+# the table gather at the TPU probe's shape: (8192, 128) int32 indices into a
+# 2^20-float table (L2 route) and into a 2^14-float one (shared memory)
+GATHER_IDX = (8192, 128)
+GATHER_TABLES = {"table_gather_l2": 1 << 20, "table_gather_smem": 1 << 14}
+# tables up to the shared-memory route's largest, both routes timed on each
+GATHER_SWEEP = (1 << 10, 1 << 12, 1 << 14, 1 << 15, 40_000, 58_112)
+PROFILE_STEPS = 10
+TRACE_DIR = os.path.join(ROOT, "build", "traces")
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
+# outside the tensor cores
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+# float32 operations per unit of work, counted from the plain versions:
+# rasterization._barycentrics per (pixel, face) pair in the closed box (9
+# subtractions, 6 products, 3 additions, 3 divisions)
+WINNER_OPS = 21
+# dibr._edge_vertex_sqdist, each term counted once where it is first needed
+# and each shared subexpression once. Per face, what depends on the face
+# alone: an edge's A, B (1 each), C (3), A·A, B·B, A·B, A·C, B·C (1 each)
+# and A·A + B·B + EPS (2), 12 x 3 edges; the box, 8 min/max and 4 for the
+# margin
+SOFT_FACE_OPS = 3 * 12 + 12
+# per (pixel, face) pair in the enlarged box: an edge's up (4), x3 and y3
+# (4 and a division each), direct (7), perp = up·up / den (2) and the
+# compare (1), 24 x 3 edges; a vertex's squared distance, 5 x 3; the least
+# of 6 candidates, 5; p = exp(c·d2) with c = -sigmainv / mult² once a call
+# (2), 1 - p and the product (2)
+SOFT_FWD_OPS = 3 * 24 + 3 * 5 + 5 + 2 + 2
+# the backward recomputes the forward up to p (94), then its VJP at the
+# least: 1 - p (1), the tie count (6 compares, 5 additions), the cotangent
+# g·(k·p) / ((1 - p)·ties) (4), and the cheapest candidate's VJP, a vertex's
+# (5: -2c, its products with dx and dy, their sums into the face gradient)
+SOFT_BWD_OPS = SOFT_FWD_OPS - 2 + 1 + 11 + 4 + 5
+# raster._slab per (pixel, leaf) test: 6 subtractions, 6 products, 6
+# min/max per axis pair, 4 for entry and exit, the clamp and the compare
+SLAB_OPS = 24
 
 KERNELS = {
     "winner": {
@@ -82,9 +140,39 @@ KERNELS = {
         "source": "kaolin_tpu_torch/render/spc/csrc/raster.cu",
         "replaces": "kaolin_tpu/render/spc/raster.py:614",
     },
+    "table_gather_smem": {
+        "route": "cuda",
+        "source": "kaolin_tpu_torch/utils/csrc/gather.cu",
+        "replaces": "kaolin_tpu/utils/primitives_bench.py:135",
+    },
+    "table_gather_l2": {
+        "route": "cuda",
+        "source": "kaolin_tpu_torch/utils/csrc/gather.cu",
+        "replaces": "kaolin_tpu/utils/primitives_bench.py:135",
+    },
 }
 DIBR_KERNELS = ("winner", "soft_mask_fwd", "soft_mask_bwd")
 SPC_KERNELS = ("spc_raster", "spc_untile")
+GATHER_KERNELS = ("table_gather_smem", "table_gather_l2")
+# the kernels' names in a torch.profiler trace
+DEVICE_NAMES = {"winner": "winner_kernel", "soft_mask_fwd": "soft_fwd_kernel",
+                "soft_mask_bwd": "soft_bwd_kernel",
+                "spc_raster": "raster_tiles_kernel",
+                "spc_untile": "untile_kernel",
+                "table_gather_smem": "gather_smem_kernel",
+                "table_gather_l2": "gather_l2_kernel"}
+# every line the full probe prints, in order
+PROBE_NAMES = (
+    "gather1d_n65536_tab1048576", "gather1d_n1048576_tab1048576",
+    "gather1d_n4194304_tab1048576", "gather1d_n4194304_tab16384",
+    "rowgather_r8_n262144", "rowgather_r64_n262144", "scatter_add_n1048576",
+    "scatter_min_n1048576", "scatter_set_unique_n1048576", "sort_kv_n262144",
+    "sort_kv_n1048576", "sort_kv_n4194304", "rowsort128_r262144",
+    "cumsum_n4194304", "table_gather_n1048576_tab1048576",
+    "table_gather_n1048576_tab16384")
+ENTRY_KEYS = ("name", "route", "source", "replaces", "launches",
+              "max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms",
+              "bound_by", "library_ms")
 
 
 def card_line():
@@ -129,13 +217,21 @@ class Smoke:
             rasterization,
         )
         from kaolin_tpu_torch.render.spc import cuda_raster, raster
-        from kaolin_tpu_torch.utils import cuda_build, from_numpy_tree
+        from kaolin_tpu_torch.utils import (
+            cuda_build,
+            cuda_gather,
+            from_numpy_tree,
+            primitives_bench,
+            profiling,
+        )
 
         self.torch = torch
         self.device = "cuda"
         self.cr, self.cs = cuda_rasterize, cuda_soft_mask
         self.dibr, self.rast = dibr, rasterization
         self.craster, self.sr = cuda_raster, raster
+        self.cg, self.pb, self.profiling = (cuda_gather, primitives_bench,
+                                            profiling)
         self.Camera = Camera
         self.cuda_build = cuda_build
         self.from_numpy_tree = from_numpy_tree
@@ -144,6 +240,7 @@ class Smoke:
         self.failures = []
         self.results = {name: dict(meta) for name, meta in KERNELS.items()}
         self._config3 = None
+        self.per_step = {}   # kernel -> launches per step or frame
 
     # -- helpers ---------------------------------------------------------
     def counters(self):
@@ -151,7 +248,9 @@ class Smoke:
                 "soft_mask_fwd": self.cs.soft_mask_fwd_cuda,
                 "soft_mask_bwd": self.cs.soft_mask_bwd_cuda,
                 "spc_raster": self.craster.raster_tiles_cuda,
-                "spc_untile": self.craster.untile_cuda}
+                "spc_untile": self.craster.untile_cuda,
+                "table_gather_smem": self.cg.table_gather_smem_cuda,
+                "table_gather_l2": self.cg.table_gather_l2_cuda}
 
     def drive(self, names, path):
         """Run ``path`` with every launch counter set to 0 just before →
@@ -635,11 +734,295 @@ class Smoke:
               f"{seq_ms:.4f} ms, {seq_ms / SPC_FRAMES:.4f} ms/frame "
               f"[{self.card}]", flush=True)
 
+    # -- the table gather and the probe path ------------------------------
+    def gather_case(self, n_tab, shape, lo=0, seed=0):
+        """A random table of ``n_tab`` floats and int32 indices of ``shape``
+        drawn from ``[lo, n_tab)``, on the card."""
+        rng = np.random.RandomState(seed)
+        table = rng.randn(n_tab).astype(np.float32)
+        idx = rng.randint(lo, n_tab, shape).astype(np.int32)
+        return self.from_numpy_tree((table, idx), self.device)
+
+    def phase_gather_parity(self):
+        torch, cg = self.torch, self.cg
+        big = 1 << 20
+        cases = [
+            (f"probe shape {GATHER_IDX}, 2^20 table",
+             self.gather_case(big, GATHER_IDX)),
+            (f"{GATHER_IDX}, 2^14 table", self.gather_case(1 << 14,
+                                                           GATHER_IDX)),
+            ("58,112 floats, 2^20 indices",
+             self.gather_case(cg.SMEM_MAX_FLOATS, (big,), seed=1)),
+            ("58,113 floats, 2^20 indices",
+             self.gather_case(cg.SMEM_MAX_FLOATS + 1, (big,), seed=2)),
+            ("2^14 table, indices in [-2^15, 2^14) and past the end",
+             self.gather_case(1 << 14, (big,), lo=-(1 << 15), seed=3)),
+            ("2^20 table, 1,000,003 indices, negative ones too",
+             self.gather_case(big, (1_000_003,), lo=-big, seed=4)),
+            ("58,112 floats, 3 indices", self.gather_case(
+                cg.SMEM_MAX_FLOATS, (3,), lo=-100, seed=5)),
+        ]
+        table, idx = self.gather_case(1 << 14, (4099,), lo=-(1 << 14), seed=6)
+        cases.append(("unaligned views, 2^14 - 1 floats, 4,098 indices",
+                      (table[1:], idx[1:])))
+        for label, (table, idx) in cases:
+            if "past the end" in label:
+                idx = torch.where(idx % 7 == 0, idx + (3 << 14), idx)
+            want = cg.table_gather_plain(table, idx)
+            route = cg.gather_route(table.shape[0])
+            fns = {"table_gather_l2": cg.table_gather_l2_cuda}
+            if route == "smem":
+                fns["table_gather_smem"] = cg.table_gather_smem_cuda
+            for name, fn in fns.items():
+                got = fn(table, idx)
+                same = bool(torch.equal(got.view(torch.int32),
+                                        want.view(torch.int32)))
+                self.check(same and got.shape == idx.shape,
+                           f"{name} vs plain [{label}]: bitwise {same}")
+                self.record_err(name, float((got - want).abs().max()))
+            before = {k: f.launches for k, f in self.counters().items()}
+            cg.table_gather(table, idx)
+            took = [k for k, f in self.counters().items()
+                    if f.launches != before[k]]
+            self.check(took == [f"table_gather_{route}"],
+                       f"table_gather of {table.shape[0]} floats took "
+                       f"{took}, the rule says {route}")
+        torch.cuda.synchronize()
+
+    def phase_probe_path(self):
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                results, launches = self.drive(GATHER_KERNELS,
+                                               lambda: self.pb.main([]))
+        finally:
+            print(buf.getvalue(), end="")
+        lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+        names = tuple(next(iter(x)) for x in lines[1:-1])
+        self.check(names == PROBE_NAMES and lines[-1] == {"ALL": results},
+                   f"primitives_bench printed every probe line ({len(names)}"
+                   f" of {len(PROBE_NAMES)}) and the ALL line")
+        print(f"probe path launches {launches}")
+        for k, n in launches.items():
+            self.results[k]["launches"] = n
+            self.check(n > 0, f"probe path launched {k} ({n} times)")
+        for name, n_tab in GATHER_TABLES.items():
+            line = results.get(f"table_gather_n{1 << 20}_tab{n_tab}", {})
+            route = name.removeprefix("table_gather_")
+            self.check(line.get("correct") is True
+                       and line.get("route") == route,
+                       f"probe table_gather, 2^{n_tab.bit_length() - 1} "
+                       f"table: route {line.get('route')}, correct "
+                       f"{line.get('correct')}")
+
+    def phase_gather_timing(self):
+        print(f"timing on {self.card}", flush=True)
+        for name, n_tab in GATHER_TABLES.items():
+            table, idx = self.gather_case(n_tab, GATHER_IDX)
+            fn = self.counters()[name]
+            k_ms, p_ms = self.compare_times(
+                lambda: fn(table, idx),
+                lambda: self.cg.table_gather_plain(table, idx), 50, 20)
+            self.results[name]["ms"] = k_ms
+            self.results[name]["plain_ms"] = p_ms
+            print(f"{name}, {n_tab} floats, {GATHER_IDX} indices: kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
+
+    # -- the profile ---------------------------------------------------------
+    def device_events(self, label, fn, reps):
+        """``fn`` run once, then ``reps`` times under ``torch.profiler``
+        → [(kernel or copy name, device µs)] of the profiled runs."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with self.profiling.trace(label, TRACE_DIR) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == cuda]
+
+    def wall_ms(self, fn, reps):
+        """Host wall ms per call of ``fn`` over ``reps`` calls, synced,
+        without the profiler."""
+        fn()
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        self.torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def device_ms(self, label, fn, reps=20):
+        """Device ms per call of ``fn``, warm: every kernel and copy it
+        launches."""
+        return sum(us for _, us in self.device_events(label, fn, reps)) \
+            / reps / 1e3
+
+    def profile_path(self, label, names, fn):
+        n = PROFILE_STEPS
+        events = self.device_events(label, fn, n)
+        busy = sum(us for _, us in events) / n / 1e3
+        wall = self.wall_ms(fn, n)
+        print(f"{label}: {len(events) / n:.1f} device ops per step, device "
+              f"busy {busy:.4f} ms of {wall:.4f} ms host wall per step "
+              f"(idle share {1 - busy / wall:.3f}) [{self.card}]")
+        for k in names:
+            mine = [us for name, us in events if DEVICE_NAMES[k] in name]
+            self.results[k]["device_ms"] = sum(mine) / n / 1e3
+            self.per_step[k] = len(mine) / n
+            self.check(len(mine) > 0, f"{label} profile holds {k}")
+            print(f"  {k}: {self.results[k]['device_ms']:.4f} device ms, "
+                  f"{len(mine) / n:g} launches per step, "
+                  f"{100 * sum(mine) / n / 1e3 / busy:.1f}% of busy")
+        top = {}
+        for name, us in events:
+            top[name] = top.get(name, 0.0) + us / n / 1e3
+        for name, ms in sorted(top.items(), key=lambda x: -x[1])[:8]:
+            print(f"    {ms:.4f} ms  {name[:160]}")
+
+    def phase_profile(self):
+        torch = self.torch
+        inputs = self.from_numpy_tree(self.ex.config2_inputs(), "cuda")
+        fvi, feats = inputs["face_vertices_image"], inputs["face_features"]
+        self.profile_path("config-2 step", DIBR_KERNELS,
+                          lambda: self.ex.config2_grad(inputs, fvi, feats,
+                                                       RES))
+        rspc, cam, (tile_px, s_max, c_cap) = self.config3()
+        self.profile_path("config-3 frame", SPC_KERNELS,
+                          lambda: self.sr.raster_first_hit(
+                              rspc, cam, tile_px=tile_px, s_max=s_max,
+                              c_cap=c_cap))
+        for k in (*DIBR_KERNELS, "spc_raster"):
+            self.results[k]["library_ms"] = None
+        b = self.spc_bins(rspc, cam, (tile_px, s_max, c_cap))
+        dt, it = self.spc_tiles(True, rspc, b)
+        self.results["spc_untile"]["library_ms"] = self.device_ms(
+            "untile library",
+            lambda: self.sr.untile_plain(dt, it, **b["size"]))
+        for name, n_tab in GATHER_TABLES.items():
+            table, idx = self.gather_case(n_tab, GATHER_IDX)
+            fn = self.counters()[name]
+            r = self.results[name]
+            r["device_ms"] = self.device_ms(name, lambda: fn(table, idx))
+            r["library_ms"] = self.device_ms(f"{name} library",
+                                             lambda: table[idx])
+            self.per_step[name] = 1
+            print(f"{name}, {n_tab} floats, {GATHER_IDX} indices, warm: "
+                  f"kernel {r['device_ms']:.4f} device ms, table[idx] "
+                  f"{r['library_ms']:.4f} device ms [{self.card}]")
+        # both routes on every table the shared-memory route can hold: where
+        # they cross is where the route rule belongs
+        for n_tab in GATHER_SWEEP:
+            table, idx = self.gather_case(n_tab, GATHER_IDX)
+            ms = {name: self.device_ms(f"sweep {name} {n_tab}",
+                                       lambda fn=self.counters()[name]:
+                                       fn(table, idx))
+                  for name in GATHER_KERNELS}
+            print(f"route sweep, {n_tab} floats, {GATHER_IDX} indices, warm:"
+                  f" shared memory {ms['table_gather_smem']:.4f}, L2 "
+                  f"{ms['table_gather_l2']:.4f} device ms [{self.card}]")
+        torch.cuda.synchronize()
+
+    # -- bounds ------------------------------------------------------------
+    def set_bound(self, name, nbytes, ops, what):
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = ops / FP32_OPS_S * 1e3
+        r = self.results[name]
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"{name}: {what}; {nbytes} bytes ({t_bytes:.6f} ms), {ops} "
+              f"float32 operations ({t_ops:.6f} ms) -> bound "
+              f"{r['bound_ms']:.6f} ms by {r['bound_by']}")
+
+    def box_pairs(self, d, h, w, margin, closed):
+        """(pixel, face) pairs with the pixel centre in the face's box,
+        enlarged by ``margin``: closed as the winner search's, half open as
+        the soft mask's → pairs per face, (F,)."""
+        px, py = self.rast._pixel_coords(h, w, 1000, self.torch.float32,
+                                         d["fvi"].device)
+        xs, ys = px[0], py[:, 0]
+        v = d["fvi"][0]
+        lo, hi = v.amin(dim=1) - margin, v.amax(dim=1) + margin
+
+        def count(c, k):
+            upper = c[None] <= hi[:, k:k + 1] if closed else \
+                c[None] < hi[:, k:k + 1]
+            return ((c[None] >= lo[:, k:k + 1]) & upper).sum(dim=1)
+
+        return count(xs, 0) * count(ys, 1)
+
+    def phase_bounds(self):
+        torch = self.torch
+        d, h, w = self.sphere_case(RES)
+        f = d["fvi"].shape[1]
+        hw = h * w
+        pairs1 = int(self.box_pairs(d, h, w, 0.0, True)[d["valid"][0]].sum())
+        pairs2 = int(self.box_pairs(d, h, w, 0.02 * 1000.0, False).sum())
+        self.set_bound("winner", f * (12 + 24 + 1) + hw * 4,
+                       pairs1 * WINNER_OPS,
+                       f"{pairs1} (pixel, face) pairs in closed boxes x "
+                       f"{WINNER_OPS}")
+        face_ops = f * SOFT_FACE_OPS
+        self.set_bound("soft_mask_fwd", f * 24 + hw * 4,
+                       face_ops + pairs2 * SOFT_FWD_OPS,
+                       f"{f} faces x {SOFT_FACE_OPS} ({face_ops}) + {pairs2}"
+                       f" pairs in the enlarged boxes x {SOFT_FWD_OPS} "
+                       f"({pairs2 * SOFT_FWD_OPS})")
+        self.set_bound("soft_mask_bwd", f * 24 + hw * 4 + f * 24,
+                       face_ops + pairs2 * SOFT_BWD_OPS,
+                       f"{f} faces x {SOFT_FACE_OPS} ({face_ops}) + {pairs2}"
+                       f" pairs x {SOFT_BWD_OPS} ({pairs2 * SOFT_BWD_OPS})")
+
+        rspc, cam, caps = self.config3()
+        b = self.spc_bins(rspc, cam, caps)
+        work = {}
+        self.sr.raster_tiles_plain(b["tab"], b["counts"], b["dz"], b["cam"],
+                                   rspc.l3boxes, rspc.units, **b["size"],
+                                   work=work)
+        tests = work["slab_tests"]
+        ins = (b["tab"], b["counts"], b["dz"], b["cam"], rspc.l3boxes,
+               rspc.units)
+        t_p = b["tab"].shape[1] * caps[0] ** 2
+        self.set_bound("spc_raster", sum(x.numel() * 4 for x in ins)
+                       + 2 * t_p * 4, tests * SLAB_OPS,
+                       f"{tests} (pixel, leaf) slab tests before the early "
+                       f"stop x {SLAB_OPS}")
+        self.set_bound("spc_untile", 4 * t_p * 4, 0,
+                       f"{t_p} depths and ids read, as many written")
+        for name, n_tab in GATHER_TABLES.items():
+            n = GATHER_IDX[0] * GATHER_IDX[1]
+            self.set_bound(name, 4 * n_tab + 8 * n, 0,
+                           f"a {n_tab}-float table once, {n} indices read "
+                           f"and values written")
+        torch.cuda.synchronize()
+
+        # the order in which to make the kernels faster: first those slower
+        # than their library call, largest factor first; then by launches
+        # per step x (device ms - bound ms)
+        r = self.results
+        slower = sorted((k for k in r if r[k]["library_ms"] is not None
+                         and r[k]["device_ms"] > r[k]["library_ms"]),
+                        key=lambda k: -r[k]["device_ms"] / r[k]["library_ms"])
+        rest = sorted((k for k in r if k not in slower),
+                      key=lambda k: -self.per_step[k]
+                      * (r[k]["device_ms"] - r[k]["bound_ms"]))
+        for i, k in enumerate(slower + rest, 1):
+            lib = r[k]["library_ms"]
+            print(f"order {i}: {k}: device {r[k]['device_ms']:.4f} ms, bound "
+                  f"{r[k]['bound_ms']:.6f} ms ({r[k]['bound_by']}), share "
+                  f"{r[k]['bound_ms'] / r[k]['device_ms']:.4f}, library "
+                  + ("none" if lib is None else f"{lib:.4f} ms")
+                  + f", {self.per_step[k]:g} launches per step [{self.card}]")
+
     def run(self):
         for phase in (self.phase_card, self.phase_build, self.phase_parity,
-                      self.phase_spc_parity, self.phase_main_path,
-                      self.phase_spc_main_path, self.phase_timing,
-                      self.phase_spc_timing):
+                      self.phase_spc_parity, self.phase_gather_parity,
+                      self.phase_main_path, self.phase_spc_main_path,
+                      self.phase_probe_path, self.phase_timing,
+                      self.phase_spc_timing, self.phase_gather_timing,
+                      self.phase_profile, self.phase_bounds):
             print(f"== {phase.__name__}", flush=True)
             try:
                 phase()
@@ -649,6 +1032,10 @@ class Smoke:
                 self.failures.append(phase.__name__)
                 if phase in (self.phase_card, self.phase_build):
                     break
+        for name, r in self.results.items():
+            missing = [k for k in ENTRY_KEYS[1:] if k not in r]
+            self.check(not missing, f"{name} has every number ({missing} "
+                       "missing)")
         return not self.failures
 
 

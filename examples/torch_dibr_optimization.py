@@ -7,11 +7,11 @@ optimisation step of BASELINE config 2: rasterize features and the soft
 mask, loss ``sum(img²) + sum(soft²)``, gradients with respect to
 ``face_vertices_image`` and ``face_features``, gradient-descent updates.
 
-On a CUDA device both run through the hand-written kernels; on the CPU
-through their plain PyTorch versions.
+Both run on the CUDA device by default, through the hand-written kernels;
+on the CPU, when ``"cpu"`` is named, through their plain PyTorch versions.
 
 Run from the repository root:
-    PYTHONPATH=. python examples/torch_dibr_optimization.py [cpu|cuda]
+    PYTHONPATH=. python examples/torch_dibr_optimization.py [cuda|cpu]
 """
 
 import sys
@@ -32,9 +32,10 @@ def triangle(shift, device):
     return fvz, fvi, feat
 
 
-def optimize(device="cpu", res=64, iters=60, verbose=False):
+def optimize(device="cuda", res=64, iters=60, verbose=False):
     """Move a triangle shifted by 0.45 in x onto the silhouette of the
-    unshifted one with Adam (lr 2e-2). Returns (loss per step, final
+    unshifted one with Adam (lr 2e-2), on ``device`` (the CUDA device
+    unless ``"cpu"`` is named). Returns (loss per step, final
     ``face_vertices_image`` (1, 1, 3, 2))."""
     fvz, fvi_target, feat = triangle(0.0, device)
     nz = torch.ones((1, 1), device=device)
@@ -58,9 +59,10 @@ def optimize(device="cpu", res=64, iters=60, verbose=False):
     return [float(x) for x in torch.stack(losses).cpu()], fvi.detach()
 
 
-def main(device="cpu", res=64, iters=60, verbose=True):
-    """Recover a triangle's x shift (0.45 → 0) from its silhouette.
-    Returns (loss per step, recovered shift)."""
+def main(device="cuda", res=64, iters=60, verbose=True):
+    """Recover a triangle's x shift (0.45 → 0) from its silhouette, on
+    ``device`` (the CUDA device unless ``"cpu"`` is named). Returns (loss
+    per step, recovered shift)."""
     losses, fvi = optimize(device, res, iters, verbose)
     shift = float(fvi[..., 0].mean())
     if verbose:
@@ -140,4 +142,4 @@ def config2_step(device, res=512, steps=5, n_lat=40, n_lon=64):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "cpu")
+    main(sys.argv[1] if len(sys.argv) > 1 else "cuda")

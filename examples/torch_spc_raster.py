@@ -5,12 +5,12 @@ level-9 sphere-shell SPC rendered at 512² through a pinhole camera.
 ``config3_inputs`` makes the scene's points with numpy, ``build_scene``
 turns them into an octree, its point hierarchy, the raster payload and the
 camera, ``grow_caps`` finds binning capacities that leave no overflow, and
-``config3_frames`` renders a sequence of frames. On a CUDA device the
-frames run through the hand-written raster kernels; on the CPU through
-their plain PyTorch versions.
+``config3_frames`` renders a sequence of frames. ``main`` runs on the CUDA
+device by default, through the hand-written raster kernels; on the CPU,
+when ``"cpu"`` is named, through their plain PyTorch versions.
 
 Run from the repository root:
-    PYTHONPATH=. python examples/torch_spc_raster.py [cpu|cuda] [level] [res]
+    PYTHONPATH=. python examples/torch_spc_raster.py [cuda|cpu] [level] [res]
 """
 
 import sys
@@ -109,8 +109,9 @@ def config3_frames(device, res=512, frames=60, level=9):
             "caps": caps, "rspc": rspc, "camera": camera}
 
 
-def main(device="cpu", level=9, res=512):
-    """Render one depth image of config 3 → (depth (res, res), caps)."""
+def main(device="cuda", level=9, res=512):
+    """Render one depth image of config 3 on ``device`` (the CUDA device
+    unless ``"cpu"`` is named) → (depth (res, res), caps)."""
     rspc, camera, _ = build_scene(config3_inputs(level), device, res)
     caps, (t, nidx, valid, _) = grow_caps(rspc, camera)
     depth = t.reshape(res, res)
@@ -123,5 +124,5 @@ def main(device="cpu", level=9, res=512):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "cpu",
+    main(sys.argv[1] if len(sys.argv) > 1 else "cuda",
          *(int(a) for a in sys.argv[2:4]))

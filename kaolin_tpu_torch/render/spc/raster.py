@@ -356,7 +356,7 @@ def _exit_bound(l3boxes, origin, inv):
 
 
 def raster_tiles_plain(tab, counts, dz, cam, l3boxes, units, *, width,
-                       height, tile_px):
+                       height, tile_px, work=None):
     """Plain version of the tile kernel → (depth (T, P) float32, id (T, P)
     int32), 3e38 and -1 where no leaf is hit.
 
@@ -366,7 +366,11 @@ def raster_tiles_plain(tab, counts, dz, cam, l3boxes, units, *, width,
     below the next batch's depth lower bound ``zq * dz``, and a stopped
     tile ignores later slots. Within a unit ties go to the lowest id;
     across units only a strictly nearer hit replaces the best, so the unit
-    visited first wins."""
+    visited first wins.
+
+    ``work``, a dict when given, gets ``"slab_tests"``: the (pixel, leaf)
+    slab tests of the walk, up to each tile's early stop, which the tile
+    kernel makes too."""
     c_cap, t_n = tab.shape
     tx_n = width // tile_px
     p = tile_px * tile_px
@@ -388,6 +392,9 @@ def raster_tiles_plain(tab, counts, dz, cam, l3boxes, units, *, width,
             rows = torch.nonzero(live & (s < counts)).squeeze(1)
             if rows.numel() == 0:
                 break
+            if work is not None:
+                work["slab_tests"] = (work.get("slab_tests", 0)
+                                      + rows.numel() * p * units.shape[-1])
             uid = tab[s, rows] >> 16
             u = units[uid][:, :, None, :]                     # (R, 8, 1, 128)
             t_in, _, hit = _slab([u[:, k] for k in range(3)],

@@ -1,2 +1,13 @@
 from kaolin_tpu_torch.utils.backend import is_cuda  # noqa: F401
+from kaolin_tpu_torch.utils.cuda_gather import (  # noqa: F401
+    gather_route,
+    table_gather,
+    table_gather_plain,
+)
 from kaolin_tpu_torch.utils.interop import from_numpy_tree  # noqa: F401
+from kaolin_tpu_torch.utils.profiling import (  # noqa: F401
+    Timing,
+    sync,
+    time_fn,
+    trace,
+)

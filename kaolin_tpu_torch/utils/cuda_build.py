@@ -3,10 +3,11 @@ them with ctypes. Plays the role of ``kaolin_tpu/native/build.py``.
 
 Every ``kaolin_tpu_torch/**/csrc/*.cu`` goes into ONE shared library with a
 plain C interface. No source includes PyTorch's headers, so ``nvcc`` takes
-seconds, not the minutes of ``torch.utils.cpp_extension.load``. The library
-is written to ``build/kaolin_tpu_torch/<hash>/`` at the repository root; the
-hash covers the sources, the headers and the flags, so an edit rebuilds. It
-is built at first use, never at import.
+seconds, not the minutes of ``torch.utils.cpp_extension.load``; one ``nvcc``
+per source runs at once, then one links. The library is written to
+``build/kaolin_tpu_torch/<hash>/`` at the repository root; the hash covers
+the sources, the headers and the flags, so an edit rebuilds. It is built at
+first use, never at import.
 
 Conventions of the C entries: every pointer and the stream are passed as
 ``c_void_p``; each entry launches on the stream it is given and returns
@@ -32,7 +33,7 @@ _ROOT = _PKG.parent
 # mask's backward must see the same ties among its 6 distance candidates.
 # Never --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _LIB_NAME = "libkaolin_tpu_torch.so"
 _lock = threading.Lock()
@@ -73,20 +74,42 @@ def library_path():
     return build_dir / _LIB_NAME
 
 
+def _run(cmds):
+    """Run the commands at once, wait for all; raise on the first that
+    failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{out}{err}")
+    if failed:
+        raise RuntimeError(failed[0])
+
+
 def build():
     """Compile the library unless it is already built; return its path."""
     so = library_path()
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)   # atomic: a concurrent loader sees all or nothing
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{src.parent.parent.name}_{src.stem}.{tag}.o")
+            for src in sources()]
+    tmp = so.with_name(f"{_LIB_NAME}.{tag}")
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources(), objs)])
+        _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+        os.replace(tmp, so)   # atomic: a concurrent loader sees all or nothing
+    finally:   # a failed compile or link leaves nothing behind
+        for leftover in (*objs, tmp):
+            leftover.unlink(missing_ok=True)
     return so
 
 

@@ -231,8 +231,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
     names = sorted(p.name for p in cuda_build.sources())
-    assert names == ["raster.cu", "rasterize.cu", "soft_mask.cu",
-                     "status.cu"]
+    assert names == ["gather.cu", "raster.cu", "rasterize.cu",
+                     "soft_mask.cu", "status.cu"]
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     path = cuda_build.library_path()
     assert path.parts[-4:-2] == ("build", "kaolin_tpu_torch")
@@ -241,6 +241,25 @@ def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build.Path, "is_file", lambda self: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.find_nvcc()
+
+
+def test_failed_build_leaves_no_objects(monkeypatch, tmp_path):
+    """One source fails to compile while the others succeed: the build
+    raises and removes every object file it wrote."""
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    # writes its -o file, then fails on raster.cu only
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do\n'
+                    '  case "$1" in -o) shift; touch "$1";;\n'
+                    '    *raster.cu) bad=1;; esac\n  shift\ndone\n'
+                    'exit ${bad:-0}\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(nvcc.parents[1]))
+    so = tmp_path / "build" / "libkaolin_tpu_torch.so"
+    monkeypatch.setattr(cuda_build, "library_path", lambda: so)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_build.build()
+    assert list(so.parent.iterdir()) == []
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int32, np.bool_])
@@ -262,7 +281,10 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
     code = ("import sys, kaolin_tpu_torch, kaolin_tpu_torch.render.mesh, "
             "kaolin_tpu_torch.metrics.render, kaolin_tpu_torch.ops.spc, "
             "kaolin_tpu_torch.render.camera, kaolin_tpu_torch.render.spc, "
-            "kaolin_tpu_torch.render.spc.cuda_raster\n"
+            "kaolin_tpu_torch.render.spc.cuda_raster, "
+            "kaolin_tpu_torch.utils.primitives_bench, "
+            "kaolin_tpu_torch.utils.profiling, "
+            "kaolin_tpu_torch.utils.cuda_gather\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'kaolin_tpu.')) or m == 'kaolin_tpu']\n"
             "print(bad)\n"

@@ -399,3 +399,27 @@ def test_cuda_wrappers_refuse_cpu_tensors(scenes):
                                 tile_px=8)
     assert cuda_raster.raster_tiles_cuda.launches == 0
     assert cuda_raster.untile_cuda.launches == 0
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_raster_tiles_plain_counts_its_slab_tests(scenes, name):
+    """``work`` leaves the result as it is and counts whole units of 128
+    leaves for every pixel of a tile: at least the first unit of each tile
+    with units, at most every unit binned."""
+    s = scenes[name]
+    params = raster._prep_camera(s.cam)
+    tab, counts, dz, _ = raster._bin_units(
+        s.rspc.uaabb, *params, width=s.res, height=s.res, tile_h=8, tile_w=8,
+        s_max=16, c_cap=s.c_cap)
+    args = (tab, counts, dz, raster._camera_vector(*params), s.rspc.l3boxes,
+            s.rspc.units)
+    size = dict(width=s.res, height=s.res, tile_px=8)
+    work = {}
+    got = raster.raster_tiles_plain(*args, **size, work=work)
+    want = raster.raster_tiles_plain(*args, **size)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    per_unit = 64 * 128
+    n = work["slab_tests"]
+    assert n % per_unit == 0
+    assert int((counts > 0).sum()) <= n // per_unit <= int(counts.sum())

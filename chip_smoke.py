@@ -12,10 +12,16 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
 2. build the CUDA kernels from ``kaolin_tpu_torch/**/csrc/*.cu`` (sm_90a);
 3. hold each kernel against its plain PyTorch version on the card: winner
    ids exactly, the soft-mask forward within 1e-5, the soft-mask backward
-   within 1e-4 of the plain gradient's largest entry (atomics reorder the
-   sums); at 100x72 with B = 2, and at the config-2 shapes. The SPC tile
-   and untile kernels bitwise (depths) and exactly (ids), on a clustered
-   level-5 octree at 64² with 8-px tiles and on config 3;
+   within 1e-4 of the plain gradient's largest entry (the plain autograd
+   sums in another order); at 100x72 with B = 2, at the config-2 shapes,
+   on ``adversarial_faces`` (box edges on pixel centres, faces off the
+   image, one face over the whole image), on config 2's sphere twice in
+   one batch and on 100 faces over a whole 512x512 image (the plan's two
+   passes and its larger bands); the backward also bitwise equal across
+   two launches on config 2. The SPC tile and untile kernels
+   bitwise (depths) and exactly (ids), on a clustered level-5 octree at
+   64² with 8-px tiles, on config 3 and on a camera inside config 3's
+   shell with its grown capacities;
 4. the DIB-R path: ``config2_step`` (512², a 4992-face UV sphere, forward
    and backward, 5 steps) with every launch counter set to 0 before and
    read after, its first step held against the same step through the plain
@@ -47,8 +53,10 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
 10. each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
    and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), the
    operations counted from this run's inputs, a term that depends on the
-   face alone once per face; then the kernels in the order
-   in which to make them faster.
+   face alone once per face, and for the SPC tile kernel only the slab
+   tests the walk needs (every unit box walked, the leaves of the units a
+   ray enters nearer than its best, the level-3 boxes); then the kernels
+   in the order in which to make them faster.
 
 Prints a JSON line with each kernel's launches, error, times and bound, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, without
@@ -154,13 +162,17 @@ KERNELS = {
 DIBR_KERNELS = ("winner", "soft_mask_fwd", "soft_mask_bwd")
 SPC_KERNELS = ("spc_raster", "spc_untile")
 GATHER_KERNELS = ("table_gather_smem", "table_gather_l2")
-# the kernels' names in a torch.profiler trace
-DEVICE_NAMES = {"winner": "winner_kernel", "soft_mask_fwd": "soft_fwd_kernel",
-                "soft_mask_bwd": "soft_bwd_kernel",
-                "spc_raster": "raster_tiles_kernel",
-                "spc_untile": "untile_kernel",
-                "table_gather_smem": "gather_smem_kernel",
-                "table_gather_l2": "gather_l2_kernel"}
+# the kernels' names in a torch.profiler trace: the kernel whose launches
+# are counted, then the helper launches whose time is the kernel's too
+DEVICE_NAMES = {"winner": ("winner_kernel",),
+                "soft_mask_fwd": ("soft_fwd_kernel",),
+                "soft_mask_bwd": ("soft_bwd_kernel", "soft_bwd_count_kernel",
+                                  "soft_bwd_plan_kernel",
+                                  "soft_bwd_sum_kernel"),
+                "spc_raster": ("raster_tiles_kernel",),
+                "spc_untile": ("untile_kernel",),
+                "table_gather_smem": ("gather_smem_kernel",),
+                "table_gather_l2": ("gather_l2_kernel",)}
 # every line the full probe prints, in order
 PROBE_NAMES = (
     "gather1d_n65536_tab1048576", "gather1d_n1048576_tab1048576",
@@ -173,6 +185,56 @@ PROBE_NAMES = (
 ENTRY_KEYS = ("name", "route", "source", "replaces", "launches",
               "max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms",
               "bound_by", "library_ms")
+
+
+def adversarial_faces():
+    """Scaled faces (2, 36, 3, 2) float32 at 72x100 for the soft mask with
+    multiplier 1000 and boxlen 0.02 (margin 20), and a seeded cotangent on
+    allprob (2, 72, 100): per batch element 24 random faces, some partly
+    off the image; 6 whose enlarged boxes have all four edges on pixel
+    centres (the half-open test keeps the low edges and drops the high
+    ones); 2 wholly off the image, 2 across its left and bottom edges; a
+    point face on a pixel centre (tied candidates); and one face whose box
+    covers the whole image (7,200 pixels, more than one band of the
+    backward kernel)."""
+    h, w, margin = 72, 100, np.float32(20.0)
+    sx, sy = np.float32(1000.0 / w), np.float32(1000.0 / h)
+
+    def cx(c):   # pixel centres as rasterization._pixel_coords rounds them
+        return sx * np.float32(2 * c + 1 - w)
+
+    def cy(r):
+        return sy * np.float32(h - 2 * r - 1)
+
+    def vertex(centre, sign):
+        """A float32 v with fl(v - sign * margin) == centre exactly."""
+        v = np.float32(centre + sign * margin)
+        for _ in range(8):
+            e = np.float32(v - sign * margin)
+            if e == centre:
+                return v
+            v = np.nextafter(v, np.float32(np.inf if e < centre else -np.inf),
+                             dtype=np.float32)
+        raise AssertionError(f"no vertex puts an edge on {centre}")
+
+    rng = np.random.RandomState(7)
+    out = []
+    for _ in range(2):
+        faces = list(rng.randn(24, 3, 2).astype(np.float32) * 400)
+        for _ in range(6):
+            c, r = rng.randint(2, w - 12), rng.randint(2, h - 12)
+            x0, x1 = vertex(cx(c), 1), vertex(cx(c + rng.randint(3, 9)), -1)
+            y1, y0 = vertex(cy(r), -1), vertex(cy(r + rng.randint(3, 9)), 1)
+            faces.append([[x0, y0], [x1, (y0 + y1) / 2], [(x0 + x1) / 2, y1]])
+        faces += [[[1200, 100], [1400, 300], [1300, 500]],
+                  [[-200, -1100], [300, -1300], [0, -1500]],
+                  [[-1100, 0], [-900, 200], [-1050, 300]],
+                  [[-100, -1050], [200, -900], [50, -1200]],
+                  [[cx(40), cy(20)]] * 3,
+                  [[-1100, -1100], [1100, -1050], [-1050, 1100]]]
+        out.append(np.asarray(faces, np.float32))
+    g = rng.randn(2, h, w).astype(np.float32)
+    return np.stack(out), g, h, w
 
 
 def card_line():
@@ -298,6 +360,29 @@ class Smoke:
                  "fvi": (d["face_vertices_image"] * 1000.0).contiguous(),
                  "valid": d["face_normals_z"] >= 0}, res, res)
 
+    def sphere_pair_case(self, res):
+        """Config 2's sphere and a copy scaled by 0.9 as a batch of two:
+        9,984 faces, more than the backward plan takes in one pass."""
+        d, h, w = self.sphere_case(res)
+        torch = self.torch
+        return ({"fvz": torch.cat([d["fvz"], d["fvz"]]),
+                 "fvi": torch.cat([d["fvi"], d["fvi"] * 0.9]).contiguous(),
+                 "valid": torch.cat([d["valid"], d["valid"]])}, h, w)
+
+    def screen_faces_case(self):
+        """100 faces whose enlarged boxes each hold all of a 512x512 image,
+        with edges across it, and a seeded cotangent: 6,400 bands of 4,096
+        pixels outgrow the backward's 4,296 band slots, so its plan makes
+        the bands twice as large."""
+        rng = np.random.RandomState(3)
+        r = rng.uniform(0, 200, (1, 100, 4)).astype(np.float32)
+        t = rng.uniform(-1000, 1000, (1, 100, 2)).astype(np.float32)
+        fvi = np.stack([np.stack([-1100 - r[..., 0], -1100 - r[..., 1]], -1),
+                        np.stack([1100 + r[..., 2], t[..., 0]], -1),
+                        np.stack([t[..., 1], 1100 + r[..., 3]], -1)], 2)
+        g = rng.randn(1, 512, 512).astype(np.float32)
+        return self.from_numpy_tree({"fvi": fvi, "g": g}, "cuda"), 512, 512
+
     def soft_cotangent(self, d, h, w):
         """The cotangent on allprob that loss sum(soft²) gives, and
         allprob, for a case."""
@@ -388,14 +473,26 @@ class Smoke:
                        f"max abs err {err:.3e}")
             self.record_err("soft_mask_fwd", err)
 
+        fvi, g_adv, h_adv, w_adv = adversarial_faces()
+        adv = self.from_numpy_tree({"fvi": fvi, "g": g_adv}, "cuda")
         bwd_cases = [("random 72x100 B=2", self.random_case()),
                      ("sphere 128x128", self.sphere_case(128)),
-                     (f"sphere {RES}x{RES}", self.sphere_case(RES))]
+                     (f"sphere {RES}x{RES}", self.sphere_case(RES)),
+                     (f"adversarial {h_adv}x{w_adv} B=2",
+                      (adv, h_adv, w_adv)),
+                     ("sphere pair 128x128 B=2", self.sphere_pair_case(128)),
+                     ("100 faces over 512x512", self.screen_faces_case())]
         for label, (d, h, w) in bwd_cases:
-            g, allprob = self.soft_cotangent(d, h, w)
-            grad_k = self.cs.soft_mask_bwd_cuda(
-                d["fvi"], (g * allprob).contiguous(), 7000.0, 0.02, 1000.0,
-                h, w)
+            if "g" in d:
+                g = d["g"]
+                with torch.no_grad():
+                    allprob = self.dibr.soft_mask_plain(d["fvi"], 7000.0,
+                                                        0.02, 1000.0, h, w)
+            else:
+                g, allprob = self.soft_cotangent(d, h, w)
+            ga = (g * allprob).contiguous()
+            grad_k = self.cs.soft_mask_bwd_cuda(d["fvi"], ga, 7000.0, 0.02,
+                                                1000.0, h, w)
             grad_p = self.dibr._soft_mask_bwd_plain(d["fvi"], g, 7000.0,
                                                     0.02, 1000.0, h, w)
             scale = float(grad_p.abs().max())
@@ -405,6 +502,13 @@ class Smoke:
                        f"[{label}]: max abs err {err:.3e}, max|grad| "
                        f"{scale:.3e}, ratio {err / max(scale, 1e-30):.3e}")
             self.record_err("soft_mask_bwd", err)
+            if label.startswith("sphere 512"):
+                again = self.cs.soft_mask_bwd_cuda(d["fvi"], ga, 7000.0,
+                                                   0.02, 1000.0, h, w)
+                same = torch.equal(again.view(torch.int32),
+                                   grad_k.view(torch.int32))
+                self.check(same, f"soft-mask backward bitwise equal across "
+                           f"two launches [{label}]: {same}")
         torch.cuda.synchronize()
 
     def plain_loss(self, inputs, fvi, feats, res):
@@ -538,7 +642,7 @@ class Smoke:
         fn = (self.craster.raster_tiles_cuda if kernel
               else self.sr.raster_tiles_plain)
         return fn(b["tab"], b["counts"], b["dz"], b["cam"], rspc.l3boxes,
-                  rspc.units, **b["size"])
+                  rspc.units, rspc.uaabb, **b["size"])
 
     def spc_plain_frame(self, rspc, cam, caps):
         """raster_first_hit with the plain versions in place of the
@@ -621,11 +725,15 @@ class Smoke:
              "eye": np.float32([1.5, 0.9, -1.2]), "at": np.zeros(3, "f4"),
              "up": np.float32([0, 1, 0]), "fov": 0.9}, self.device, 64)[:2]
         caps, _ = self.spc_ex.grow_caps(*blobs, caps=(8, 16, 128))
-        rspc, cam, caps3 = self.config3()
+        rspc3, cam3, caps3 = self.config3()
+        inside = self.spc_camera(list(INSIDE_EYE), SPC_RES, 0.8)
+        caps_in, _ = self.spc_ex.grow_caps(rspc3, inside)
         for label, (rspc, cam, caps) in (
                 (f"blobs L5 64x64, caps {caps}", (*blobs, caps)),
                 (f"config 3 L{SPC_LEVEL} {SPC_RES}x{SPC_RES}, caps {caps3}",
-                 (rspc, cam, caps3))):
+                 (rspc3, cam3, caps3)),
+                (f"inside the shell {SPC_RES}x{SPC_RES}, caps {caps_in}",
+                 (rspc3, inside, caps_in))):
             b = self.spc_bins(rspc, cam, caps)
             dk, ik = self.spc_tiles(True, rspc, b)
             dp, ip = self.spc_tiles(False, rspc, b)
@@ -829,19 +937,27 @@ class Smoke:
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
 
     # -- the profile ---------------------------------------------------------
-    def device_events(self, label, fn, reps):
+    def device_events(self, label, fn, reps, attempts=3):
         """``fn`` run once, then ``reps`` times under ``torch.profiler``
-        → [(kernel or copy name, device µs)] of the profiled runs."""
+        → [(kernel or copy name, device µs)] of the profiled runs. The
+        profiler now and then hands back a trace without device time; such
+        a trace is taken again, up to ``attempts`` times."""
         torch = self.torch
+        cuda = torch.autograd.DeviceType.CUDA
         fn()
         torch.cuda.synchronize()
-        with self.profiling.trace(label, TRACE_DIR) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        cuda = torch.autograd.DeviceType.CUDA
-        return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                if e.device_type == cuda]
+        for _ in range(attempts):
+            with self.profiling.trace(label, TRACE_DIR) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            events = [(e.name, e.time_range.elapsed_us())
+                      for e in prof.events() if e.device_type == cuda]
+            if any(us > 0 for _, us in events):
+                return events
+            print(f"{label}: the profiler recorded no device time; "
+                  "tracing again", flush=True)
+        raise RuntimeError(f"{label}: no device time in {attempts} traces")
 
     def wall_ms(self, fn, reps):
         """Host wall ms per call of ``fn`` over ``reps`` calls, synced,
@@ -869,13 +985,18 @@ class Smoke:
               f"busy {busy:.4f} ms of {wall:.4f} ms host wall per step "
               f"(idle share {1 - busy / wall:.3f}) [{self.card}]")
         for k in names:
-            mine = [us for name, us in events if DEVICE_NAMES[k] in name]
-            self.results[k]["device_ms"] = sum(mine) / n / 1e3
+            main, *helpers = DEVICE_NAMES[k]
+            mine = [us for name, us in events if main in name]
+            extra = [us for name, us in events
+                     if any(h in name for h in helpers)]
+            self.results[k]["device_ms"] = (sum(mine) + sum(extra)) / n / 1e3
             self.per_step[k] = len(mine) / n
             self.check(len(mine) > 0, f"{label} profile holds {k}")
-            print(f"  {k}: {self.results[k]['device_ms']:.4f} device ms, "
+            print(f"  {k}: {self.results[k]['device_ms']:.4f} device ms "
+                  f"({sum(extra) / n / 1e3:.4f} of it in "
+                  f"{len(extra) / n:g} helper launches), "
                   f"{len(mine) / n:g} launches per step, "
-                  f"{100 * sum(mine) / n / 1e3 / busy:.1f}% of busy")
+                  f"{100 * self.results[k]['device_ms'] / busy:.1f}% of busy")
         top = {}
         for name, us in events:
             top[name] = top.get(name, 0.0) + us / n / 1e3
@@ -936,22 +1057,28 @@ class Smoke:
               f"float32 operations ({t_ops:.6f} ms) -> bound "
               f"{r['bound_ms']:.6f} ms by {r['bound_by']}")
 
-    def box_pairs(self, d, h, w, margin, closed):
+    def box_pairs(self, d, h, w, margin, closed, where=None):
         """(pixel, face) pairs with the pixel centre in the face's box,
         enlarged by ``margin``: closed as the winner search's, half open as
-        the soft mask's → pairs per face, (F,)."""
-        px, py = self.rast._pixel_coords(h, w, 1000, self.torch.float32,
+        the soft mask's; only at pixels where ``where`` (H, W) holds, when
+        given → pairs per face, (F,)."""
+        torch = self.torch
+        px, py = self.rast._pixel_coords(h, w, 1000, torch.float32,
                                          d["fvi"].device)
         xs, ys = px[0], py[:, 0]
         v = d["fvi"][0]
         lo, hi = v.amin(dim=1) - margin, v.amax(dim=1) + margin
 
-        def count(c, k):
+        def inside(c, k):
             upper = c[None] <= hi[:, k:k + 1] if closed else \
                 c[None] < hi[:, k:k + 1]
-            return ((c[None] >= lo[:, k:k + 1]) & upper).sum(dim=1)
+            return ((c[None] >= lo[:, k:k + 1]) & upper).float()
 
-        return count(xs, 0) * count(ys, 1)
+        cols, rows = inside(xs, 0), inside(ys, 1)           # (F, W), (F, H)
+        if where is None:
+            return (rows.sum(dim=1) * cols.sum(dim=1)).long()
+        # exact in float32: every partial count is below 2^24
+        return ((rows @ where.float()) * cols).sum(dim=1).long()
 
     def phase_bounds(self):
         torch = self.torch
@@ -970,25 +1097,40 @@ class Smoke:
                        f"{f} faces x {SOFT_FACE_OPS} ({face_ops}) + {pairs2}"
                        f" pairs in the enlarged boxes x {SOFT_FWD_OPS} "
                        f"({pairs2 * SOFT_FWD_OPS})")
+        # the backward's pairs at pixels whose cotangent is zero (those the
+        # rasterizer covers) add nothing: it needs only the others
+        g, allprob = self.soft_cotangent(d, h, w)
+        live = (g * allprob)[0] != 0
+        pairs3 = int(self.box_pairs(d, h, w, 0.02 * 1000.0, False,
+                                    live).sum())
         self.set_bound("soft_mask_bwd", f * 24 + hw * 4 + f * 24,
-                       face_ops + pairs2 * SOFT_BWD_OPS,
-                       f"{f} faces x {SOFT_FACE_OPS} ({face_ops}) + {pairs2}"
-                       f" pairs x {SOFT_BWD_OPS} ({pairs2 * SOFT_BWD_OPS})")
+                       face_ops + pairs3 * SOFT_BWD_OPS,
+                       f"{f} faces x {SOFT_FACE_OPS} ({face_ops}) + {pairs3}"
+                       f" pairs with a non-zero cotangent, of {pairs2}, x "
+                       f"{SOFT_BWD_OPS} ({pairs3 * SOFT_BWD_OPS})")
 
         rspc, cam, caps = self.config3()
         b = self.spc_bins(rspc, cam, caps)
         work = {}
         self.sr.raster_tiles_plain(b["tab"], b["counts"], b["dz"], b["cam"],
-                                   rspc.l3boxes, rspc.units, **b["size"],
-                                   work=work)
-        tests = work["slab_tests"]
+                                   rspc.l3boxes, rspc.units, rspc.uaabb,
+                                   **b["size"], work=work)
+        busy_px = int((b["counts"] > 0).sum()) * caps[0] ** 2
+        l3 = int((rspc.l3boxes[:, 0] < 1.0e38).sum())
+        tests = work["unit_tests"] + work["needed_leaf_tests"] + busy_px * l3
         ins = (b["tab"], b["counts"], b["dz"], b["cam"], rspc.l3boxes,
-               rspc.units)
+               rspc.units, rspc.uaabb)
         t_p = b["tab"].shape[1] * caps[0] ** 2
         self.set_bound("spc_raster", sum(x.numel() * 4 for x in ins)
                        + 2 * t_p * 4, tests * SLAB_OPS,
-                       f"{tests} (pixel, leaf) slab tests before the early "
-                       f"stop x {SLAB_OPS}")
+                       f"{tests} slab tests the walk needs "
+                       f"({work['unit_tests']}"
+                       f" (pixel, unit box), {work['needed_leaf_tests']} "
+                       f"(pixel, leaf) of the units a ray enters nearer than "
+                       f"its best, {busy_px * l3} (pixel, level-3 box) on "
+                       f"{busy_px} pixels of busy tiles and {l3} boxes) x "
+                       f"{SLAB_OPS}; every leaf of every unit walked would be "
+                       f"{work['slab_tests']}")
         self.set_bound("spc_untile", 4 * t_p * 4, 0,
                        f"{t_p} depths and ids read, as many written")
         for name, n_tab in GATHER_TABLES.items():

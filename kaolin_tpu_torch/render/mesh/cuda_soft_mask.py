@@ -17,7 +17,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _FWD_ARGTYPES = [_P, _P] + [_I] * 4 + [_F] * 6 + [_P]
-_BWD_ARGTYPES = [_P, _P, _P] + [_I] * 4 + [_F] * 7 + [_P]
+_BWD_ARGTYPES = [_P] * 4 + [_I] * 5 + [_F] * 7 + [_P]
 
 
 def _scalars(sigmainv, boxlen, multiplier, height, width):
@@ -61,14 +61,24 @@ def soft_mask_fwd_cuda(face_vertices_image, sigmainv, boxlen, multiplier,
 def soft_mask_bwd_cuda(face_vertices_image, ga, sigmainv, boxlen, multiplier,
                        height, width):
     """Gradient with respect to the scaled ``face_vertices_image``
-    (B, F, 3, 2), given ``ga = grad(allprob) * allprob`` (B, H, W)."""
+    (B, F, 3, 2), given ``ga = grad(allprob) * allprob`` (B, H, W).
+
+    Face-major, with no atomics: the same inputs give the same bits."""
     b, f = _check_faces(face_vertices_image)
     cuda_build.require(ga, "ga", (b, height, width), torch.float32)
-    grad = torch.zeros_like(face_vertices_image)
+    grad = torch.empty_like(face_vertices_image)
+    # band slots: a face takes one per 4,096 pixels of its box; where they
+    # do not fit, the kernel's plan makes the bands larger
+    cap = 2 * b * f + 4096
+    # per face its pixel range (4), first band and band count, then
+    # (bands, band_px), the (face, band) of each slot and its 6 float32 sums
+    work = torch.empty(6 * b * f + 2 + 8 * cap, dtype=torch.int32,
+                       device=face_vertices_image.device)
     fn = cuda_build.function("kaolin_soft_mask_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(face_vertices_image.device):
         status = fn(cuda_build.ptr(face_vertices_image), cuda_build.ptr(ga),
-                    cuda_build.ptr(grad), b, f, height, width,
+                    cuda_build.ptr(grad), cuda_build.ptr(work), b, f, height,
+                    width, cap,
                     *_scalars(sigmainv, boxlen, multiplier, height, width),
                     sigmainv / (multiplier * multiplier),
                     4.0 * multiplier * multiplier,

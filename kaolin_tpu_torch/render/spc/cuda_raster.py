@@ -16,10 +16,10 @@ from kaolin_tpu_torch.utils import cuda_build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_RASTER_ARGTYPES = [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P]
+_RASTER_ARGTYPES = [_P] * 9 + [_I] * 6 + [_F] * 2 + [_P]
 _UNTILE_ARGTYPES = [_P] * 4 + [_I] * 4 + [_P]
-# one thread per pixel of a tile, at most 1024 threads a block
-_MAX_TILE_PX = 32
+# four threads per pixel of a tile, at most 1024 threads a block
+_MAX_TILE_PX = 16
 # the level-3 cells staged in shared memory
 _MAX_BOXES = 512
 
@@ -41,7 +41,7 @@ def _same_device(tensors):
                          f"{sorted(map(str, devices))}")
 
 
-def raster_tiles_cuda(tab, counts, dz, cam, l3boxes, units, *, width,
+def raster_tiles_cuda(tab, counts, dz, cam, l3boxes, units, uaabb, *, width,
                       height, tile_px):
     """The tile kernel on the card → (depth (T, P) float32, id (T, P)
     int32), 3e38 and -1 where no leaf is hit.
@@ -53,7 +53,9 @@ def raster_tiles_cuda(tab, counts, dz, cam, l3boxes, units, *, width,
         cam: (19,) float32: R row-major, t, tan_h, tan_v, x0, y0, the ray
             origin.
         l3boxes: (M, 8) float32, M a multiple of 8 and at most 512.
-        units: (U, 8, 128) float32.
+        units: (U, 8, 128) float32, 16-byte aligned (the kernel copies
+            whole units with cp.async.bulk).
+        uaabb: (U, 8) float32 tight unit boxes, 16-byte aligned.
         width, height, tile_px: the image and its square tiles.
 
     All tensors are contiguous and on one CUDA device. Launches on
@@ -72,9 +74,13 @@ def raster_tiles_cuda(tab, counts, dz, cam, l3boxes, units, *, width,
     cuda_build.require(dz, "dz", (), torch.float32)
     cuda_build.require(cam, "cam", (19,), torch.float32)
     cuda_build.require(l3boxes, "l3boxes", (m, 8), torch.float32)
-    cuda_build.require(units, "units", (units.shape[0], 8, 128),
-                       torch.float32)
-    _same_device((tab, counts, dz, cam, l3boxes, units))
+    u = units.shape[0]
+    cuda_build.require(units, "units", (u, 8, 128), torch.float32)
+    cuda_build.require(uaabb, "uaabb", (u, 8), torch.float32)
+    for t, name in ((units, "units"), (uaabb, "uaabb")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    _same_device((tab, counts, dz, cam, l3boxes, units, uaabb))
     p = tile_px * tile_px
     depth = torch.empty((t_n, p), dtype=torch.float32, device=units.device)
     ids = torch.empty((t_n, p), dtype=torch.int32, device=units.device)
@@ -84,7 +90,8 @@ def raster_tiles_cuda(tab, counts, dz, cam, l3boxes, units, *, width,
         status = fn(cuda_build.ptr(tab), cuda_build.ptr(counts),
                     cuda_build.ptr(dz), cuda_build.ptr(cam),
                     cuda_build.ptr(l3boxes), cuda_build.ptr(units),
-                    cuda_build.ptr(depth), cuda_build.ptr(ids), t_n, c_cap,
+                    cuda_build.ptr(uaabb), cuda_build.ptr(depth),
+                    cuda_build.ptr(ids), t_n, c_cap,
                     batch, m, tile_px, tx_n, float(width), float(height),
                     cuda_build.stream(units))
     cuda_build.check(status, "kaolin_spc_raster_tiles")

@@ -16,9 +16,12 @@ point-hierarchy id image of one SPC level, in three steps:
     ``tab (c_cap, T)``, packed ``uid << 16 | zq``.
 3.  **The tile kernel** (``csrc/raster.cu``, plain version
     :func:`raster_tiles_plain`): per tile, pinhole rays from the camera
-    vector, a slab test of every leaf of the tile's units front to back,
+    vector, a slab test of the leaves of the tile's units front to back,
     and an early stop once every pixel's ``min(best hit, scene-exit
-    bound)`` is nearer than the next batch's depth lower bound. A second
+    bound)`` is nearer than the next batch's depth lower bound. The kernel
+    skips a unit's leaves for a warp of 8 pixels when none of their rays
+    enters the unit's box (``uaabb``) nearer than its best, which changes
+    no result; the plain version tests every leaf. A second
     kernel (plain version :func:`untile_plain`) moves the tile-packed
     images to row-major order.
 
@@ -355,8 +358,8 @@ def _exit_bound(l3boxes, origin, inv):
     return torch.cat(out)
 
 
-def raster_tiles_plain(tab, counts, dz, cam, l3boxes, units, *, width,
-                       height, tile_px, work=None):
+def raster_tiles_plain(tab, counts, dz, cam, l3boxes, units, uaabb, *,
+                       width, height, tile_px, work=None):
     """Plain version of the tile kernel → (depth (T, P) float32, id (T, P)
     int32), 3e38 and -1 where no leaf is hit.
 
@@ -366,11 +369,15 @@ def raster_tiles_plain(tab, counts, dz, cam, l3boxes, units, *, width,
     below the next batch's depth lower bound ``zq * dz``, and a stopped
     tile ignores later slots. Within a unit ties go to the lowest id;
     across units only a strictly nearer hit replaces the best, so the unit
-    visited first wins.
+    visited first wins. ``uaabb`` (U, 8), the tight unit boxes, is read
+    only to count work.
 
-    ``work``, a dict when given, gets ``"slab_tests"``: the (pixel, leaf)
-    slab tests of the walk, up to each tile's early stop, which the tile
-    kernel makes too."""
+    ``work``, a dict when given, gets counts of the walk up to each tile's
+    early stop: ``"slab_tests"``, the (pixel, leaf) slab tests of every
+    leaf of every unit walked; ``"unit_tests"``, the (pixel, unit-box)
+    tests; and ``"needed_leaf_tests"``, 128 for each (pixel, unit) whose
+    box the pixel's ray enters nearer than its best so far, the only units
+    whose leaves can change a pixel. The results do not change."""
     c_cap, t_n = tab.shape
     tx_n = width // tile_px
     p = tile_px * tile_px
@@ -383,6 +390,9 @@ def raster_tiles_plain(tab, counts, dz, cam, l3boxes, units, *, width,
                         height)
     bound = _exit_bound(l3boxes, origin, inv)                 # (T, P)
     ids = units[:, 6].view(torch.int32)                       # (U, 128)
+    if work is not None:
+        for key in ("slab_tests", "unit_tests", "needed_leaf_tests"):
+            work.setdefault(key, 0)
 
     best = torch.full((t_n, p), _BIG, dtype=torch.float32, device=dev)
     best_id = torch.full((t_n, p), -1, dtype=torch.int32, device=dev)
@@ -392,10 +402,17 @@ def raster_tiles_plain(tab, counts, dz, cam, l3boxes, units, *, width,
             rows = torch.nonzero(live & (s < counts)).squeeze(1)
             if rows.numel() == 0:
                 break
-            if work is not None:
-                work["slab_tests"] = (work.get("slab_tests", 0)
-                                      + rows.numel() * p * units.shape[-1])
             uid = tab[s, rows] >> 16
+            if work is not None:
+                box = uaabb[uid][:, :, None]                  # (R, 8, 1)
+                t_box, _, hit_box = _slab(
+                    [box[:, k] for k in range(3)],
+                    [box[:, 3 + k] for k in range(3)], origin,
+                    [i[rows] for i in inv])
+                work["slab_tests"] += rows.numel() * p * _LANES
+                work["unit_tests"] += rows.numel() * p
+                work["needed_leaf_tests"] += _LANES * int(
+                    (hit_box & (t_box < best[rows])).sum())
             u = units[uid][:, :, None, :]                     # (R, 8, 1, 128)
             t_in, _, hit = _slab([u[:, k] for k in range(3)],
                                  [u[:, 3 + k] for k in range(3)], origin,
@@ -475,11 +492,11 @@ def _raster_frame(units, uaabb, l3boxes, cam_r, cam_t, tan_h, tan_v, x0, y0,
     size = dict(height=height, width=width, tile_px=tile_px)
     if is_cuda(units):
         depth_t, hit_id = cuda_raster.raster_tiles_cuda(
-            tab, counts, dz, cam, l3boxes, units, **size)
+            tab, counts, dz, cam, l3boxes, units, uaabb, **size)
         depth, nidx = cuda_raster.untile_cuda(depth_t, hit_id, **size)
     else:
         depth_t, hit_id = raster_tiles_plain(tab, counts, dz, cam, l3boxes,
-                                             units, **size)
+                                             units, uaabb, **size)
         depth, nidx = untile_plain(depth_t, hit_id, **size)
     return _finish(depth, nidx, overflow)
 

@@ -41,7 +41,9 @@ from kaolin_tpu.render.mesh.rasterization import (
 )
 from kaolin_tpu_torch.metrics.render import mask_iou
 from kaolin_tpu_torch.render.mesh import cuda_soft_mask
+from chip_smoke import adversarial_faces
 from kaolin_tpu_torch.render.mesh.dibr import (
+    _SoftMask,
     dibr_rasterization,
     dibr_soft_mask,
     soft_mask_plain,
@@ -157,6 +159,46 @@ def test_soft_mask_first_knum_matches_jax():
     for got in (mask, plain, np.asarray(direct)):
         np.testing.assert_allclose(got, want, atol=1e-5)
     _assert_grads_close(grad, np.asarray(g_want))
+
+
+def test_soft_mask_adversarial_case_matches_jax():
+    """The case the backward kernel is held against on the card
+    (``chip_smoke.adversarial_faces``, 72x100, B = 2): on the CPU the
+    port's all-faces soft mask (``_SoftMask``) and its gradient against
+    JAX's binned soft mask holding every face and its analytic VJP. The
+    case holds what it is for: enlarged-box edges on pixel centres, faces
+    with no pixel in the image, and a face whose box holds the whole
+    image."""
+    fvi, g, h, w = adversarial_faces()
+    b, f = fvi.shape[:2]
+    v = torch.from_numpy(fvi).requires_grad_(True)
+    allprob = _SoftMask.apply(v, 7000.0, 0.02, 1000.0, h, w)
+    torch.sum(allprob * torch.from_numpy(g)).backward()
+
+    def loss(fv):
+        soft = jax.vmap(lambda a, s: _soft_mask_binned(
+            a, s, 7000.0, 0.02, 1000.0, h, w, tile_px=4, cap=f))(
+                fv, jnp.full((b, h, w), -1, jnp.int32))
+        return jnp.sum((1.0 - soft) * g), soft
+
+    (_, soft), g_want = jax.value_and_grad(loss, has_aux=True)(
+        jnp.asarray(fvi))
+    # the edge distances of faces far from the image centre cancel large
+    # terms (C = x2·y1 − x1·y2 near 6e5 here), where XLA's fused
+    # multiply-adds and the port's separate roundings part by up to 3e-5
+    np.testing.assert_allclose(allprob.detach().numpy(),
+                               1.0 - np.asarray(soft), atol=5e-5)
+    _assert_grads_close(v.grad.numpy(), np.asarray(g_want))
+
+    px, py = _pixel_coords_jax(h, w, 1000.0, jnp.float32)
+    xs, ys = np.asarray(px)[0], np.asarray(py)[:, 0]
+    lo = fvi.min(axis=2) - np.float32(20.0)
+    hi = fvi.max(axis=2) + np.float32(20.0)
+    assert np.isin(lo[..., 0], xs).sum() >= 12
+    assert np.isin(hi[..., 1], ys).sum() >= 12
+    inside = (((xs >= lo[..., None, 0]) & (xs < hi[..., None, 0])).sum(-1)
+              * ((ys >= lo[..., None, 1]) & (ys < hi[..., None, 1])).sum(-1))
+    assert (inside == 0).sum() >= 4 and inside.max() == h * w > 4096
 
 
 def test_dibr_rasterization_and_mask_iou_match_jax():

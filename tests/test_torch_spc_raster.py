@@ -389,11 +389,11 @@ def test_cuda_wrappers_refuse_cpu_tensors(scenes):
     cam = raster._camera_vector(*params)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_raster.raster_tiles_cuda(tab, counts, dz, cam, s.rspc.l3boxes,
-                                      s.rspc.units, width=32, height=32,
-                                      tile_px=8)
+                                      s.rspc.units, s.rspc.uaabb, width=32,
+                                      height=32, tile_px=8)
     depth_t, ids_t = raster.raster_tiles_plain(
-        tab, counts, dz, cam, s.rspc.l3boxes, s.rspc.units, width=32,
-        height=32, tile_px=8)
+        tab, counts, dz, cam, s.rspc.l3boxes, s.rspc.units, s.rspc.uaabb,
+        width=32, height=32, tile_px=8)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_raster.untile_cuda(depth_t, ids_t, height=32, width=32,
                                 tile_px=8)
@@ -405,14 +405,15 @@ def test_cuda_wrappers_refuse_cpu_tensors(scenes):
 def test_raster_tiles_plain_counts_its_slab_tests(scenes, name):
     """``work`` leaves the result as it is and counts whole units of 128
     leaves for every pixel of a tile: at least the first unit of each tile
-    with units, at most every unit binned."""
+    with units, at most every unit binned; one unit-box test per pixel and
+    unit walked, and at most that many units' leaves needed."""
     s = scenes[name]
     params = raster._prep_camera(s.cam)
     tab, counts, dz, _ = raster._bin_units(
         s.rspc.uaabb, *params, width=s.res, height=s.res, tile_h=8, tile_w=8,
         s_max=16, c_cap=s.c_cap)
     args = (tab, counts, dz, raster._camera_vector(*params), s.rspc.l3boxes,
-            s.rspc.units)
+            s.rspc.units, s.rspc.uaabb)
     size = dict(width=s.res, height=s.res, tile_px=8)
     work = {}
     got = raster.raster_tiles_plain(*args, **size, work=work)
@@ -423,3 +424,109 @@ def test_raster_tiles_plain_counts_its_slab_tests(scenes, name):
     n = work["slab_tests"]
     assert n % per_unit == 0
     assert int((counts > 0).sum()) <= n // per_unit <= int(counts.sum())
+    assert work["unit_tests"] * 128 == n
+    assert work["needed_leaf_tests"] % 128 == 0
+    assert 0 < work["needed_leaf_tests"] <= n
+
+
+def walk_each_tile(tab, counts, dz, cam, l3boxes, units, uaabb, *, width,
+                   height, tile_px):
+    """The tile walk recounted by brute force, one tile at a time, slot by
+    slot, with the port's ``_rays``, ``_slab`` and ``uaabb`` → (counts as
+    ``raster_tiles_plain(work=...)`` gives them, best depths (T, P), and
+    the (pixel, unit) pairs where a leaf hits nearer than the pixel's best
+    although its ray does not enter the unit's box nearer than that)."""
+    c_cap, t_n = tab.shape
+    batch = next(b for b in (4, 2, 1) if c_cap % b == 0)
+    tx_n, p = width // tile_px, tile_px * tile_px
+    si = torch.arange(p)
+    work = {"slab_tests": 0, "unit_tests": 0, "needed_leaf_tests": 0}
+    misses = 0
+    depth = torch.full((t_n, p), 3.0e38)
+    for t in range(t_n):
+        origin, inv = raster._rays(cam, (t // tx_n) * tile_px + si // tile_px,
+                                   (t % tx_n) * tile_px + si % tile_px,
+                                   width, height)
+        bound = raster._exit_bound(l3boxes, origin, [i[None] for i in inv])[0]
+        best = torch.full((p,), 3.0e38)
+        n = int(counts[t])
+        for s in range(n):
+            uid = int(tab[s, t]) >> 16
+            box = uaabb[uid]
+            t_box, _, hit_box = raster._slab([box[k] for k in range(3)],
+                                             [box[3 + k] for k in range(3)],
+                                             origin, inv)
+            enters = hit_box & (t_box < best)
+            u = units[uid]
+            t_in, _, hit = raster._slab([u[k] for k in range(3)],
+                                        [u[3 + k] for k in range(3)], origin,
+                                        [i[:, None] for i in inv])
+            nearer = (hit & (t_in < best[:, None])).any(dim=1)
+            misses += int((nearer & ~enters).sum())
+            work["slab_tests"] += p * 128
+            work["unit_tests"] += p
+            work["needed_leaf_tests"] += 128 * int(enters.sum())
+            m = torch.where(hit, t_in, 3.0e38).amin(dim=1)
+            best = torch.where(m < best, m, best)
+            nxt = s + 1
+            if nxt % batch == 0 and nxt < n:
+                z_lb = (tab[min(nxt, c_cap - 1), t] & 0xFFFF).float() * dz
+                if bool(torch.minimum(best, bound).amax() < z_lb):
+                    break
+        depth[t] = best
+    return work, depth, misses
+
+
+def cull_scene(name):
+    """(rspc, camera, caps) of the scenes the unit cull is checked on."""
+    ex = load_example()
+    if name == "blobs L5 64²":
+        inputs = {"points": blob_points(1), "level": 5,
+                  "eye": np.float32([1.5, 0.9, -1.2]), "res": 64}
+    elif name == "shell L7 128²":
+        inputs = {"points": shell_points(7, (0.6, 0.25)), "level": 7,
+                  "eye": np.float32([1.4, 1.0, 1.3]), "res": 128}
+    else:   # the camera inside a level-4 shell
+        inputs = {"points": shell_points(4, (0.8,)), "level": 4,
+                  "eye": np.float32([0.05, 0.02, 0.04]), "res": 64}
+    inputs.update(at=np.zeros(3, np.float32), up=np.float32([0, 1, 0]),
+                  fov=0.9)
+    rspc, cam, _ = ex.build_scene(inputs, "cpu", inputs["res"])
+    caps, _ = ex.grow_caps(rspc, cam, caps=(8, 16, 64))
+    return rspc, cam, caps
+
+
+@pytest.mark.parametrize("name", ["blobs L5 64²", "shell L7 128²",
+                                  "inside L4 64²"])
+def test_unit_cull_loses_no_hit(name):
+    """The tile kernel skips a unit's leaves for a warp when no ray of the
+    warp enters the unit's box nearer than its best. On these scenes no
+    leaf hits nearer than a pixel's best unless the pixel's ray enters the
+    unit's box nearer than that, so the cull changes no result; and the
+    counts of ``raster_tiles_plain(work=...)`` equal a tile-by-tile
+    recount."""
+    rspc, cam, (tile_px, s_max, c_cap) = cull_scene(name)
+    params = raster._prep_camera(cam)
+    tab, counts, dz, ov = raster._bin_units(
+        rspc.uaabb, *params, width=cam.width, height=cam.height,
+        tile_h=tile_px, tile_w=tile_px, s_max=s_max, c_cap=c_cap)
+    assert all(int(v) == 0 for v in ov.values())
+    args = (tab, counts, dz, raster._camera_vector(*params), rspc.l3boxes,
+            rspc.units, rspc.uaabb)
+    size = dict(width=cam.width, height=cam.height, tile_px=tile_px)
+    work = {}
+    depth, _ = raster.raster_tiles_plain(*args, **size, work=work)
+    recount, depth_r, misses = walk_each_tile(*args, **size)
+    assert misses == 0
+    assert work == recount
+    assert torch.equal(depth.view(torch.int32), depth_r.view(torch.int32))
+    assert bool((depth < 1.0e38).any())
+    # the cull has work to save
+    assert work["needed_leaf_tests"] < work["slab_tests"]
+
+
+def test_tile_kernel_takes_tiles_of_at_most_16_pixels():
+    """Four threads a pixel: a 16-px tile is a block of 1024 threads."""
+    assert cuda_raster._tiles(64, 64, 16) == (4, 4)
+    with pytest.raises(ValueError, match="tile_px"):
+        cuda_raster._tiles(64, 64, 32)

@@ -17,15 +17,22 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    on ``adversarial_faces`` (box edges on pixel centres, faces off the
    image, one face over the whole image), on config 2's sphere twice in
    one batch and on 100 faces over a whole 512x512 image (the plan's two
-   passes and its larger bands); the backward also bitwise equal across
-   two launches on config 2. The SPC tile and untile kernels
+   passes and its larger bands; every tile's face list holds 100 faces);
+   the winner and the forward also on 2,000 small faces in one 16x16 tile
+   (each of its four 8x8 kernel tiles lists about 500 faces, more than
+   the 256 a block stages at once). The forward given the
+   rasterizer's ids (``face_idx``) bitwise equal to the forward without
+   them at every uncovered pixel and 1.0 at every covered one, and bitwise
+   equal across two launches; the backward bitwise equal across two
+   launches on config 2. The SPC tile and untile kernels
    bitwise (depths) and exactly (ids), on a clustered level-5 octree at
    64² with 8-px tiles, on config 3 and on a camera inside config 3's
    shell with its grown capacities;
 4. the DIB-R path: ``config2_step`` (512², a 4992-face UV sphere, forward
    and backward, 5 steps) with every launch counter set to 0 before and
-   read after, its first step held against the same step through the plain
-   versions; then the 64² silhouette optimisation of
+   read after (each soft-mask forward given the rasterizer's ids), its
+   first step held against the same step through the plain versions; then
+   the 64² silhouette optimisation of
    ``examples/torch_dibr_optimization.py`` (final loss < 0.30, |shift| <
    0.05);
 5. the SPC path: ``config3_frames`` of ``examples/torch_spc_raster.py``
@@ -53,7 +60,9 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
 10. each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
    and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), the
    operations counted from this run's inputs, a term that depends on the
-   face alone once per face, and for the SPC tile kernel only the slab
+   face alone once per face, for the soft-mask forward only the pairs at
+   pixels the rasterizer leaves uncovered (beside the all-pixel count),
+   and for the SPC tile kernel only the slab
    tests the walk needs (every unit box walked, the leaves of the units a
    ray enters nearer than its best, the level-3 boxes); then the kernels
    in the order in which to make them faster.
@@ -164,8 +173,8 @@ SPC_KERNELS = ("spc_raster", "spc_untile")
 GATHER_KERNELS = ("table_gather_smem", "table_gather_l2")
 # the kernels' names in a torch.profiler trace: the kernel whose launches
 # are counted, then the helper launches whose time is the kernel's too
-DEVICE_NAMES = {"winner": ("winner_kernel",),
-                "soft_mask_fwd": ("soft_fwd_kernel",),
+DEVICE_NAMES = {"winner": ("winner_kernel", "winner_box_kernel"),
+                "soft_mask_fwd": ("soft_fwd_kernel", "soft_fwd_box_kernel"),
                 "soft_mask_bwd": ("soft_bwd_kernel", "soft_bwd_count_kernel",
                                   "soft_bwd_plan_kernel",
                                   "soft_bwd_sum_kernel"),
@@ -235,6 +244,29 @@ def adversarial_faces():
         out.append(np.asarray(faces, np.float32))
     g = rng.randn(2, h, w).astype(np.float32)
     return np.stack(out), g, h, w
+
+
+def with_depth(fvi, seed):
+    """Seeded z (B, F, 3) in [-3, -1] and a validity mask (B, F) with about
+    one face in five culled, for the winner search on faces ``fvi``."""
+    rng = np.random.RandomState(seed)
+    b, f = fvi.shape[:2]
+    return {"fvi": fvi,
+            "fvz": rng.uniform(-3, -1, (b, f, 3)).astype(np.float32),
+            "valid": rng.rand(b, f) > 0.2}
+
+
+def dense_tile_faces():
+    """2,000 small faces inside the top-left 16x16 tile of a 64x64 image and
+    48 over the rest, scaled as for multiplier 1000, with z and validity:
+    the face lists of its four 8x8 kernel tiles span several chunks and
+    are run more than once."""
+    rng = np.random.RandomState(5)
+    # the tile's pixel centres span x in [-984.4, -515.6], y in [515.6, 984.4]
+    c = np.concatenate([rng.uniform([-960, 540], [-540, 960], (2000, 2)),
+                        rng.uniform(-1000, 1000, (48, 2))])
+    fvi = c[:, None] + rng.uniform(-20, 20, (2048, 3, 2))
+    return with_depth(fvi[None].astype(np.float32), 6), 64, 64
 
 
 def card_line():
@@ -319,6 +351,7 @@ class Smoke:
         (its result, the launches of the kernels ``names`` just after)."""
         for fn in self.counters().values():
             fn.launches = 0
+        self.cs.soft_mask_fwd_cuda.launches_with_face_idx = 0
         out = path()
         self.torch.cuda.synchronize()
         return out, {k: self.counters()[k].launches for k in names}
@@ -381,7 +414,8 @@ class Smoke:
                         np.stack([1100 + r[..., 2], t[..., 0]], -1),
                         np.stack([t[..., 1], 1100 + r[..., 3]], -1)], 2)
         g = rng.randn(1, 512, 512).astype(np.float32)
-        return self.from_numpy_tree({"fvi": fvi, "g": g}, "cuda"), 512, 512
+        return self.from_numpy_tree({**with_depth(fvi, 4), "g": g},
+                                    "cuda"), 512, 512
 
     def soft_cotangent(self, d, h, w):
         """The cotangent on allprob that loss sum(soft²) gives, and
@@ -440,11 +474,27 @@ class Smoke:
         print(f"built {os.path.relpath(cb.library_path(), ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    def adversarial_case(self):
+        fvi, g, h, w = adversarial_faces()
+        return self.from_numpy_tree({**with_depth(fvi, 11), "g": g},
+                                    "cuda"), h, w
+
+    def forward_cases(self):
+        """The winner search's and the soft-mask forward's parity cases:
+        (label, (faces with z and validity, H, W))."""
+        dense, h, w = dense_tile_faces()
+        adv = self.adversarial_case()
+        return [("random 72x100 B=2", self.random_case()),
+                (f"sphere {RES}x{RES}", self.sphere_case(RES)),
+                (f"adversarial {adv[1]}x{adv[2]} B=2", adv),
+                (f"sphere pair {RES}x{RES} B=2", self.sphere_pair_case(RES)),
+                ("100 faces over 512x512", self.screen_faces_case()),
+                ("2,000 faces in one 16x16 tile",
+                 (self.from_numpy_tree(dense, "cuda"), h, w))]
+
     def phase_parity(self):
         torch = self.torch
-        cases = [("random 72x100 B=2", self.random_case()),
-                 (f"sphere {RES}x{RES}", self.sphere_case(RES))]
-        for label, (d, h, w) in cases:
+        for label, (d, h, w) in self.forward_cases():
             ids_k = self.cr.rasterize_search_cuda(d["fvz"], d["fvi"],
                                                   d["valid"], 1000, 1e-8, h, w)
             ids_p = self.rast.rasterize_search_plain(d["fvz"], d["fvi"],
@@ -472,14 +522,24 @@ class Smoke:
                        f"soft-mask forward within 1e-5 [{label}]: "
                        f"max abs err {err:.3e}")
             self.record_err("soft_mask_fwd", err)
-
-        fvi, g_adv, h_adv, w_adv = adversarial_faces()
-        adv = self.from_numpy_tree({"fvi": fvi, "g": g_adv}, "cuda")
+            again = self.cs.soft_mask_fwd_cuda(d["fvi"], 7000.0, 0.02, 1000.0,
+                                               h, w)
+            same = torch.equal(again.view(torch.int32), ap_k.view(torch.int32))
+            ap_i = self.cs.soft_mask_fwd_cuda(d["fvi"], 7000.0, 0.02, 1000.0,
+                                              h, w, face_idx=ids_k)
+            free = ids_k < 0
+            kept = torch.equal(ap_i[free].view(torch.int32),
+                               ap_k[free].view(torch.int32))
+            ones = bool((ap_i[~free] == 1.0).all())
+            self.check(same and kept and ones,
+                       f"soft-mask forward bitwise across two launches "
+                       f"{same}; with face_idx bitwise equal at "
+                       f"{int(free.sum())} uncovered pixels {kept}, 1.0 at "
+                       f"{int((~free).sum())} covered {ones} [{label}]")
         bwd_cases = [("random 72x100 B=2", self.random_case()),
                      ("sphere 128x128", self.sphere_case(128)),
                      (f"sphere {RES}x{RES}", self.sphere_case(RES)),
-                     (f"adversarial {h_adv}x{w_adv} B=2",
-                      (adv, h_adv, w_adv)),
+                     ("adversarial 72x100 B=2", self.adversarial_case()),
                      ("sphere pair 128x128 B=2", self.sphere_pair_case(128)),
                      ("100 faces over 512x512", self.screen_faces_case())]
         for label, (d, h, w) in bwd_cases:
@@ -536,6 +596,10 @@ class Smoke:
         for k, n in launches.items():
             self.results[k]["launches"] = n
             self.check(n > 0, f"main path launched {k} ({n} times)")
+        with_idx = self.cs.soft_mask_fwd_cuda.launches_with_face_idx
+        self.check(with_idx == launches["soft_mask_fwd"],
+                   f"main path gave the soft-mask forward the rasterizer's "
+                   f"ids at {with_idx} of {launches['soft_mask_fwd']} launches")
         self.check(all(map(lambda x: x == x and abs(x) != float("inf"),
                            out["losses"])), "config-2 losses finite")
         for name in ("grad_fvi", "grad_feat"):
@@ -573,17 +637,19 @@ class Smoke:
         d, h, w = self.sphere_case(RES)
         g, allprob = self.soft_cotangent(d, h, w)
         ga = (g * allprob).contiguous()
+        ids = self.cr.rasterize_search_cuda(d["fvz"], d["fvi"], d["valid"],
+                                            1000, 1e-8, h, w)
         pairs = {
             "winner": (
                 lambda: self.cr.rasterize_search_cuda(
                     d["fvz"], d["fvi"], d["valid"], 1000, 1e-8, h, w),
                 lambda: self.rast.rasterize_search_plain(
                     d["fvz"], d["fvi"], d["valid"], 1000, 1e-8, h, w)),
-            "soft_mask_fwd": (
+            "soft_mask_fwd": (   # as the main path calls it, with the ids
                 lambda: self.cs.soft_mask_fwd_cuda(
-                    d["fvi"], 7000.0, 0.02, 1000.0, h, w),
+                    d["fvi"], 7000.0, 0.02, 1000.0, h, w, face_idx=ids),
                 lambda: self.dibr.soft_mask_plain(
-                    d["fvi"], 7000.0, 0.02, 1000.0, h, w)),
+                    d["fvi"], 7000.0, 0.02, 1000.0, h, w, face_idx=ids)),
             "soft_mask_bwd": (
                 lambda: self.cs.soft_mask_bwd_cuda(
                     d["fvi"], ga, 7000.0, 0.02, 1000.0, h, w),
@@ -597,6 +663,11 @@ class Smoke:
             self.results[name]["plain_ms"] = p_ms
             print(f"{name} at {h}x{w}, 4992 faces, B=1: kernel {k_ms:.4f} ms,"
                   f" plain {p_ms:.4f} ms", flush=True)
+        every = statistics.median(self.time_ms(
+            lambda: self.cs.soft_mask_fwd_cuda(d["fvi"], 7000.0, 0.02, 1000.0,
+                                               h, w), 20))
+        print(f"soft_mask_fwd without face_idx (every pixel): kernel "
+              f"{every:.4f} ms", flush=True)
 
         inputs = self.from_numpy_tree(self.ex.config2_inputs(), "cuda")
         fvi, feats = inputs["face_vertices_image"], inputs["face_features"]
@@ -1092,11 +1163,31 @@ class Smoke:
                        f"{pairs1} (pixel, face) pairs in closed boxes x "
                        f"{WINNER_OPS}")
         face_ops = f * SOFT_FACE_OPS
-        self.set_bound("soft_mask_fwd", f * 24 + hw * 4,
-                       face_ops + pairs2 * SOFT_FWD_OPS,
-                       f"{f} faces x {SOFT_FACE_OPS} ({face_ops}) + {pairs2}"
-                       f" pairs in the enlarged boxes x {SOFT_FWD_OPS} "
-                       f"({pairs2 * SOFT_FWD_OPS})")
+        every = max((f * 24 + hw * 4) / HBM_BYTES_S,
+                    (face_ops + pairs2 * SOFT_FWD_OPS) / FP32_OPS_S) * 1e3
+        # on the main path the forward takes the rasterizer's ids and
+        # computes only the pixels they leave uncovered
+        ids = self.rast.rasterize_search_plain(d["fvz"], d["fvi"], d["valid"],
+                                               1000, 1e-8, h, w)
+        pairs2u = int(self.box_pairs(d, h, w, 0.02 * 1000.0, False,
+                                     ids[0] < 0).sum())
+        self.set_bound("soft_mask_fwd", f * 24 + hw * 4 + hw * 4,
+                       face_ops + pairs2u * SOFT_FWD_OPS,
+                       f"faces, ids read, allprob written; {f} faces x "
+                       f"{SOFT_FACE_OPS} ({face_ops}) + {pairs2u} pairs at "
+                       f"uncovered pixels, of {pairs2} in the enlarged boxes, "
+                       f"x {SOFT_FWD_OPS} ({pairs2u * SOFT_FWD_OPS}); every "
+                       f"pixel computed: {every:.6f} ms")
+        for name, margin, valid in (("winner", 0.0, d["valid"]),
+                                    ("soft_mask_fwd", 0.02 * 1000.0, None)):
+            lists = self.rast.tile_face_lists(d["fvi"], h, w, 1000,
+                                              margin=margin,
+                                              valid_mask=valid)[0]
+            n = [len(x) for x in lists]
+            busy = [x for x in n if x]
+            print(f"{name}: {len(busy)} of {len(n)} tiles list a face, "
+                  f"{statistics.mean(busy):.1f} faces a busy tile on average"
+                  f" (most {max(busy)}), {sum(n)} listed in all")
         # the backward's pairs at pixels whose cotangent is zero (those the
         # rasterizer covers) add nothing: it needs only the others
         g, allprob = self.soft_cotangent(d, h, w)

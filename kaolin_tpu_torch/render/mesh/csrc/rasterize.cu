@@ -9,22 +9,31 @@
 // the plain search. Not differentiable: rasterize() re-gathers the winners'
 // vertices and features in PyTorch, and autograd differentiates that.
 //
-// What bounds it on this card: ALU work per (pixel, face) pair in the box,
-// about 20 products and sums plus three IEEE divisions, not bytes. A face is
-// read from device memory once per block and then broadcast from shared
-// memory to all 256 threads.
+// What bounds it on this card: the arithmetic is about 20 products and sums
+// and three IEEE divisions per (pixel, face) pair in a closed box, 11.8 M
+// operations on config 2, and the bytes are 1.2 MB: both far below what the
+// time shows. What costs is finding the pairs: a busy 16 x 16 tile holds 27
+// of config 2's 4,992 faces on average, and a per-face loop over every face
+// steps through all of them.
 //
-// What the design does about it:
-// * One thread per pixel, a 16x16 tile per block, the batch on blockIdx.z.
-// * Faces stream through shared memory in chunks of 256. Each face's box is
-//   tested once per block against the tile's pixel rectangle; the result is
-//   the same for every thread, so the per-face skip does not diverge, and a
-//   chunk with no face left is skipped whole (__syncthreads_or). Because the
-//   per-pixel test is the same closed box, this cull is exact: it takes the
-//   place of the TPU path's packed face table and per-(tile, chunk)
-//   occupancy bitmap, needs no capacity, and holds at any face count.
-// * Each thread visits faces in ascending id order and takes only a strictly
-//   greater z: ties go to the lowest id with no extra work.
+// The design (two launches):
+// * winner_box_kernel, one thread a face: each face's closed box, empty for
+//   a culled face, and each group of 32 faces' box (tiles.cuh, face_boxes).
+// * winner_kernel, one block an 8 x 8 tile, two threads a pixel: the block
+//   builds the tile's ascending list of live faces in shared memory
+//   (tiles.cuh, walk_tile_faces) from the group boxes and the face boxes,
+//   stages each listed face's box, vertices, z and id once, and each pixel
+//   walks the list, its two threads taking every other face. The list is
+//   exact (tiles.cuh) and has no capacity; it takes the place of the TPU
+//   path's packed face table and per-(tile, chunk) occupancy bitmap. Of
+//   the shapes timed on the card (16 x 16 tiles with one, two or four
+//   threads a pixel, 8 x 8 with one to eight, 4 x 4 with four or eight),
+//   8 x 8 with two was the fastest.
+// * Each thread visits its faces in ascending id order and takes only a
+//   strictly greater z, so it keeps its faces' highest z at their lowest
+//   id; the threads of a pixel are combined by (larger z, then lower id)
+//   with xor-shuffles. That is the max-z winner with ties to the lowest id
+//   of the whole list, at any number of threads a pixel.
 // * The ids must equal the plain search's, and pixels on a shared edge tie in
 //   z to the last bit. So the arithmetic repeats rasterization._barycentrics
 //   op for op, division included, with round-to-nearest intrinsics that are
@@ -43,64 +52,57 @@ namespace {
 
 using namespace kaolin_mesh;
 
-__global__ void __launch_bounds__(kThreads)
-winner_kernel(const float* __restrict__ fvz,            // (B, F, 3)
-              const float* __restrict__ fvi,            // (B, F, 3, 2)
-              const unsigned char* __restrict__ valid,  // (B, F)
-              int* __restrict__ out,                    // (B, H, W)
-              int F, int H, int W, float sx, float sy, float eps) {
-  __shared__ float s_v[6][kChunk];
-  __shared__ float s_z[3][kChunk];
-  __shared__ Box s_box[kChunk];
-  __shared__ unsigned char s_live[kChunk];
+constexpr int kWinnerTile = 8;   // tile side, pixels
+constexpr int kWinnerSplit = 2;  // threads a pixel
 
-  const int b = blockIdx.z;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const int col = blockIdx.x * kTile + threadIdx.x;
-  const int row = blockIdx.y * kTile + threadIdx.y;
-  const float px = pixel_x(col, W, sx);
-  const float py = pixel_y(row, H, sy);
-  const Box rect = tile_rect(H, W, sx, sy);
+// One listed face as the pixel loop reads it: four float4.
+struct alignas(16) WinnerFace {
+  Box box;
+  float v[6];
+  float z[3];
+  int id;
+  float pad[2];
+};
+static_assert(sizeof(WinnerFace) == 64, "four float4");
 
-  fvz += static_cast<size_t>(b) * F * 3;
-  fvi += static_cast<size_t>(b) * F * 6;
-  valid += static_cast<size_t>(b) * F;
+template <int NT, int K>
+struct WinnerFlush {
+  const float* __restrict__ fvz;  // this batch element's (F, 3)
+  const float* __restrict__ fvi;  // (F, 3, 2)
+  WinnerFace* s_face;
+  float px, py, eps;
+  int lane;
+  float best_z;
+  int best_id;
 
-  float best_z = -INFINITY;
-  int best_id = -1;
-  for (int base = 0; base < F; base += kChunk) {
-    __syncthreads();  // the previous chunk is no longer read
-    const int f = base + tid;
-    bool live = false;
-    if (f < F) {
-      float v[6];
+  __device__ __forceinline__ void operator()(const int* ids, int n) {
+    for (int j = threadIdx.x; j < n; j += NT) {
+      const int f = ids[j];
+      WinnerFace e;
 #pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        v[k] = fvi[static_cast<size_t>(f) * 6 + k];
-        s_v[k][tid] = v[k];
-      }
+      for (int k = 0; k < 6; ++k) e.v[k] = fvi[static_cast<size_t>(f) * 6 + k];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) s_z[k][tid] = fvz[static_cast<size_t>(f) * 3 + k];
-      s_box[tid] = face_box(v, 0.f);
-      live = valid[f] && boxes_meet(s_box[tid], rect);
+      for (int k = 0; k < 3; ++k) e.z[k] = fvz[static_cast<size_t>(f) * 3 + k];
+      e.box = face_box(e.v, 0.f);
+      e.id = f;
+      e.pad[0] = e.pad[1] = 0.f;
+      s_face[j] = e;
     }
-    s_live[tid] = live;
-    if (!__syncthreads_or(live)) continue;
-
-    const int n = min(kChunk, F - base);
-    for (int j = 0; j < n; ++j) {
-      if (!s_live[j]) continue;
-      const Box box = s_box[j];
-      if (px < box.x_lo || px > box.x_hi || py < box.y_lo || py > box.y_hi) {
-        continue;
-      }
+    __syncthreads();
+    const float4* q = reinterpret_cast<const float4*>(s_face);
+    for (int j = lane; j < n; j += K) {
+      const float4 box = q[4 * j];
+      if (px < box.x || px > box.y || py < box.z || py > box.w) continue;
+      const float4 a = q[4 * j + 1];  // x0 y0 x1 y1
+      const float4 c = q[4 * j + 2];  // x2 y2 z0 z1
+      const float4 d = q[4 * j + 3];  // z2 id
       // rasterization._barycentrics, op for op
-      const float ax = __fsub_rn(s_v[0][j], px);
-      const float ay = __fsub_rn(s_v[1][j], py);
-      const float bx = __fsub_rn(s_v[2][j], px);
-      const float by = __fsub_rn(s_v[3][j], py);
-      const float cx = __fsub_rn(s_v[4][j], px);
-      const float cy = __fsub_rn(s_v[5][j], py);
+      const float ax = __fsub_rn(a.x, px);
+      const float ay = __fsub_rn(a.y, py);
+      const float bx = __fsub_rn(a.z, px);
+      const float by = __fsub_rn(a.w, py);
+      const float cx = __fsub_rn(c.x, px);
+      const float cy = __fsub_rn(c.y, py);
       float w0 = __fsub_rn(__fmul_rn(bx, cy), __fmul_rn(by, cx));
       float w1 = __fsub_rn(__fmul_rn(cx, ay), __fmul_rn(cy, ax));
       float w2 = __fsub_rn(__fmul_rn(ax, by), __fmul_rn(ay, bx));
@@ -111,31 +113,111 @@ winner_kernel(const float* __restrict__ fvz,            // (B, F, 3)
       w2 = __fdiv_rn(w2, norm);
       if (w0 >= 0.f && w1 >= 0.f && w2 >= 0.f) {
         const float z = __fadd_rn(
-            __fadd_rn(__fmul_rn(w0, s_z[0][j]), __fmul_rn(w1, s_z[1][j])),
-            __fmul_rn(w2, s_z[2][j]));
+            __fadd_rn(__fmul_rn(w0, c.z), __fmul_rn(w1, c.w)),
+            __fmul_rn(w2, d.x));
         if (z > best_z) {
           best_z = z;
-          best_id = base + j;
+          best_id = __float_as_int(d.y);
         }
       }
     }
+    __syncthreads();  // the staged faces are no longer read
   }
-  if (col < W && row < H) {
+};
+
+__global__ void __launch_bounds__(kBoxThreads)
+winner_box_kernel(const float* __restrict__ fvi,
+                  const unsigned char* __restrict__ valid,
+                  float4* __restrict__ boxes, float4* __restrict__ groups,
+                  int F) {
+  face_boxes(fvi, valid, boxes, groups, F, 0.f);
+}
+
+// Dynamic shared memory: kList WinnerFace, then ListSmem<NT>.
+template <int TILE, int K>
+__global__ void __launch_bounds__(TILE * TILE * K)
+winner_kernel(const float* __restrict__ fvz,     // (B, F, 3)
+              const float* __restrict__ fvi,     // (B, F, 3, 2)
+              const float4* __restrict__ boxes,  // (B, F)
+              const float4* __restrict__ groups, // (B, G)
+              int* __restrict__ out,             // (B, H, W)
+              int F, int H, int W, float sx, float sy, float eps) {
+  constexpr int NT = TILE * TILE * K;
+  extern __shared__ float4 smem[];
+  WinnerFace* s_face = reinterpret_cast<WinnerFace*>(smem);
+  ListSmem<NT>* s_list = reinterpret_cast<ListSmem<NT>*>(s_face + kList);
+
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int G = (F + kGroup - 1) / kGroup;
+  groups += static_cast<size_t>(b) * G;
+  const int pix = tid / K;  // the pixel in the tile
+  const int col = blockIdx.x * TILE + pix % TILE;
+  const int row = blockIdx.y * TILE + pix / TILE;
+
+  WinnerFlush<NT, K> flush{fvz + static_cast<size_t>(b) * F * 3,
+                           fvi + static_cast<size_t>(b) * F * 6,
+                           s_face,
+                           pixel_x(col, W, sx),
+                           pixel_y(row, H, sy),
+                           eps,
+                           tid % K,
+                           -INFINITY,
+                           -1};
+  walk_tile_faces<NT>(boxes + static_cast<size_t>(b) * F, groups, F,
+                      tile_rect<TILE>(H, W, sx, sy), *s_list, flush);
+  float best_z = flush.best_z;
+  int best_id = flush.best_id;
+  // a hit has z > -inf and an id >= 0; a miss is (-inf, -1)
+#pragma unroll
+  for (int off = 1; off < K; off <<= 1) {
+    const float z2 = __shfl_xor_sync(kFullWarp, best_z, off);
+    const int id2 = __shfl_xor_sync(kFullWarp, best_id, off);
+    if (z2 > best_z || (z2 == best_z && id2 < best_id)) {
+      best_z = z2;
+      best_id = id2;
+    }
+  }
+  if (tid % K == 0 && col < W && row < H) {
     out[(static_cast<size_t>(b) * H + row) * W + col] = best_id;
   }
 }
 
+template <int TILE, int K>
+int launch_winner(const void* fvz, const void* fvi, const void* valid,
+                  void* work, void* out, int B, int F, int H, int W, float sx,
+                  float sy, float eps, void* stream) {
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  constexpr int NT = TILE * TILE * K;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float4* boxes = static_cast<float4*>(work);
+  float4* groups = boxes + static_cast<size_t>(B) * F;
+  if (F > 0) {
+    winner_box_kernel<<<dim3((F + kBoxThreads - 1) / kBoxThreads, B),
+                        kBoxThreads, 0, st>>>(
+        static_cast<const float*>(fvi),
+        static_cast<const unsigned char*>(valid), boxes, groups, F);
+  }
+  const size_t smem = kList * sizeof(WinnerFace) + sizeof(ListSmem<NT>);
+  const auto kernel = winner_kernel<TILE, K>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B), NT, smem,
+           st>>>(static_cast<const float*>(fvz), static_cast<const float*>(fvi),
+                 boxes, groups, static_cast<int*>(out), F, H, W, sx, sy, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// work: (B * F + B * ceil(F / 32)) float4, the face and group boxes.
 extern "C" int kaolin_rasterize_winner(const void* fvz, const void* fvi,
-                                       const void* valid, void* out, int B,
-                                       int F, int H, int W, float sx, float sy,
-                                       float eps, void* stream) {
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
-  const dim3 block(kTile, kTile);
-  winner_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(fvz), static_cast<const float*>(fvi),
-      static_cast<const unsigned char*>(valid), static_cast<int*>(out), F, H,
-      W, sx, sy, eps);
-  return static_cast<int>(cudaGetLastError());
+                                       const void* valid, void* work,
+                                       void* out, int B, int F, int H, int W,
+                                       float sx, float sy, float eps,
+                                       void* stream) {
+  return launch_winner<kWinnerTile, kWinnerSplit>(
+      fvz, fvi, valid, work, out, B, F, H, W, sx, sy, eps, stream);
 }

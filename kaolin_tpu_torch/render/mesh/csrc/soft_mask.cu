@@ -12,18 +12,49 @@
 // ga = grad(allprob) * allprob and returns the gradient with respect to the
 // scaled face_vertices_image, (B, F, 3, 2).
 //
-// What bounds them on this card: one exp and about 100 ALU operations (ten
-// divisions among them) per (pixel, face) pair in the box, about 115 in the
-// backward; not bytes.
+// What bounds the forward on this card: one exp and about 100 ALU
+// operations (ten divisions among them) per (pixel, face) pair in the box,
+// and on the DIB-R path only the pairs at pixels the rasterizer leaves
+// uncovered matter (180,192 of config 2's 2,146,992); its bytes are those
+// of the faces, the ids read and allprob written. What costs is finding
+// the pairs: a busy 16 x 16 tile holds 51 of config 2's 4,992 faces on
+// average.
 //
-// The forward (soft_fwd_kernel):
-// * One thread per pixel, a 16x16 tile per block, the batch on blockIdx.z;
-//   faces stream through shared memory in chunks of 256, and a face whose
-//   enlarged box misses the tile's pixel rectangle is skipped by the whole
-//   block (closed-interval test, so it never drops a face the half-open
-//   per-pixel test would keep); an empty chunk is skipped whole
-//   (__syncthreads_or). This takes the place of pack_faces/chunk_occupancy
-//   and of the TPU's face-count limit: any F, any H and W.
+// The forward (soft_fwd_box_kernel, then soft_fwd_kernel):
+// * soft_fwd_box_kernel, one thread a face: each face's box enlarged by the
+//   margin, and each group of 32 faces' box (tiles.cuh, face_boxes).
+// * soft_fwd_kernel, one block an 8 x 8 tile, four threads a pixel: the
+//   block builds the tile's ascending list of the faces whose enlarged box
+//   meets the tile's rectangle (tiles.cuh, walk_tile_faces). The closed
+//   test never drops a face the half-open per-pixel test would keep, so
+//   the list is exact, and it needs no capacity: it takes the place of
+//   pack_faces/chunk_occupancy and of the TPU's face-count limit. 8 x 8
+//   tiles with four threads a pixel were the fastest of the shapes timed on
+//   the card (16 x 16 with one, two or four threads, 8 x 8 with one to
+//   eight, 4 x 4 with four or eight): the time is the blocks' latency, and
+//   small tiles list fewer faces and leave fewer busy blocks.
+// * The thread that stages a listed face computes its terms once
+//   (face_terms: per edge A, B, C, their products and den) and stores them
+//   in shared memory beside the box, 40 floats a face; the pair loop reads
+//   them. The same code on the same inputs, so the same bits as computing
+//   them for every pair.
+// * face_idx (optional, the rasterizer's (B, H, W) ids): where an id is
+//   >= 0 the kernel writes 1.0 and computes nothing. The DIB-R mask is 1
+//   there whatever allprob is (dibr.dibr_soft_mask), so the cotangent that
+//   reaches allprob there is 0 and ga = 0 * 1 = 0, as before. The block's
+//   pixels to compute are compacted with a ballot, so a tile whose pixels
+//   are all covered returns after one vote, and the others give their
+//   threads only to the uncovered pixels. Without face_idx every pixel is
+//   computed.
+// * Four threads a pixel (kSoftSplit): thread k of a pixel takes list
+//   entries k, k + 4, ..., multiplying each factor in as it comes, and the
+//   four partial products are multiplied in a fixed tree over the lanes,
+//   (P0 P1)(P2 P3), with xor-shuffles (float products commute bit for bit,
+//   so all four lanes agree). That is not the order of torch.prod in the
+//   plain version: the two agree within 1e-5. The list, its flushes and so
+//   the lanes' shares do not depend on face_idx or on the launch, so a
+//   pixel's allprob is bitwise the same with and without face_idx, and
+//   from launch to launch.
 // * It keeps a running product of (1 - p), as the reference CUDA kernel and
 //   the all-faces plain version do; the TPU kernel's exp(sum log(1 - p)) was
 //   a Mosaic workaround.
@@ -69,7 +100,6 @@ namespace {
 
 using namespace kaolin_mesh;
 
-constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kBandPx = 4096;        // pixels of one band, at most
 constexpr int kPlanThreads = 1024;   // the plan block
 constexpr int kBandThreads = 256;    // blocks of the band pass
@@ -136,74 +166,167 @@ __device__ __forceinline__ float pair_candidates(float px, float py,
   return d2;
 }
 
-// Stage face `base + tid` (vertices and margin-enlarged box) in shared
-// memory; return whether its box meets the tile rectangle.
-__device__ __forceinline__ bool stage_face(const float* __restrict__ fvi,
-                                           int f, int F, int tid, float margin,
-                                           const Box& rect,
-                                           float (*s_v)[kChunk], Box* s_box) {
-  if (f >= F) return false;
-  float v[6];
+constexpr int kSoftTile = 8;   // the forward's tile side, pixels
+constexpr int kSoftSplit = 4;  // the forward's threads a pixel
+
+// One listed face as the forward's pair loop reads it: ten float4.
+struct alignas(16) SoftFace {
+  Box box;  // enlarged by the margin
+  Face face;
+  float pad[3];
+};
+static_assert(sizeof(SoftFace) == 160, "ten float4");
+
+// The face terms of a staged face, read as nine float4.
+__device__ __forceinline__ Face load_face(const SoftFace* e) {
+  const float4* q = reinterpret_cast<const float4*>(e) + 1;
+  float w[36];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    v[k] = fvi[static_cast<size_t>(f) * 6 + k];
-    s_v[k][tid] = v[k];
+  for (int i = 0; i < 9; ++i) {
+    const float4 t = q[i];
+    w[4 * i] = t.x;
+    w[4 * i + 1] = t.y;
+    w[4 * i + 2] = t.z;
+    w[4 * i + 3] = t.w;
   }
-  s_box[tid] = face_box(v, margin);
-  return boxes_meet(s_box[tid], rect);
+  Face f;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) f.v[k] = w[k];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    f.A[i] = w[6 + i];
+    f.B[i] = w[9 + i];
+    f.C[i] = w[12 + i];
+    f.AA[i] = w[15 + i];
+    f.BB[i] = w[18 + i];
+    f.AB[i] = w[21 + i];
+    f.AC[i] = w[24 + i];
+    f.BC[i] = w[27 + i];
+    f.den[i] = w[30 + i];
+  }
+  return f;
 }
 
-// The per-pixel test of dibr.soft_mask_plain: half open, x >= lo, x < hi.
-__device__ __forceinline__ bool in_box(float px, float py, const Box& box) {
-  return px >= box.x_lo && px < box.x_hi && py >= box.y_lo && py < box.y_hi;
+template <int NT, int K>
+struct SoftFlush {
+  const float* __restrict__ fvi;  // this batch element's (F, 3, 2)
+  SoftFace* s_face;
+  float margin, px, py, neg_sigmainv, mm, bad;
+  bool active;
+  int lane;
+  float ap;
+
+  __device__ __forceinline__ void operator()(const int* ids, int n) {
+    for (int j = threadIdx.x; j < n; j += NT) {
+      float v[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        v[k] = fvi[static_cast<size_t>(ids[j]) * 6 + k];
+      }
+      s_face[j].box = face_box(v, margin);
+      s_face[j].face = face_terms(v);
+    }
+    __syncthreads();
+    if (active) {
+      const float4* q = reinterpret_cast<const float4*>(s_face);
+      for (int j = lane; j < n; j += K) {
+        // the per-pixel test of dibr.soft_mask_plain: half open
+        const float4 box = q[10 * j];
+        if (!(px >= box.x && px < box.y && py >= box.z && py < box.w)) {
+          continue;
+        }
+        float cand[6], up[3];
+        const float d2 =
+            pair_candidates(px, py, load_face(s_face + j), bad, cand, up);
+        ap *= 1.f - expf(neg_sigmainv * d2 / mm);
+      }
+    }
+    __syncthreads();  // the staged faces are no longer read
+  }
+};
+
+__global__ void __launch_bounds__(kBoxThreads)
+soft_fwd_box_kernel(const float* __restrict__ fvi, float4* __restrict__ boxes,
+                    float4* __restrict__ groups, int F, float margin) {
+  face_boxes(fvi, nullptr, boxes, groups, F, margin);
 }
 
-__global__ void __launch_bounds__(kThreads)
-soft_fwd_kernel(const float* __restrict__ fvi,  // (B, F, 3, 2), scaled
-                float* __restrict__ allprob,    // (B, H, W)
+// Dynamic shared memory: kList SoftFace, ListSmem<NT>, then the tile's
+// pixels to compute (TILE x TILE ints).
+template <int TILE, int K>
+__global__ void __launch_bounds__(TILE * TILE * K)
+soft_fwd_kernel(const float* __restrict__ fvi,      // (B, F, 3, 2), scaled
+                const float4* __restrict__ boxes,   // (B, F)
+                const float4* __restrict__ groups,  // (B, G)
+                const int* __restrict__ face_idx,   // (B, H, W) or null
+                float* __restrict__ allprob,        // (B, H, W)
                 int F, int H, int W, float sx, float sy, float margin,
                 float neg_sigmainv, float mm, float bad) {
-  __shared__ float s_v[6][kChunk];
-  __shared__ Box s_box[kChunk];
-  __shared__ unsigned char s_live[kChunk];
+  constexpr int NT = TILE * TILE * K;
+  extern __shared__ float4 smem[];
+  SoftFace* s_face = reinterpret_cast<SoftFace*>(smem);
+  ListSmem<NT>* s_list = reinterpret_cast<ListSmem<NT>*>(s_face + kList);
+  int* s_pix = reinterpret_cast<int*>(s_list + 1);
 
   const int b = blockIdx.z;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const int col = blockIdx.x * kTile + threadIdx.x;
-  const int row = blockIdx.y * kTile + threadIdx.y;
-  const float px = pixel_x(col, W, sx);
-  const float py = pixel_y(row, H, sy);
-  const Box rect = tile_rect(H, W, sx, sy);
-  fvi += static_cast<size_t>(b) * F * 6;
-
-  float ap = 1.f;
-  for (int base = 0; base < F; base += kChunk) {
-    __syncthreads();  // the previous chunk is no longer read
-    const bool live =
-        stage_face(fvi, base + tid, F, tid, margin, rect, s_v, s_box);
-    s_live[tid] = live;
-    if (!__syncthreads_or(live)) continue;
-
-    const int n = min(kChunk, F - base);
-    for (int j = 0; j < n; ++j) {
-      if (!s_live[j] || !in_box(px, py, s_box[j])) continue;
-      float v[6], cand[6], up[3];
-#pragma unroll
-      for (int k = 0; k < 6; ++k) v[k] = s_v[k][j];
-      const float d2 = pair_candidates(px, py, face_terms(v), bad, cand, up);
-      ap *= 1.f - expf(neg_sigmainv * d2 / mm);
+  const int tid = threadIdx.x;
+  const int G = (F + kGroup - 1) / kGroup;
+  groups += static_cast<size_t>(b) * G;
+  const int r0 = blockIdx.y * TILE;
+  const int c0 = blockIdx.x * TILE;
+  const size_t img = static_cast<size_t>(b) * H * W;
+  // the tile's in-image pixels that no face covers, in order
+  bool need = false;
+  if (tid < TILE * TILE) {
+    const int row = r0 + tid / TILE;
+    const int col = c0 + tid % TILE;
+    if (row < H && col < W) {
+      const size_t o = img + static_cast<size_t>(row) * W + col;
+      if (face_idx != nullptr && face_idx[o] >= 0) {
+        allprob[o] = 1.f;
+      } else {
+        need = true;
+      }
     }
   }
-  if (col < W && row < H) {
-    allprob[(static_cast<size_t>(b) * H + row) * W + col] = ap;
+  const int n_pix = append_ordered<NT>(need, tid, s_pix, 0,
+                                       s_list->warp_count);
+  if (n_pix == 0) return;  // the same for the whole block
+
+  const int item = tid / K;
+  const bool active = item < n_pix;
+  const int p = active ? s_pix[item] : 0;
+  const int row = r0 + p / TILE;
+  const int col = c0 + p % TILE;
+  SoftFlush<NT, K> flush{fvi + static_cast<size_t>(b) * F * 6,
+                         s_face,
+                         margin,
+                         pixel_x(col, W, sx),
+                         pixel_y(row, H, sy),
+                         neg_sigmainv,
+                         mm,
+                         bad,
+                         active,
+                         tid % K,
+                         1.f};
+  walk_tile_faces<NT>(boxes + static_cast<size_t>(b) * F, groups, F,
+                      tile_rect<TILE>(H, W, sx, sy), *s_list, flush);
+  // the K partial products, multiplied in a fixed tree over the lanes
+  float ap = flush.ap;
+#pragma unroll
+  for (int off = 1; off < K; off <<= 1) {
+    ap *= __shfl_xor_sync(kFullWarp, ap, off);
+  }
+  if (active && tid % K == 0) {
+    allprob[img + static_cast<size_t>(row) * W + col] = ap;
   }
 }
 
 // The in-image pixels in a face's enlarged box: columns c0 .. c0 + nc - 1
 // and rows r0 .. r0 + count / nc - 1. pixel_x rises with the column and
 // pixel_y falls with the row (a positive float times an exact integer), so
-// the half-open test of in_box holds on an interval of columns times an
-// interval of rows. The real range from inverting them, widened by two
+// the plain version's half-open test holds on an interval of columns times
+// an interval of rows. The real range from inverting them, widened by two
 // pixels on each side and clipped to the image, holds those intervals; each
 // side is then moved in, column by column and row by row, to the first
 // that passes the test. So every pixel of the range is in the box and every
@@ -502,21 +625,47 @@ cudaError_t band_blocks(int* blocks) {
   return err;
 }
 
-dim3 grid_for(int B, int H, int W) {
-  return dim3((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
+template <int TILE, int K>
+int launch_soft_fwd(const void* fvi, const void* face_idx, void* work,
+                    void* allprob, int B, int F, int H, int W, float sx,
+                    float sy, float margin, float neg_sigmainv, float mm,
+                    float bad, void* stream) {
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  constexpr int NT = TILE * TILE * K;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(fvi);
+  float4* boxes = static_cast<float4*>(work);
+  float4* groups = boxes + static_cast<size_t>(B) * F;
+  if (F > 0) {
+    soft_fwd_box_kernel<<<dim3((F + kBoxThreads - 1) / kBoxThreads, B),
+                          kBoxThreads, 0, st>>>(v, boxes, groups, F, margin);
+  }
+  const size_t smem = kList * sizeof(SoftFace) + sizeof(ListSmem<NT>) +
+                      TILE * TILE * sizeof(int);
+  const auto kernel = soft_fwd_kernel<TILE, K>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B), NT, smem,
+           st>>>(v, boxes, groups, static_cast<const int*>(face_idx),
+                 static_cast<float*>(allprob), F, H, W, sx, sy, margin,
+                 neg_sigmainv, mm, bad);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int kaolin_soft_mask_fwd(const void* fvi, void* allprob, int B,
-                                    int F, int H, int W, float sx, float sy,
+// work: (B * F + B * ceil(F / 32)) float4, the face and group boxes;
+// face_idx: (B, H, W) int32 or null.
+extern "C" int kaolin_soft_mask_fwd(const void* fvi, const void* face_idx,
+                                    void* work, void* allprob, int B, int F,
+                                    int H, int W, float sx, float sy,
                                     float margin, float neg_sigmainv, float mm,
                                     float bad, void* stream) {
-  soft_fwd_kernel<<<grid_for(B, H, W), dim3(kTile, kTile), 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(fvi), static_cast<float*>(allprob), F, H, W,
-      sx, sy, margin, neg_sigmainv, mm, bad);
-  return static_cast<int>(cudaGetLastError());
+  return launch_soft_fwd<kSoftTile, kSoftSplit>(
+      fvi, face_idx, work, allprob, B, F, H, W, sx, sy, margin, neg_sigmainv,
+      mm, bad, stream);
 }
 
 // work, int32 words: ranges (4 B*F), first (B*F), nbands (B*F), meta (2),

@@ -14,7 +14,18 @@ import torch
 from kaolin_tpu_torch.utils import cuda_build
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _P] + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [_P]
+_ARGTYPES = [_P] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [_P]
+# faces per group box of the kernels' pre-pass (csrc/tiles.cuh, kGroup), and
+# the side of both mesh kernels' pixel tiles (kWinnerTile, kSoftTile)
+GROUP = 32
+TILE = 8
+
+
+def box_work(b, f, device):
+    """Scratch of the kernels' pre-pass: each face's box, then the box of
+    each group of ``GROUP`` faces, float32 (b * (f + ceil(f / GROUP)), 4)."""
+    return torch.empty((b * (f + -(-f // GROUP)), 4), dtype=torch.float32,
+                       device=device)
 
 
 def rasterize_search_cuda(face_vertices_z, face_vertices_image, valid_mask,
@@ -28,7 +39,8 @@ def rasterize_search_cuda(face_vertices_z, face_vertices_image, valid_mask,
         valid_mask: (B, F) bool.
         multiplier, eps, height, width: as in ``rasterize``.
 
-    All tensors are contiguous and on one CUDA device. Launches on PyTorch's
+    All tensors are contiguous and on one CUDA device. Launches a pre-pass
+    (each face's and each group of faces' box) and the search on PyTorch's
     current stream and does not synchronise.
     """
     if height <= 0 or width <= 0:
@@ -41,11 +53,14 @@ def rasterize_search_cuda(face_vertices_z, face_vertices_image, valid_mask,
     cuda_build.require(valid_mask, "valid_mask", (b, f), torch.bool)
     out = torch.empty((b, height, width), dtype=torch.int32,
                       device=face_vertices_z.device)
+    work = box_work(b, f, out.device)
     fn = cuda_build.function("kaolin_rasterize_winner", _ARGTYPES)
     with torch.cuda.device(face_vertices_z.device):
         status = fn(cuda_build.ptr(face_vertices_z),
                     cuda_build.ptr(face_vertices_image),
-                    cuda_build.ptr(valid_mask), cuda_build.ptr(out),
+                    cuda_build.ptr(valid_mask),
+                    cuda_build.ptr(work),
+                    cuda_build.ptr(out),
                     b, f, height, width, multiplier / width,
                     multiplier / height, eps,
                     cuda_build.stream(face_vertices_z))

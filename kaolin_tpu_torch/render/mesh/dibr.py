@@ -69,16 +69,17 @@ def _chunk_factor(px, py, verts, include, sigmainv, multiplier):
 
 
 def soft_mask_plain(face_vertices_image, sigmainv, boxlen, multiplier,
-                    height, width, knum=None):
+                    height, width, knum=None, face_idx=None):
     """All-faces allprob = ∏ (1 − p) → (B, H, W), ``CHUNK`` faces at a time.
 
     ``face_vertices_image`` is (B, F, 3, 2), already scaled by
     ``multiplier``. ``knum=None`` lets every in-box face contribute; an int
     keeps only each pixel's first ``knum`` in-box faces in face-index order.
     Each chunk runs under ``torch.utils.checkpoint``, so autograd keeps one
-    (B, H, W) product per chunk, not its (B, H, W, chunk) intermediates. The
-    plain version of the CUDA forward kernel; its autograd is the plain
-    version of the backward kernel."""
+    (B, H, W) product per chunk, not its (B, H, W, chunk) intermediates.
+    ``face_idx``, the rasterizer's (B, H, W) ids, sets allprob to 1 where an
+    id is ≥ 0, as the kernel does. The plain version of the CUDA forward
+    kernel; its autograd is the plain version of the backward kernel."""
     b, f = face_vertices_image.shape[:2]
     dtype = face_vertices_image.dtype
     device = face_vertices_image.device
@@ -102,6 +103,8 @@ def soft_mask_plain(face_vertices_image, sigmainv, boxlen, multiplier,
         allprob = allprob * checkpoint(_chunk_factor, px, py, verts, include,
                                        sigmainv, multiplier,
                                        use_reentrant=False)
+    if face_idx is not None:
+        allprob = torch.where(face_idx >= 0, 1.0, allprob)
     return allprob
 
 
@@ -119,18 +122,27 @@ def _soft_mask_bwd_plain(face_vertices_image, grad_allprob, sigmainv, boxlen,
 class _SoftMask(torch.autograd.Function):
     """allprob (B, H, W) of the scaled ``face_vertices_image``, every in-box
     face contributing. On CUDA, the forward and the backward are the two
-    soft-mask kernels; on the CPU, their plain versions."""
+    soft-mask kernels; on the CPU, their plain versions.
+
+    ``face_idx`` (optional, not differentiable): the rasterizer's ids;
+    allprob is 1 where an id is ≥ 0 and is not computed there. Only for a
+    caller that discards allprob at those pixels, as dibr_soft_mask does:
+    the gradient is that of allprob without ``face_idx``, and the cotangent
+    it receives there is 0, so ``ga = 0`` there either way."""
 
     @staticmethod
     def forward(ctx, face_vertices_image, sigmainv, boxlen, multiplier,
-                height, width):
+                height, width, face_idx=None):
         args = (sigmainv, boxlen, multiplier, height, width)
         fvi = face_vertices_image.detach()
         if is_cuda(fvi):
             fvi = fvi.contiguous()
-            allprob = cuda_soft_mask.soft_mask_fwd_cuda(fvi, *args)
+            if face_idx is not None:
+                face_idx = face_idx.to(torch.int32).contiguous()
+            allprob = cuda_soft_mask.soft_mask_fwd_cuda(fvi, *args,
+                                                        face_idx=face_idx)
         else:
-            allprob = soft_mask_plain(fvi, *args)
+            allprob = soft_mask_plain(fvi, *args, face_idx=face_idx)
         ctx.save_for_backward(fvi, allprob)
         ctx.args = args
         return allprob
@@ -143,7 +155,7 @@ class _SoftMask(torch.autograd.Function):
             grad = cuda_soft_mask.soft_mask_bwd_cuda(fvi, ga, *ctx.args)
         else:
             grad = _soft_mask_bwd_plain(fvi, grad_allprob, *ctx.args)
-        return grad, None, None, None, None, None
+        return grad, None, None, None, None, None, None
 
 
 def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,
@@ -161,7 +173,7 @@ def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,
                                   height, width, knum=int(knum))
     elif knum_mode == "all":
         allprob = _SoftMask.apply(scaled, sigmainv, boxlen, multiplier,
-                                  height, width)
+                                  height, width, selected_face_idx)
     else:
         raise ValueError(f"unknown knum_mode {knum_mode!r}")
     return torch.where(selected_face_idx >= 0, 1.0, 1.0 - allprob)

@@ -17,7 +17,7 @@ import torch
 from kaolin_tpu_torch.render.mesh import cuda_rasterize
 from kaolin_tpu_torch.utils.backend import is_cuda
 
-__all__ = ["rasterize", "rasterize_search_plain"]
+__all__ = ["rasterize", "rasterize_search_plain", "tile_face_lists"]
 
 DEFAULT_MULTIPLIER = 1000
 DEFAULT_EPS = 1e-8
@@ -91,6 +91,65 @@ def rasterize_search_plain(face_vertices_z, face_vertices_image, valid_mask,
         best_z = torch.where(take, tmax, best_z)
         best_i = torch.where(take, targ, best_i)
     return torch.where(torch.isfinite(best_z), best_i, -1)
+
+
+def tile_face_lists(face_vertices_image, height, width, multiplier,
+                    margin=0.0, valid_mask=None):
+    """The mesh kernels' tile cull (``csrc/tiles.cuh``) in plain PyTorch →
+    per batch element, per ``TILE`` x ``TILE`` tile (row-major), the int64
+    ids of the faces the kernel's block lists, in the order it lists them.
+
+    ``face_vertices_image`` is (B, F, 3, 2), already scaled by
+    ``multiplier``. A face is listed where its closed box, enlarged by
+    ``margin`` (0 for the winner search, ``boxlen * multiplier`` for the
+    soft mask) and empty where ``valid_mask`` is False, meets the tile's
+    pixel-centre rectangle; the block reaches it through the box of its
+    group of ``GROUP`` consecutive faces. Rounded as the kernels round."""
+    group, tile = cuda_rasterize.GROUP, cuda_rasterize.TILE
+    b, f = face_vertices_image.shape[:2]
+    v = face_vertices_image.detach()
+    px, py = _pixel_coords(height, width, multiplier, v.dtype, v.device)
+    xs, ys = px[0], py[:, 0]
+    lo = v.amin(dim=2) - margin                                 # (B, F, 2)
+    hi = v.amax(dim=2) + margin
+    if valid_mask is not None:
+        lo = torch.where(valid_mask[..., None], lo, torch.inf)
+        hi = torch.where(valid_mask[..., None], hi, -torch.inf)
+    n_groups = -(-f // group)
+    pad = n_groups * group - f
+    g_lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=torch.inf)
+    g_hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-torch.inf)
+    g_lo = g_lo.reshape(b, n_groups, group, 2).amin(dim=2)
+    g_hi = g_hi.reshape(b, n_groups, group, 2).amax(dim=2)
+    c0 = torch.arange(0, width, tile, device=v.device)
+    r0 = torch.arange(0, height, tile, device=v.device)
+    c1 = torch.clamp(c0 + tile, max=width) - 1
+    r1 = torch.clamp(r0 + tile, max=height) - 1
+    # per tile (row-major): x lo, x hi, y lo, y hi of its pixel centres
+    rect = torch.stack([xs[c0][None].expand(len(r0), -1),
+                        xs[c1][None].expand(len(r0), -1),
+                        ys[r1][:, None].expand(-1, len(c0)),
+                        ys[r0][:, None].expand(-1, len(c0))],
+                       -1).reshape(-1, 4)
+
+    def meet(lo, hi):   # (B, N, 2) boxes against every tile → (B, T, N)
+        return ((lo[:, None, :, 0] <= rect[None, :, None, 1])
+                & (hi[:, None, :, 0] >= rect[None, :, None, 0])
+                & (lo[:, None, :, 1] <= rect[None, :, None, 3])
+                & (hi[:, None, :, 1] >= rect[None, :, None, 2]))
+
+    faces, groups = meet(lo, hi), meet(g_lo, g_hi)
+    lanes = torch.arange(group, device=v.device)
+    lists = []
+    for i in range(b):
+        per_tile = []
+        for t in range(rect.shape[0]):
+            ids = (torch.nonzero(groups[i, t])[:, 0, None] * group
+                   + lanes).reshape(-1)
+            ids = ids[ids < f]
+            per_tile.append(ids[faces[i, t, ids]])
+        lists.append(per_tile)
+    return lists
 
 
 def _rasterize_search(face_vertices_z, face_vertices_image, valid_mask,

@@ -48,6 +48,7 @@ from kaolin_tpu_torch.render.mesh.dibr import (
     dibr_soft_mask,
     soft_mask_plain,
 )
+from kaolin_tpu_torch.render.mesh.rasterization import rasterize_search_plain
 from kaolin_tpu_torch.utils import cuda_build
 from kaolin_tpu_torch.utils.interop import from_numpy_tree
 from tests.torch_parity import ROOT, grid_faces, warm_torch_exp  # noqa: F401
@@ -103,17 +104,27 @@ def _jax_soft_direct(v, h, w, sigmainv, boxlen, knum=None):
     return 1.0 - jnp.prod(1.0 - prob, axis=-1)
 
 
-def _jax_pallas(fvi, h, w, sigmainv, boxlen, tile_px):
+def _jax_pallas(fvi, h, w, sigmainv, boxlen, tile_px, fidx=None):
     """The Pallas forward and backward kernels (interpret mode) → (soft,
-    gradient of sum(soft²))."""
+    gradient of sum(soft²)); 1 where ``fidx`` (H, W) holds an id ≥ 0."""
     def loss(v):
         soft = _soft_raw_pallas(v * 1000.0, sigmainv, boxlen, 1000.0, h, w,
                                 (tile_px, fvi.shape[1]))
+        if fidx is not None:
+            soft = jnp.where(jnp.asarray(fidx) >= 0, 1.0, soft)
         return jnp.sum(soft ** 2), soft
 
     (_, soft), grad = jax.value_and_grad(loss, has_aux=True)(
         jnp.asarray(fvi[0]))
     return np.asarray(soft), np.asarray(grad)
+
+
+def _soft_case(case):
+    """(faces (1, F, 3, 2), H, W, Pallas tile, sigmainv, boxlen)."""
+    if case == "random":   # 130 faces: two chunks of the plain loop
+        return random_faces(0, 130), 32, 48, 16, 7000.0, 0.02
+    # 152 in-box pixel-face pairs with tied distance candidates
+    return grid_faces(), 32, 32, 32, 1000.0, 0.1
 
 
 @pytest.mark.parametrize("case", ["random", "grid_ties"])
@@ -122,12 +133,7 @@ def test_soft_mask_all_matches_jax(case):
     mask: values against _soft_mask_unbatched, the JAX path dibr_soft_mask
     runs at these face counts, and against the Pallas kernels; gradients
     against the Pallas backward."""
-    if case == "random":   # 130 faces: two chunks of the plain loop
-        fvi, h, w, tile_px = random_faces(0, 130), 32, 48, 16
-        sigmainv, boxlen = 7000.0, 0.02
-    else:   # 152 in-box pixel-face pairs with tied distance candidates
-        fvi, h, w, tile_px = grid_faces(), 32, 32, 32
-        sigmainv, boxlen = 1000.0, 0.1
+    fvi, h, w, tile_px, sigmainv, boxlen = _soft_case(case)
     want = _jax_value(fvi, h, w, sigmainv, boxlen)
     pallas, g_want = _jax_pallas(fvi, h, w, sigmainv, boxlen, tile_px)
     mask, plain, grad = _torch_soft(fvi, h, w, "all", 30, sigmainv, boxlen)
@@ -135,6 +141,45 @@ def test_soft_mask_all_matches_jax(case):
     for got in (mask, plain, pallas):
         np.testing.assert_allclose(got, want, atol=1e-5)
     _assert_grads_close(grad, g_want)
+
+
+@pytest.mark.parametrize("case", ["random", "grid_ties"])
+def test_soft_mask_face_idx_is_exact(case):
+    """dibr_soft_mask hands the rasterizer's ids to _SoftMask, which skips
+    the covered pixels: its mask and gradient are bit for bit those of the
+    same mask with allprob computed at every pixel, and still match JAX's
+    dibr soft mask with the same ids (values) and the Pallas VJP with the
+    covered pixels set to 1 (gradients)."""
+    fvi, h, w, tile_px, sigmainv, boxlen = _soft_case(case)
+    f = fvi.shape[1]
+    fvz = np.random.RandomState(2).uniform(-3, -1, (1, f, 3))
+    idx = rasterize_search_plain(
+        torch.from_numpy(fvz.astype(np.float32)),
+        torch.from_numpy(fvi) * 1000.0, torch.ones((1, f), dtype=torch.bool),
+        1000.0, 1e-8, h, w)
+    assert bool((idx >= 0).any()) and bool((idx < 0).any())
+
+    def run(with_idx):
+        v = torch.from_numpy(fvi).requires_grad_(True)
+        if with_idx:
+            mask = dibr_soft_mask(v, idx, sigmainv=sigmainv, boxlen=boxlen)
+        else:
+            allprob = _SoftMask.apply(v * 1000.0, sigmainv, boxlen, 1000.0, h,
+                                      w)
+            mask = torch.where(idx >= 0, 1.0, 1.0 - allprob)
+        torch.sum(mask ** 2).backward()
+        return mask.detach(), v.grad
+
+    (mask, grad), (mask0, grad0) = run(True), run(False)
+    assert torch.equal(mask.view(torch.int32), mask0.view(torch.int32))
+    assert torch.equal(grad.view(torch.int32), grad0.view(torch.int32))
+    fidx = idx[0].numpy()
+    want = np.asarray(_soft_mask_unbatched(
+        jnp.asarray(fvi[0]) * 1000.0, jnp.asarray(fidx), sigmainv, boxlen,
+        1000.0, h, w))
+    np.testing.assert_allclose(mask[0].numpy(), want, atol=1e-5)
+    _, g_want = _jax_pallas(fvi, h, w, sigmainv, boxlen, tile_px, fidx)
+    _assert_grads_close(grad[0].numpy(), g_want)
 
 
 def test_soft_mask_first_knum_matches_jax():
@@ -269,6 +314,24 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                           0.02, 1000.0, 8, 8)
     assert cuda_soft_mask.soft_mask_fwd_cuda.launches == 0
     assert cuda_soft_mask.soft_mask_bwd_cuda.launches == 0
+
+
+def test_soft_mask_fwd_cuda_refuses_bad_face_idx():
+    """face_idx must be (B, H, W) int32, contiguous, on the faces' device:
+    type, shape and device are checked before the faces' own checks, so
+    each shows here on the CPU; a right face_idx beside CPU faces meets the
+    wrapper's refusal of CPU tensors. Nothing launches."""
+    fvi = torch.from_numpy(random_faces(0, 3)) * 1000.0
+    good = torch.full((1, 8, 8), -1, dtype=torch.int32)
+    fwd = cuda_soft_mask.soft_mask_fwd_cuda
+    for bad, err, what in ((good.long(), TypeError, "int32"),
+                           (good[:, :4], ValueError, "shape"),
+                           (good.to("meta"), ValueError, "must be on"),
+                           (good.transpose(1, 2), ValueError, "contiguous"),
+                           (good, ValueError, "CUDA")):
+        with pytest.raises(err, match=what):
+            fwd(fvi, 7000.0, 0.02, 1000.0, 8, 8, face_idx=bad)
+    assert fwd.launches == 0 and fwd.launches_with_face_idx == 0
 
 
 def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):

@@ -19,13 +19,19 @@ from kaolin_tpu.render.mesh.rasterization import (
     _pixel_coords as _pixel_coords_jax,
     rasterize as rasterize_jax,
 )
+from chip_smoke import adversarial_faces, with_depth
 from kaolin_tpu_torch.render.mesh import cuda_rasterize
 from kaolin_tpu_torch.render.mesh.rasterization import (
     _pixel_coords,
     rasterize,
+    tile_face_lists,
 )
 from kaolin_tpu_torch.utils.interop import from_numpy_tree
-from tests.torch_parity import grid_faces, warm_torch_exp  # noqa: F401
+from tests.torch_parity import (  # noqa: F401
+    grid_faces,
+    load_example,
+    warm_torch_exp,
+)
 
 
 def random_scene(seed, b, f, scale=0.4, feat_dim=4):
@@ -176,3 +182,61 @@ def test_cuda_wrapper_refuses_cpu_tensors():
             scene["fvz"], scene["fvi"] * 1000, scene["valid"], 1000, 1e-8,
             16, 16)
     assert cuda_rasterize.rasterize_search_cuda.launches == 0
+
+
+def _cull_case(case):
+    """Scaled faces (B, F, 3, 2) float32, validity (B, F) and the image
+    size of a tile-cull case."""
+    if case == "adversarial":
+        fvi, _, h, w = adversarial_faces()
+        return fvi, with_depth(fvi, 11)["valid"], h, w
+    if case == "random":
+        scene = random_scene(0, 2, 200)
+        return scene["fvi"] * np.float32(1000.0), scene["valid"], 72, 100
+    inputs = load_example().config2_inputs()
+    fvi = inputs["face_vertices_image"] * np.float32(1000.0)
+    return fvi, inputs["face_normals_z"] >= 0, 128, 128
+
+
+@pytest.mark.parametrize("kernel", ["winner", "soft_mask_fwd"])
+@pytest.mark.parametrize("case", ["adversarial", "random", "sphere128"])
+def test_tile_cull_loses_no_pair(case, kernel):
+    """The kernels' tile cull and ordered face list (tile_face_lists, their
+    plain model) lose no pair: every (pixel, face) pair in the face's closed
+    box (the winner search, valid faces only) or in its enlarged half-open
+    box (the soft mask, margin 20) has its face in the list of the pixel's
+    tile (cuda_rasterize.TILE pixels a side). The lists are ascending and
+    hold no culled face."""
+    fvi, valid, h, w = _cull_case(case)
+    winner = kernel == "winner"
+    margin = 0.0 if winner else 0.02 * 1000.0
+    v = torch.from_numpy(fvi)
+    ok = torch.from_numpy(valid) if winner else torch.ones(valid.shape,
+                                                           dtype=torch.bool)
+    lists = tile_face_lists(v, h, w, 1000, margin=margin,
+                            valid_mask=ok if winner else None)
+    px, py = _pixel_coords(h, w, 1000, torch.float32, "cpu")
+    xs, ys = px[0], py[:, 0]
+    lo, hi = v.amin(dim=2) - margin, v.amax(dim=2) + margin   # (B, F, 2)
+
+    def inside(c, k):   # (B, F, n): pixel centres c in the box along axis k
+        up = (c <= hi[..., k, None]) if winner else (c < hi[..., k, None])
+        return (c >= lo[..., k, None]) & up
+
+    cols, rows = inside(xs, 0), inside(ys, 1)
+    b, f = valid.shape
+    n = cuda_rasterize.TILE
+    ty, tx = -(-h // n), -(-w // n)
+    pairs = 0
+    for i in range(b):
+        assert len(lists[i]) == ty * tx
+        for t, ids in enumerate(lists[i]):
+            r, c = divmod(t, tx)
+            need = (rows[i, :, n * r:n * r + n].any(-1)
+                    & cols[i, :, n * c:n * c + n].any(-1) & ok[i])
+            listed = torch.zeros(f, dtype=torch.bool)
+            listed[ids] = True
+            assert bool((listed[need]).all()), (i, t)
+            assert bool((ids[1:] > ids[:-1]).all()) and bool(ok[i][ids].all())
+            pairs += int(need.sum())
+    assert pairs > 0

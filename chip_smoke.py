@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's three paths on one NVIDIA GPU and check them:
-the DIB-R inverse-rendering step, the SPC first-hit raster and the
-primitive-cost probe with its table-gather kernel.
+"""Run the PyTorch port's four paths on one NVIDIA GPU and check them:
+the DIB-R inverse-rendering step, the SPC first-hit raster, the
+primitive-cost probe with its table-gather kernel, and the Simplicits sim
+step (config 1, plain PyTorch: the JAX package has no kernel there).
 
     python3 chip_smoke.py
 
@@ -27,37 +28,58 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    launches on config 2. The SPC tile and untile kernels
    bitwise (depths) and exactly (ids), on a clustered level-5 octree at
    64² with 8-px tiles, on config 3 and on a camera inside config 3's
-   shell with its grown capacities;
-4. the DIB-R path: ``config2_step`` (512², a 4992-face UV sphere, forward
+   shell with its grown capacities. The soft-mask backward also on a
+   pixel centre 0.001 from an edge (``edge_pixel_faces``), where a
+   cotangent there alone gives every face exactly 0 (fault F11); the
+   JAX-style positional calls of ``dibr_rasterization`` and
+   ``dibr_soft_mask`` equal the plain calls (F12); ``raster_first_hit``
+   with 32-px tiles equals 16-px tiles at config 3 (F13);
+4. the sim step on the card against the port's CPU step from the CPU's
+   states, 10 steps at ``__graft_entry__``'s size and 3 at config 1, the
+   displacement B z within 1e-4 of its largest entry (B z does not depend
+   on the QR basis of z); TF32 off in every sim phase;
+5. the DIB-R path: ``config2_step`` (512², a 4992-face UV sphere, forward
    and backward, 5 steps) with every launch counter set to 0 before and
    read after (each soft-mask forward given the rasterizer's ids), its
    first step held against the same step through the plain versions; then
    the 64² silhouette optimisation of
    ``examples/torch_dibr_optimization.py`` (final loss < 0.30, |shift| <
    0.05);
-5. the SPC path: ``config3_frames`` of ``examples/torch_spc_raster.py``
+6. the SPC path: ``config3_frames`` of ``examples/torch_spc_raster.py``
    (a level-9 sphere shell, 512², 60 frames, capacities grown until no
    overflow), counters set to 0 before and read after; frame 0 held against
    the plain versions and against a brute-force slab test of every leaf on
    4,096 sampled pixels; then a camera inside the shell, whose slot
    overflow must clear as ``s_max`` grows;
-6. the table gather's two routes (shared memory, L2) held bit for bit
+7. the table gather's two routes (shared memory, L2) held bit for bit
    against ``table_gather_plain``: the probe's shape, 2^14 and 2^20
    tables, 58,112 and 58,113 floats (either side of the route rule),
    negative and out-of-range indices, counts that are not a multiple of 4
    and unaligned views;
-7. the probe path: ``primitives_bench.main([])`` at its full sizes, counters
+8. the probe path: ``primitives_bench.main([])`` at its full sizes, counters
    set to 0 before and read after; every probe printed its line, both
-   gather routes launched, and ``correct`` is true;
-8. time each kernel and each path against the plain versions with CUDA
+   gather routes launched, and ``correct`` is true; then config 1's 150
+   steps eager (Newton stops early) and from a CUDA graph (fixed trip),
+   counters set to 0 before and read after (the path has no kernel): the
+   mean height falls and stays above the floor, nothing is NaN, no graph
+   step runs again eagerly, and the two end within 1e-4 of max|z|; a scene
+   with a kinematic object, moved mid-run, graph against eager; their
+   steps/s (eager ``run_sim_step``, one graph replay, ``run_sim_steps(150)``
+   eager and from the graph) are timed after the kernels, from a graph
+   captured after earlier graphs were freed and replayed after their
+   memory was filled with NaN (fault F14), held against eager from the same
+   start;
+9. time each kernel and each path against the plain versions with CUDA
    events, in the order plain, kernel, kernel, plain;
-9. ``torch.profiler`` (``kaolin_tpu_torch.utils.profiling.trace``) over 10
+10. ``torch.profiler`` (``kaolin_tpu_torch.utils.profiling.trace``) over 10
    config-2 steps and 10 config-3 frames after warm-up: each kernel's
    device ms and launches per step or frame, each path's device-busy and
    idle share; the gathers and the library calls beside the kernels
    (``library_ms``), warm, at the probe's shapes; both gather routes on
    tables of 2^10 to 58,112 floats, to show where the route rule belongs;
-10. each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
+   the config-1 sim step eager and as a graph replay: device busy, idle
+   share and the largest ops;
+11. each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
    and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), the
    operations counted from this run's inputs, a term that depends on the
    face alone once per face, for the soft-mask forward only the pairs at
@@ -65,7 +87,9 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    and for the SPC tile kernel only the slab
    tests the walk needs (every unit box walked, the leaves of the units a
    ray enters nearer than its best, the level-3 boxes); then the kernels
-   in the order in which to make them faster.
+   in the order in which to make them faster; and the config-1 sim step's
+   bound, its dense products and factorizations over 67 TFLOP/s, at the
+   graph's 5 Newton iterations and at the eager path's measured count.
 
 Prints a JSON line with each kernel's launches, error, times and bound, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, without
@@ -101,6 +125,12 @@ GATHER_TABLES = {"table_gather_l2": 1 << 20, "table_gather_smem": 1 << 14}
 # tables up to the shared-memory route's largest, both routes timed on each
 GATHER_SWEEP = (1 << 10, 1 << 12, 1 << 14, 1 << 15, 40_000, 58_112)
 PROFILE_STEPS = 10
+# the Simplicits sim step: states compared per step at the graft size and
+# at config 1; B z within SIM_Z_TOL of max|B z| (card against CPU), z
+# within SIM_Z_TOL of max|z| (graph against eager)
+SIM_PARITY_STEPS = {"graft": 10, "config1": 3}
+SIM_Z_TOL = 1e-4
+SIM_TIMED_STEPS = 30
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores
@@ -246,6 +276,27 @@ def adversarial_faces():
     return np.stack(out), g, h, w
 
 
+# the soft mask of edge_pixel_faces: a wide falloff, so that faces far from
+# a pixel still weigh on it
+EDGE_SIGMAINV, EDGE_BOXLEN = 70.0, 0.5
+
+
+def edge_pixel_faces():
+    """Scaled faces (1, 6, 3, 2) float32 at 16x16 for the soft mask with
+    multiplier 1000 and ``EDGE_SIGMAINV``/``EDGE_BOXLEN``, a seeded
+    cotangent on allprob (1, 16, 16) and the pixel (row, col) = (8, 8),
+    whose centre (62.5, -62.5) lies 0.001 below the first face's lower
+    edge: that face's d² is 1e-6, its p rounds to 1 and allprob there is 0,
+    while d²'s gradient is not 0. The other five faces are seeded and
+    overlap the pixel."""
+    y = np.float32(-62.5 + 0.001)
+    rng = np.random.RandomState(12)
+    faces = [[[-237.5, y], [362.5, y], [62.5, 337.5]]]
+    faces += list(rng.uniform(-700, 700, (5, 3, 2)))
+    g = rng.randn(1, 16, 16).astype(np.float32)
+    return np.asarray(faces, np.float32)[None], g, 16, 16, (8, 8)
+
+
 def with_depth(fvi, seed):
     """Seeded z (B, F, 3) in [-3, -1] and a validity mask (B, F) with about
     one face in five culled, for the winner search on faces ``fvi``."""
@@ -331,6 +382,11 @@ class Smoke:
         self.from_numpy_tree = from_numpy_tree
         self.ex = load_example("torch_dibr_optimization")
         self.spc_ex = load_example("torch_spc_raster")
+        self.sim_ex = load_example("torch_simplicits_drop")
+        from kaolin_tpu_torch.physics.common import optimization
+        self.opt = optimization
+        self.newton = optimization.newtons_method
+        self.sim = {}   # the sim step's measurements, for the bound
         self.failures = []
         self.results = {name: dict(meta) for name, meta in KERNELS.items()}
         self._config3 = None
@@ -536,25 +592,26 @@ class Smoke:
                        f"{same}; with face_idx bitwise equal at "
                        f"{int(free.sum())} uncovered pixels {kept}, 1.0 at "
                        f"{int((~free).sum())} covered {ones} [{label}]")
+        edge = self.edge_case()
         bwd_cases = [("random 72x100 B=2", self.random_case()),
                      ("sphere 128x128", self.sphere_case(128)),
                      (f"sphere {RES}x{RES}", self.sphere_case(RES)),
                      ("adversarial 72x100 B=2", self.adversarial_case()),
                      ("sphere pair 128x128 B=2", self.sphere_pair_case(128)),
-                     ("100 faces over 512x512", self.screen_faces_case())]
+                     ("100 faces over 512x512", self.screen_faces_case()),
+                     ("a pixel centre 0.001 from an edge 16x16", edge)]
         for label, (d, h, w) in bwd_cases:
+            soft = d.get("soft", (7000.0, 0.02))
+            args = (*soft, 1000.0, h, w)
             if "g" in d:
                 g = d["g"]
                 with torch.no_grad():
-                    allprob = self.dibr.soft_mask_plain(d["fvi"], 7000.0,
-                                                        0.02, 1000.0, h, w)
+                    allprob = self.dibr.soft_mask_plain(d["fvi"], *args)
             else:
                 g, allprob = self.soft_cotangent(d, h, w)
             ga = (g * allprob).contiguous()
-            grad_k = self.cs.soft_mask_bwd_cuda(d["fvi"], ga, 7000.0, 0.02,
-                                                1000.0, h, w)
-            grad_p = self.dibr._soft_mask_bwd_plain(d["fvi"], g, 7000.0,
-                                                    0.02, 1000.0, h, w)
+            grad_k = self.cs.soft_mask_bwd_cuda(d["fvi"], ga, *args)
+            grad_p = self.dibr._soft_mask_bwd_plain(d["fvi"], ga, *args)
             scale = float(grad_p.abs().max())
             err = float((grad_k - grad_p).abs().max())
             self.check(scale > 0 and err / scale <= 1e-4,
@@ -563,13 +620,55 @@ class Smoke:
                        f"{scale:.3e}, ratio {err / max(scale, 1e-30):.3e}")
             self.record_err("soft_mask_bwd", err)
             if label.startswith("sphere 512"):
-                again = self.cs.soft_mask_bwd_cuda(d["fvi"], ga, 7000.0,
-                                                   0.02, 1000.0, h, w)
+                again = self.cs.soft_mask_bwd_cuda(d["fvi"], ga, *args)
                 same = torch.equal(again.view(torch.int32),
                                    grad_k.view(torch.int32))
                 self.check(same, f"soft-mask backward bitwise equal across "
                            f"two launches [{label}]: {same}")
+        d, h, w = edge
+        r, c = d["pixel"]
+        only = torch.zeros_like(d["g"])
+        only[0, r, c] = 1.0
+        args = (EDGE_SIGMAINV, EDGE_BOXLEN, 1000.0, h, w)
+        with torch.no_grad():
+            allprob = self.dibr.soft_mask_plain(d["fvi"], *args)
+        ga = (only * allprob).contiguous()
+        zero_k = self.cs.soft_mask_bwd_cuda(d["fvi"], ga, *args)
+        zero_p = self.dibr._soft_mask_bwd_plain(d["fvi"], ga, *args)
+        self.check(float(allprob[0, r, c]) == 0.0
+                   and not bool(zero_k.any()) and not bool(zero_p.any()),
+                   "F11: a cotangent only where 1 - p rounds to 0 gives every"
+                   " face exactly 0, kernel and plain: max "
+                   f"{float(zero_k.abs().max()):.3e} and "
+                   f"{float(zero_p.abs().max()):.3e}")
+        self.check_jax_style_calls()
         torch.cuda.synchronize()
+
+    def edge_case(self):
+        fvi, g, h, w, pixel = edge_pixel_faces()
+        d = self.from_numpy_tree({"fvi": fvi, "g": g}, "cuda")
+        d["soft"], d["pixel"] = (EDGE_SIGMAINV, EDGE_BOXLEN), pixel
+        return d, h, w
+
+    def check_jax_style_calls(self):
+        """F12: ``dibr_rasterization`` and ``dibr_soft_mask`` called with
+        the JAX package's arguments in its positions, on the card: bit for
+        bit the results of the calls without them."""
+        torch = self.torch
+        d = self.from_numpy_tree(self.ex.config2_inputs(), "cuda")
+        args = (RES, RES, d["face_vertices_z"], d["face_vertices_image"],
+                d["face_features"], d["face_normals_z"])
+        with torch.no_grad():
+            want = self.dibr.dibr_rasterization(*args)
+            got = self.dibr.dibr_rasterization(*args, 7000, 0.02, 30, None,
+                                               None, "binned", 16, 512)
+            mask = self.dibr.dibr_soft_mask(d["face_vertices_image"], want[2],
+                                            7000, 0.02, 30, 1000.0, 16, 512,
+                                            "pallas", "all")
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        self.check(same and torch.equal(mask, want[1]),
+                   f"F12: JAX-style positional calls on the card equal the "
+                   f"plain calls at config 2: {same}")
 
     def plain_loss(self, inputs, fvi, feats, res):
         """config2_loss with the plain versions in place of the kernels."""
@@ -654,7 +753,7 @@ class Smoke:
                 lambda: self.cs.soft_mask_bwd_cuda(
                     d["fvi"], ga, 7000.0, 0.02, 1000.0, h, w),
                 lambda: self.dibr._soft_mask_bwd_plain(
-                    d["fvi"], g, 7000.0, 0.02, 1000.0, h, w)),
+                    d["fvi"], ga, 7000.0, 0.02, 1000.0, h, w)),
         }
         for name, (kern, plain) in pairs.items():
             with torch.no_grad():
@@ -825,6 +924,15 @@ class Smoke:
             self.record_err("spc_untile", max(
                 float((uk[0] - up[0]).abs().max()),
                 float((uk[1] - up[1]).abs().max())))
+        # F13: a 32-px tile is split into 16-px ones on the card too
+        kw = dict(s_max=caps3[1], c_cap=caps3[2])
+        t32 = self.sr.raster_first_hit(rspc3, cam3, tile_px=32, **kw)
+        t16 = self.sr.raster_first_hit(rspc3, cam3, tile_px=16, **kw)
+        same = (torch.equal(t32[0].view(torch.int32),
+                            t16[0].view(torch.int32))
+                and torch.equal(t32[1], t16[1]) and bool(t32[2].any()))
+        self.check(same, f"F13: raster_first_hit with tile_px 32 on the card"
+                   f" equals tile_px 16 at config 3 bit for bit: {same}")
         torch.cuda.synchronize()
 
     def phase_spc_main_path(self):
@@ -968,6 +1076,287 @@ class Smoke:
                        f"{took}, the rule says {route}")
         torch.cuda.synchronize()
 
+    # -- the Simplicits sim step ------------------------------------------
+    def check_precision(self, label):
+        """The sim step's float32 products run in full float32: TF32 off."""
+        torch = self.torch
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        prec = torch.get_float32_matmul_precision()
+        self.check(tf32 is False and prec == "highest",
+                   f"{label}: matmul allow_tf32 {tf32}, float32 matmul "
+                   f"precision {prec!r}")
+
+    def sim_scene(self, which, device, **kw):
+        ex = self.sim_ex
+        make = ex.config1_scene if which == "config1" else ex.graft_scene
+        return make(device, **kw)
+
+    def phase_sim_parity(self):
+        """The card's step against the port's CPU step from the same states:
+        the CPU scene's trajectory, each state into the card's step.
+
+        The scene sums its handle norms in float64, so both devices should
+        take the same QR pivots, and then the CPU's state goes in as it is.
+        Where they do not, a state crosses through the pre-QR basis in
+        float64 (z_card = K_card⁻¹ K_cpu z_cpu). The steps are compared by
+        their displacements B z, which do not depend on the basis."""
+        torch = self.torch
+        self.check_precision("phase_sim_parity")
+        f64 = torch.float64
+        for which, n in SIM_PARITY_STEPS.items():
+            cpu = self.sim_scene(which, "cpu")
+            states = [(cpu.sim_z, cpu.sim_z_prev, cpu.sim_z_dot)]
+            for _ in range(n):
+                cpu.run_sim_step()
+                states.append((cpu.sim_z, cpu.sim_z_prev, cpu.sim_z_dot))
+            card = self.sim_scene(which, "cuda")
+            oc, og = cpu.get_object(0), card.get_object(0)
+            same = torch.equal(og.qr_tfm.cpu(), oc.qr_tfm)
+            conv = og.qr_tfm_inv.cpu().to(f64) @ oc.qr_tfm.to(f64)
+            fn, consts = card.build_functional_step()
+            errs = []
+            for k in range(n):
+                z_in = [(x if same else (conv @ x.to(f64)).float()).cuda()
+                        for x in states[k]]
+                with torch.no_grad():
+                    out = fn(consts, *z_in)
+                got = card.sim_B.cpu().to(f64) @ out[0].cpu().to(f64)
+                want = cpu.sim_B.to(f64) @ states[k + 1][0].to(f64)
+                errs.append(float((got - want).abs().max()
+                                  / want.abs().max()))
+            raw = [(s.sim_B.cpu().to(f64) @ o.qr_tfm_inv.cpu().to(f64))
+                   for s, o in ((card, og), (cpu, oc))]
+            b_err = float((raw[0] - raw[1]).abs().max() / raw[1].abs().max())
+            self.check(max(errs) <= SIM_Z_TOL and all(
+                bool(torch.isfinite(x).all()) for x in states[-1]),
+                f"sim step card vs CPU [{which}, D {card.total_dofs}, "
+                f"{card.total_qp} points], {n} steps from the CPU's states: "
+                f"max |d(B z)| / max|B z| {max(errs):.3e} (per step "
+                + ", ".join(f"{e:.1e}" for e in errs)
+                + f"); B K K^-1 {b_err:.1e} of max; the same QR pivots "
+                f"{same} [{self.card}]")
+        self.check_deferred_fallback()
+
+    def check_deferred_fallback(self):
+        """The graph's solve: a captured ``_direct_solve`` keeps the
+        Cholesky solution and flags a failure; a scene whose graph step
+        meets a failed Cholesky runs the step again eagerly."""
+        torch, opt = self.torch, self.opt
+        rng = torch.Generator().manual_seed(0)
+        a = torch.randn(396, 396, generator=rng)
+        g = torch.randn(396, generator=rng).cuda()
+        flags = []
+        for h in ((a @ a.T / 396 + torch.eye(396)).cuda(), (a + a.T).cuda()):
+            failed = torch.zeros((), dtype=torch.bool, device="cuda")
+            static = h.clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), opt.cholesky_only(failed):
+                opt._direct_solve(static, g)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph), opt.cholesky_only(failed):
+                out = opt._direct_solve(static, g)
+            failed.zero_()
+            graph.replay()
+            chol = torch.cholesky_solve(g[:, None],
+                                        torch.linalg.cholesky_ex(h)[0])[:, 0]
+            # the Cholesky of an indefinite H is not a solution: not compared
+            flags.append((bool(failed),
+                          bool(failed) or torch.equal(out, chol)))
+        self.check(flags == [(False, True), (True, True)],
+                   f"captured solve keeps the Cholesky and flags a failure "
+                   f"(SPD, indefinite): {flags}")
+        # z = 0.5·N(0, 1): every Cholesky of the step fails (info 50-51)
+        z0 = 0.5 * torch.randn(396, generator=torch.Generator().manual_seed(1))
+        eager = self.sim_scene("config1", "cuda")
+        graph = self.sim_scene("config1", "cuda", use_cuda_graphs=True)
+        for scene in (eager, graph):
+            scene.sim_z = z0.to("cuda")
+            scene.run_sim_step()
+        same = torch.equal(eager.sim_z.view(torch.int32),
+                           graph.sim_z.view(torch.int32))
+        self.check(graph.graph_steps_rerun == 1 and same,
+                   f"graph step where the Cholesky fails: run again eagerly "
+                   f"({graph.graph_steps_rerun} step), bit for bit the eager "
+                   f"step {same}")
+
+    def fill_freed_memory(self, scene):
+        """Tensors of NaN at the sizes of the constants a scene's step holds
+        (the 3x3 and D x D identities, the int64 DOF index): if the step's
+        graph still read any of them after it was freed, the allocator would
+        hand its memory to one of these (fault F14, a graph that read freed
+        memory)."""
+        torch, d = self.torch, scene.total_dofs
+        shapes = ((3, 3),) * 64 + ((d, d),) * 16 + ((2 * d,),) * 64
+        return [torch.full(s, float("nan"), device="cuda") for s in shapes]
+
+    def kinematic_scene(self, graphs):
+        """Two graft-style objects (64 points, 4 handles; 48 points, 3
+        handles), the second kinematic and lifted, with gravity and the
+        floor: the scene of ``test_two_objects_one_kinematic_match_jax``."""
+        ex = self.sim_ex
+        a, b = ex.graft_points(64, 4), ex.graft_points(48, 3)
+        b["pts"] = b["pts"] * np.float32(0.5)
+        lift = np.eye(4, dtype=np.float32)
+        lift[1, 3] = -0.6
+        scene = ex.SimplicitsScene(timestep=0.03, max_newton_steps=3,
+                                   max_ls_steps=5, device="cuda",
+                                   use_cuda_graphs=graphs)
+        for p, kin, init in ((a, False, None), (b, True, lift)):
+            scene.add_object(ex.SkinnedPhysicsPoints(
+                pts=p["pts"], yms=1e4, prs=0.45, rhos=500.0, appx_vol=1.0,
+                skinning_weights=p["w"], dwdx=p["dwdx"]),
+                is_kinematic=kin, init_transform=init)
+        scene.set_scene_gravity((0.0, 9.8, 0.0))
+        scene.set_scene_floor(floor_height=-1.0)
+        return scene
+
+    def check_kinematic_graph(self):
+        """A scene with a kinematic object from the CUDA graph against
+        eager: 20 steps, the kinematic object moved by
+        ``set_kinematic_object_transform`` after 10, freed memory filled
+        after the capture."""
+        torch = self.torch
+        move = np.eye(4, dtype=np.float32)
+        move[0, 3] = 0.2
+        scenes = [self.kinematic_scene(graphs) for graphs in (False, True)]
+        junk = []
+        for k in range(20):
+            if k == 10:
+                for scene in scenes:
+                    scene.set_kinematic_object_transform(1, move)
+            for scene in scenes:
+                scene.run_sim_step()
+            if k == 0:
+                junk = self.fill_freed_memory(scenes[1])
+        (eager, graph), kin = scenes, scenes[0].obj_z_slices[1]
+        err = float((eager.sim_z - graph.sim_z).abs().max()
+                    / eager.sim_z.abs().max())
+        same = torch.equal(eager.sim_z.view(torch.int32),
+                           graph.sim_z.view(torch.int32))
+        held = torch.equal(graph.sim_z[kin], graph.get_object(1).z)
+        del junk
+        self.check(err <= SIM_Z_TOL and graph.graph_steps_rerun == 0
+                   and held and bool(torch.isfinite(graph.sim_z).all()),
+                   f"kinematic scene (D {graph.total_dofs}, "
+                   f"{len(graph.dyn_idx)} dynamic), 20 steps from the graph "
+                   f"against eager: max |dz| / max|z| {err:.3e}, bit for "
+                   f"bit {same}, {graph.graph_steps_rerun} steps run again "
+                   f"eagerly, the kinematic DOFs at the scripted move {held}")
+
+    def phase_sim_path(self):
+        """Config 1 in full: 150 steps eager (Newton stops early) and from
+        the CUDA graph (fixed trip), mean height read every 30 steps; then
+        a scene with a kinematic object, graph against eager."""
+        torch, ex = self.torch, self.sim_ex
+        self.check_precision("phase_sim_path")
+        runs = {}
+        for label, graphs in (("eager", False), ("graph", True)):
+            scene = self.sim_scene("config1", "cuda", use_cuda_graphs=graphs)
+            heights = [ex.mean_height(scene)]
+
+            def path():
+                for _ in range(ex.STEPS // 30):
+                    scene.run_sim_steps(30)
+                    heights.append(ex.mean_height(scene))
+
+            t0 = time.perf_counter()
+            _, launches = self.drive((), path)
+            wall = time.perf_counter() - t0
+            counts = {k: f.launches for k, f in self.counters().items()}
+            low = float(scene.get_object_deformed_pts(0)[:, 1].min())
+            finite = all(bool(torch.isfinite(x).all()) for x in
+                         (scene.sim_z, scene.sim_z_dot))
+            print(f"config 1, {ex.STEPS} steps, {label}: {wall:.3f} s host "
+                  f"wall with the first step's set-up, "
+                  f"{scene.graph_steps_rerun} graph steps run again eagerly;"
+                  f" mean heights "
+                  + ", ".join(f"{h:.4f}" for h in heights)
+                  + f"; lowest point {low:.4f}; kernel launches {counts} "
+                  f"[{self.card}]", flush=True)
+            self.check(finite and scene.current_sim_step == ex.STEPS
+                       and heights[-1] < heights[0] - 0.3
+                       and min(heights) > -1.0 and low > -1.1
+                       and scene.graph_steps_rerun == 0,
+                       f"config-1 {label} path: finite, the mean height fell "
+                       f"from {heights[0]:.4f} to {heights[-1]:.4f} and "
+                       f"stayed above the floor at -1 (lowest mean "
+                       f"{min(heights):.4f}, lowest point {low:.4f}), "
+                       f"{scene.graph_steps_rerun} steps run again eagerly "
+                       f"(config 1 needs no LU)")
+            runs[label] = scene
+        za, zb = runs["eager"].sim_z, runs["graph"].sim_z
+        err = float((za - zb).abs().max() / za.abs().max())
+        same = torch.equal(za.view(torch.int32), zb.view(torch.int32))
+        self.check(err <= SIM_Z_TOL, f"config-1 graph vs eager after "
+                   f"{ex.STEPS} steps: max |dz| / max|z| {err:.3e}, bit for "
+                   f"bit {same}")
+        self.check_kinematic_graph()
+
+    def phase_sim_timing(self):
+        """Steps/s of config 1: eager ``run_sim_step``, one graph replay a
+        step, ``run_sim_steps(150)`` eager and from the graph; CUDA-event
+        medians. The graph scene is captured after the earlier phases'
+        graphs were freed, and the memory their constants would free is
+        filled with NaN before it replays (fault F14): its states are held
+        against the eager scene's, which took the same steps from the same
+        start, and a graph time is reported only from a run in which no
+        step ran again eagerly."""
+        torch, ex = self.torch, self.sim_ex
+        self.check_precision("phase_sim_timing")
+        eager = self.sim_scene("config1", "cuda")
+        graph = self.sim_scene("config1", "cuda", use_cuda_graphs=True)
+        graph.run_sim_step()       # the capture
+        graph.reset_scene()
+        junk = self.fill_freed_memory(graph)
+        n = SIM_TIMED_STEPS
+        before = self.newton.iterations
+        e_ms = statistics.median(self.time_ms(eager.run_sim_step, n))
+        iters = (self.newton.iterations - before) / (n + 1)
+        g_ms = statistics.median(self.time_ms(graph.run_sim_step, n))
+        single = (eager.sim_z, graph.sim_z)
+        rerun_single = graph.graph_steps_rerun
+        eager.reset_scene()
+        graph.reset_scene()
+        # 4 x 150 steps each from rest: a warm-up call, then 3 timed
+        re_ms = statistics.median(self.time_ms(
+            lambda: eager.run_sim_steps(ex.STEPS), 3))
+        r_ms = statistics.median(self.time_ms(
+            lambda: graph.run_sim_steps(ex.STEPS), 3))
+        del junk
+        rerun = graph.graph_steps_rerun
+        errs = [float((a - b).abs().max() / a.abs().max()) for a, b in
+                (single, (eager.sim_z, graph.sim_z))]
+        same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in (single, (eager.sim_z, graph.sim_z))]
+        self.check(max(errs) <= SIM_Z_TOL and rerun == 0,
+                   f"config-1 timed graph scene against eager from the same "
+                   f"start, after {n + 1} single steps and after "
+                   f"{4 * ex.STEPS} steps of run_sim_steps({ex.STEPS}): max "
+                   f"|dz| / max|z| {errs[0]:.3e}, {errs[1]:.3e}, bit for bit "
+                   f"{same}; {rerun} of the graph's "
+                   f"{n + 1 + 4 * ex.STEPS} steps run again eagerly "
+                   f"({rerun_single} in the single steps)")
+        self.sim.update(iterations=iters, dofs=eager.total_dofs,
+                        points=eager.total_qp, newton=eager.max_newton_steps,
+                        ls=eager.max_ls_steps)
+        if rerun == 0:
+            graph_line = (
+                f"graph replay {g_ms:.4f} ms ({1e3 / g_ms:.1f} steps/s, "
+                f"{eager.max_newton_steps} iterations); run_sim_steps"
+                f"({ex.STEPS}) from the graph {r_ms:.4f} ms "
+                f"({ex.STEPS * 1e3 / r_ms:.1f} steps/s)")
+        else:
+            graph_line = (f"graph times not reported: {rerun} steps ran "
+                          f"again eagerly")
+        print(f"config-1 sim step, the first {n} steps from rest, medians:"
+              f" eager run_sim_step {e_ms:.4f} ms ({1e3 / e_ms:.1f} steps/s,"
+              f" {iters:.2f} Newton iterations a step); {graph_line}; eager "
+              f"run_sim_steps({ex.STEPS}) {re_ms:.4f} ms "
+              f"({ex.STEPS * 1e3 / re_ms:.1f} steps/s) [{self.card}]",
+              flush=True)
+
     def phase_probe_path(self):
         buf = io.StringIO()
         try:
@@ -1073,6 +1462,7 @@ class Smoke:
             top[name] = top.get(name, 0.0) + us / n / 1e3
         for name, ms in sorted(top.items(), key=lambda x: -x[1])[:8]:
             print(f"    {ms:.4f} ms  {name[:160]}")
+        return busy
 
     def phase_profile(self):
         torch = self.torch
@@ -1086,6 +1476,22 @@ class Smoke:
                           lambda: self.sr.raster_first_hit(
                               rspc, cam, tile_px=tile_px, s_max=s_max,
                               c_cap=c_cap))
+        self.check_precision("phase_profile")
+        eager = self.sim_scene("config1", "cuda")
+        self.sim["eager_busy"] = self.profile_path(
+            "config-1 sim step, eager", (), eager.run_sim_step)
+        graph = self.sim_scene("config1", "cuda", use_cuda_graphs=True)
+        try:
+            busy = self.profile_path(
+                "config-1 sim step, graph replay", (), graph.run_sim_step)
+        except RuntimeError as err:    # the profiler may not see graphs
+            print(f"graph replay profile: {err}; device time not measured")
+        else:
+            self.check(graph.graph_steps_rerun == 0,
+                       f"profiled graph steps: {graph.graph_steps_rerun} "
+                       f"run again eagerly")
+            if graph.graph_steps_rerun == 0:
+                self.sim["graph_busy"] = busy
         for k in (*DIBR_KERNELS, "spc_raster"):
             self.results[k]["library_ms"] = None
         b = self.spc_bins(rspc, cam, (tile_px, s_max, c_cap))
@@ -1150,6 +1556,48 @@ class Smoke:
             return (rows.sum(dim=1) * cols.sum(dim=1)).long()
         # exact in float32: every partial count is below 2^24
         return ((rows @ where.float()) * cols).sum(dim=1).long()
+
+    def sim_bound(self):
+        """The config-1 sim step's bound: its float32 operations over 67
+        TFLOP/s (the step's bytes, B, dF/dz and BMB read once, take far
+        less). Counted per Newton iteration from the scene's sizes, the
+        dense products and factorizations only (the elementwise material
+        terms add under 1%): the gradient's four products with B and dF/dz
+        and BMB·δ; the Hessian's dx and F, its batched (3x3 and 9x9) block
+        products and its two (D, ·) x (·, D) reductions; Cholesky (D³/3)
+        and LU (2D³/3) with their solves; the line search's QR turns and
+        its K = 2m + 2 energies (a product with B and dF/dz each, and the
+        kinetic term)."""
+        r = self.sim
+        if "dofs" not in r:
+            raise RuntimeError("phase_sim_timing did not run")
+        d, n, m = r["dofs"], r["points"], r["ls"]
+        k = 2 * m + 2
+        grad = 4 * 2 * 12 * n * d + 2 * d * d
+        hess = 2 * 2 * 12 * n * d + 2 * n * d * (9 + 81) \
+            + 2 * d * d * 12 * n + 3 * d * d
+        solve = d ** 3 / 3 + 2 * d ** 3 / 3 + 4 * 2 * d * d
+        search = 2 * d * d + 2 * (k - 1) * d * d + k * (2 * 12 * n * d
+                                                       + 2 * d * d)
+        per_iter = grad + hess + solve + search
+        nbytes = 4 * (12 * n * d + d * d)
+        for label, iters, ms in (
+                ("graph (fixed trip)", r["newton"], r.get("graph_busy")),
+                ("eager (stops early)", r["iterations"], r.get("eager_busy"))):
+            ops = per_iter * iters
+            t_ops = ops / FP32_OPS_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            bound = max(t_ops, t_bytes)
+            busy = "not measured" if ms is None else \
+                f"{ms:.4f} ms, share {bound / ms:.4f}"
+            print(f"config-1 sim step, {label}: {iters:g} Newton iterations"
+                  f" x {per_iter / 1e9:.4f} GFLOP ({grad / 1e6:.1f} M "
+                  f"gradient, {hess / 1e6:.1f} M Hessian, {solve / 1e6:.1f} M"
+                  f" solves, {search / 1e6:.1f} M line search) = "
+                  f"{ops / 1e9:.4f} GFLOP -> {t_ops:.6f} ms; {nbytes} bytes "
+                  f"-> {t_bytes:.6f} ms; bound {bound:.6f} ms by "
+                  f"{'operations' if t_ops >= t_bytes else 'bytes'}; device "
+                  f"busy {busy} [{self.card}]")
 
     def phase_bounds(self):
         torch = self.torch
@@ -1230,6 +1678,7 @@ class Smoke:
                            f"a {n_tab}-float table once, {n} indices read "
                            f"and values written")
         torch.cuda.synchronize()
+        self.sim_bound()
 
         # the order in which to make the kernels faster: first those slower
         # than their library call, largest factor first; then by launches
@@ -1252,10 +1701,12 @@ class Smoke:
     def run(self):
         for phase in (self.phase_card, self.phase_build, self.phase_parity,
                       self.phase_spc_parity, self.phase_gather_parity,
-                      self.phase_main_path, self.phase_spc_main_path,
-                      self.phase_probe_path, self.phase_timing,
+                      self.phase_sim_parity, self.phase_main_path,
+                      self.phase_spc_main_path, self.phase_probe_path,
+                      self.phase_sim_path, self.phase_timing,
                       self.phase_spc_timing, self.phase_gather_timing,
-                      self.phase_profile, self.phase_bounds):
+                      self.phase_sim_timing, self.phase_profile,
+                      self.phase_bounds):
             print(f"== {phase.__name__}", flush=True)
             try:
                 phase()

@@ -1,0 +1,30 @@
+from kaolin_tpu_torch.physics.simplicits import network  # noqa: F401
+from kaolin_tpu_torch.physics.simplicits import precomputed  # noqa: F401
+from kaolin_tpu_torch.physics.simplicits import simulation  # noqa: F401
+from kaolin_tpu_torch.physics.simplicits import skinning  # noqa: F401
+from kaolin_tpu_torch.physics.simplicits import training  # noqa: F401
+from kaolin_tpu_torch.physics.simplicits.network import (  # noqa: F401
+    SimplicitsMLP,
+    SkinningFn,
+    SkinningModule,
+)
+from kaolin_tpu_torch.physics.simplicits.precomputed import (  # noqa: F401
+    dFdz_matrix,
+    jacobian_dF_dz,
+    lbs_matrix,
+    lumped_mass_matrix,
+)
+from kaolin_tpu_torch.physics.simplicits.simulation import (  # noqa: F401
+    SimplicitsScene,
+    SimulatedObject,
+)
+from kaolin_tpu_torch.physics.simplicits.skinning import (  # noqa: F401
+    standard_lbs,
+    weight_function_lbs,
+)
+from kaolin_tpu_torch.physics.simplicits.training import (  # noqa: F401
+    PhysicsPoints,
+    SimplicitsObject,
+    SkinnedPhysicsPoints,
+    SkinnedPoints,
+)

@@ -1,0 +1,82 @@
+"""Skinning-weight modules of Simplicits, in PyTorch.
+
+Counterpart of ``kaolin_tpu/physics/simplicits/network.py``. A
+:class:`SkinningModule` normalizes points to its bounding box, evaluates its
+learned handles and appends the constant handle; :class:`SimplicitsMLP` is
+the ELU MLP of the reference (``mlp_apply`` there). Weights trained in the
+JAX package come across with
+:func:`kaolin_tpu_torch.utils.interop.simplicits_mlp_from_jax`.
+"""
+
+import torch
+from torch import nn
+
+__all__ = ["SimplicitsMLP", "SkinningFn", "SkinningModule"]
+
+
+def _box_corner(value, default):
+    v = default if value is None else value
+    return torch.broadcast_to(torch.as_tensor(v, dtype=torch.float32),
+                              (3,)).clone()
+
+
+class SkinningModule(nn.Module):
+    """Skinning weights of points: ``fcn`` gives the learned handles at
+    points normalized to the box [bb_min, bb_max] → (N, H−1), and the
+    constant handle (weight 1 everywhere) comes last."""
+
+    def __init__(self, fcn=None, bb_min=None, bb_max=None):
+        super().__init__()
+        self.fcn = fcn
+        self.register_buffer("bb_min", _box_corner(bb_min, 0.0))
+        self.register_buffer("bb_max", _box_corner(bb_max, 1.0))
+
+    @staticmethod
+    def from_function(function, bb_min=0.0, bb_max=1.0):
+        """Wrap an analytic weight function of normalized points."""
+        return SkinningModule(fcn=function, bb_min=bb_min, bb_max=bb_max)
+
+    def _offset_scale(self, pts):
+        return (pts - self.bb_min) / (self.bb_max - self.bb_min)
+
+    def forward(self, pts):
+        """Learned handles at normalized pts (N, d) → (N, H−1)."""
+        return self.fcn(pts)
+
+    def compute_skinning_weights(self, pts):
+        """Weights at raw pts with the constant handle → (N, H)."""
+        w = self(self._offset_scale(pts))
+        return torch.cat([w, w.new_ones((pts.shape[0], 1))], dim=1)
+
+    def compute_dwdx(self, pts):
+        """Spatial Jacobian of the weights → (N, H, 3), exact through
+        ``torch.func.jacrev``."""
+        jac_single = torch.func.jacrev(
+            lambda p: self.compute_skinning_weights(p[None])[0])
+        return torch.func.vmap(jac_single)(pts)
+
+
+# the JAX package's name for the functional form of the module
+SkinningFn = SkinningModule
+
+
+class SimplicitsMLP(SkinningModule):
+    """The reference architecture: Linear(d, w) → ELU → [Linear(w, w) →
+    ELU] × num_layers → Linear(w, H−1), with torch's default uniform
+    initialization drawn from seed ``key`` (0 when None)."""
+
+    def __init__(self, spatial_dimensions, layer_width, num_handles,
+                 num_layers, bb_min=None, bb_max=None, key=None):
+        super().__init__(bb_min=bb_min, bb_max=bb_max)
+        sizes = ([spatial_dimensions] + [layer_width] * (num_layers + 1)
+                 + [num_handles - 1])
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0 if key is None else int(key))
+            self.layers = nn.ModuleList(
+                nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+
+    def forward(self, pts):
+        h = pts
+        for layer in self.layers[:-1]:
+            h = nn.functional.elu(layer(h))
+        return self.layers[-1](h)

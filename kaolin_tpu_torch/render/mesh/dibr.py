@@ -8,8 +8,9 @@ segment) and 3 vertices.
 
 ``knum_mode="all"`` (the default) lets every in-box face contribute: on a
 CUDA tensor through the forward and backward kernels of
-:mod:`.cuda_soft_mask` (:class:`_SoftMask`), on a CPU tensor through the
-plain :func:`soft_mask_plain` and its autograd. ``knum_mode="first"``
+:mod:`.cuda_soft_mask` (:class:`_SoftMask`), on a CPU tensor through their
+plain versions :func:`soft_mask_plain` and :func:`_soft_mask_bwd_plain`,
+which follow one rule for the gradient. ``knum_mode="first"``
 reproduces the reference kernel's truncation to each pixel's first ``knum``
 in-box faces and is plain PyTorch on every device, as it is plain XLA in
 the JAX package.
@@ -20,8 +21,11 @@ from torch.utils.checkpoint import checkpoint
 
 from kaolin_tpu_torch.render.mesh import cuda_soft_mask
 from kaolin_tpu_torch.render.mesh.rasterization import (
+    BACKENDS,
     CHUNK,
     _pixel_coords,
+    check_name,
+    check_options,
     rasterize,
 )
 from kaolin_tpu_torch.utils.backend import is_cuda
@@ -59,13 +63,32 @@ def _edge_vertex_sqdist(px, py, verts, multiplier):
     return torch.amin(torch.stack(dists, dim=-1), dim=-1)
 
 
-def _chunk_factor(px, py, verts, include, sigmainv, multiplier):
-    """∏ (1 − p) over one chunk of faces → (B, H, W)."""
+def _chunk_terms(px, py, verts, include, sigmainv, multiplier):
+    """d² and p = exp(−k·d²) of one chunk of faces → (B, H, W, T) each, p
+    0 outside ``include``; k = sigmainv / multiplier²."""
     d2 = _edge_vertex_sqdist(px, py, verts[:, None, None], multiplier)
     prob = torch.where(include,
                        torch.exp(-sigmainv * d2 / (multiplier * multiplier)),
                        0.0)
+    return d2, prob
+
+
+def _chunk_factor(px, py, verts, include, sigmainv, multiplier):
+    """∏ (1 − p) over one chunk of faces → (B, H, W)."""
+    prob = _chunk_terms(px, py, verts, include, sigmainv, multiplier)[1]
     return torch.prod(1.0 - prob, dim=-1)
+
+
+def _chunk_boxes(px, py, face_vertices_image, s, margin):
+    """One chunk of faces and its half-open enlarged-box test → (verts
+    (B, T, 3, 2), include (B, H, W, T))."""
+    verts = face_vertices_image[:, s:s + CHUNK]
+    box = verts.detach()
+    bmin = (box.amin(dim=2) - margin)[:, None, None]     # (B, 1, 1, T, 2)
+    bmax = (box.amax(dim=2) + margin)[:, None, None]
+    include = ((px >= bmin[..., 0]) & (px < bmax[..., 0])
+               & (py >= bmin[..., 1]) & (py < bmax[..., 1]))
+    return verts, include
 
 
 def soft_mask_plain(face_vertices_image, sigmainv, boxlen, multiplier,
@@ -79,7 +102,16 @@ def soft_mask_plain(face_vertices_image, sigmainv, boxlen, multiplier,
     (B, H, W) product per chunk, not its (B, H, W, chunk) intermediates.
     ``face_idx``, the rasterizer's (B, H, W) ids, sets allprob to 1 where an
     id is ≥ 0, as the kernel does. The plain version of the CUDA forward
-    kernel; its autograd is the plain version of the backward kernel."""
+    kernel.
+
+    Its own autograd (``knum_mode="first"`` uses it) differentiates
+    ``torch.prod``. The all-faces path (:class:`_SoftMask`) instead takes
+    the backward kernel's rule on every device, whose plain version is
+    :func:`_soft_mask_bwd_plain`: the cotangent into each in-box face's d²
+    is ``ga·k·p / (1 − p)`` with ``ga = grad·allprob``, so where a factor
+    1 − p rounds to 0, allprob is 0 and every face there gets 0 (JAX's
+    Pallas and binned VJPs do the same). Autograd through the product
+    would give that face ∏_{j≠i}(1 − p_j)·∂p_i instead."""
     b, f = face_vertices_image.shape[:2]
     dtype = face_vertices_image.dtype
     device = face_vertices_image.device
@@ -90,12 +122,7 @@ def soft_mask_plain(face_vertices_image, sigmainv, boxlen, multiplier,
     allprob = torch.ones((b, height, width), dtype=dtype, device=device)
     count = torch.zeros((b, height, width), dtype=torch.int32, device=device)
     for s in range(0, f, CHUNK):
-        verts = face_vertices_image[:, s:s + CHUNK]
-        box = verts.detach()
-        bmin = (box.amin(dim=2) - margin)[:, None, None]     # (B, 1, 1, T, 2)
-        bmax = (box.amax(dim=2) + margin)[:, None, None]
-        include = ((px >= bmin[..., 0]) & (px < bmax[..., 0])
-                   & (py >= bmin[..., 1]) & (py < bmax[..., 1]))
+        verts, include = _chunk_boxes(px, py, face_vertices_image, s, margin)
         if knum is not None:
             in_box = include.to(torch.int32)
             include = include & (count[..., None] + in_box.cumsum(-1) <= knum)
@@ -108,15 +135,39 @@ def soft_mask_plain(face_vertices_image, sigmainv, boxlen, multiplier,
     return allprob
 
 
-def _soft_mask_bwd_plain(face_vertices_image, grad_allprob, sigmainv, boxlen,
+def _soft_mask_bwd_plain(face_vertices_image, ga, sigmainv, boxlen,
                          multiplier, height, width):
-    """The vector-Jacobian product of :func:`soft_mask_plain`."""
+    """The backward kernel's VJP of the all-faces allprob, in plain PyTorch:
+    the gradient with respect to ``face_vertices_image`` (B, F, 3, 2) given
+    ``ga = grad_allprob · allprob`` (B, H, W), as
+    :func:`~kaolin_tpu_torch.render.mesh.cuda_soft_mask.soft_mask_bwd_cuda`
+    takes it.
+
+    Each in-box face's d² gets the cotangent ``ga · k·p / max(1 − p,
+    1e-12)`` (∂allprob/∂d² = allprob · k·p / (1 − p)), pushed through d²
+    by autograd, tied candidates sharing it evenly. Where a factor 1 − p
+    rounds to 0, allprob and so ``ga`` are 0, and every face there gets 0:
+    the rule of the CUDA backward and of JAX's Pallas and binned VJPs."""
+    b, f = face_vertices_image.shape[:2]
+    dtype = face_vertices_image.dtype
+    device = face_vertices_image.device
+    px, py = _pixel_coords(height, width, multiplier, dtype, device)
+    px = px[..., None]
+    py = py[..., None]
+    k = sigmainv / (multiplier * multiplier)
+    grads = []
     with torch.enable_grad():
-        v = face_vertices_image.detach().requires_grad_(True)
-        allprob = soft_mask_plain(v, sigmainv, boxlen, multiplier, height,
-                                  width)
-        (grad,) = torch.autograd.grad(allprob, v, grad_allprob)
-    return grad
+        for s in range(0, f, CHUNK):
+            verts, include = _chunk_boxes(
+                px, py, face_vertices_image.detach(), s, boxlen * multiplier)
+            verts.requires_grad_(True)
+            d2, prob = _chunk_terms(px, py, verts, include, sigmainv,
+                                    multiplier)
+            prob = prob.detach()
+            c = ga[..., None] / torch.clamp(1.0 - prob, min=1e-12) * k * prob
+            c = torch.where(include, c, 0.0)
+            grads.append(torch.autograd.grad(d2, verts, c)[0])
+    return torch.cat(grads, dim=1)
 
 
 class _SoftMask(torch.autograd.Function):
@@ -150,48 +201,65 @@ class _SoftMask(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_allprob):
         fvi, allprob = ctx.saved_tensors
+        ga = (grad_allprob * allprob).contiguous()
         if is_cuda(fvi):
-            ga = (grad_allprob * allprob).contiguous()
             grad = cuda_soft_mask.soft_mask_bwd_cuda(fvi, ga, *ctx.args)
         else:
-            grad = _soft_mask_bwd_plain(fvi, grad_allprob, *ctx.args)
+            grad = _soft_mask_bwd_plain(fvi, ga, *ctx.args)
         return grad, None, None, None, None, None, None
 
 
 def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,
-                   boxlen=0.02, knum=30, multiplier=1000.0, knum_mode="all"):
+                   boxlen=0.02, knum=30, multiplier=1000.0, tile_px=None,
+                   tile_cap=None, impl=None, knum_mode="all"):
     """Soft foreground mask for silhouette losses → (B, H, W).
     Differentiable with respect to ``face_vertices_image`` (B, F, 3, 2).
+
+    ``tile_px``, ``tile_cap`` and ``impl`` are the JAX package's, in its
+    positions; ``impl`` is checked as there (None, "pallas" or "xla"). They
+    have no effect in the port: every in-box face contributes, with no
+    per-tile capacity.
 
     ``knum_mode``: "all" (default) lets every in-box face contribute;
     "first" keeps each pixel's first ``knum`` in-box faces in face-index
     order, as the reference CUDA kernel does."""
     height, width = selected_face_idx.shape[1:3]
+    if knum_mode not in ("all", "first"):
+        raise ValueError(f"unknown knum_mode {knum_mode!r}")
+    check_options(height, width, tile_px=tile_px, impl=impl)
     scaled = face_vertices_image * multiplier
     if knum_mode == "first":
         allprob = soft_mask_plain(scaled, sigmainv, boxlen, multiplier,
                                   height, width, knum=int(knum))
-    elif knum_mode == "all":
+    else:
         allprob = _SoftMask.apply(scaled, sigmainv, boxlen, multiplier,
                                   height, width, selected_face_idx)
-    else:
-        raise ValueError(f"unknown knum_mode {knum_mode!r}")
     return torch.where(selected_face_idx >= 0, 1.0, 1.0 - allprob)
 
 
 def dibr_rasterization(height, width, face_vertices_z, face_vertices_image,
                        face_features, face_normals_z, sigmainv=7000,
-                       boxlen=0.02, knum=30, multiplier=None, eps=None):
+                       boxlen=0.02, knum=30, multiplier=None, eps=None,
+                       rast_backend=None, tile_px=None, tile_cap=None):
     """Full DIB-R: rasterize features and the soft mask. A face is valid
     (not culled) where ``face_normals_z >= 0``, as in the JAX package's code.
 
+    ``rast_backend``, ``tile_px`` and ``tile_cap`` are the JAX package's, in
+    its positions. As there, ``tile_px`` and ``tile_cap`` go to both
+    :func:`rasterize` and :func:`dibr_soft_mask`, which check them, and
+    ``rast_backend`` is taken and not used (its name is checked). None of
+    them has an effect in the port.
+
     Returns (image_features, soft_mask (B, H, W), face_idx (B, H, W))."""
+    check_name("rast_backend", rast_backend, BACKENDS)
     valid_faces = face_normals_z >= 0.0
     image_features, face_idx = rasterize(
         height, width, face_vertices_z, face_vertices_image, face_features,
-        valid_faces=valid_faces, multiplier=multiplier, eps=eps)
+        valid_faces=valid_faces, multiplier=multiplier, eps=eps,
+        tile_px=tile_px, tile_cap=tile_cap)
     if multiplier is None:
         multiplier = 1000.0
     soft_mask = dibr_soft_mask(face_vertices_image, face_idx, sigmainv,
-                               boxlen, knum, multiplier)
+                               boxlen, knum, multiplier, tile_px=tile_px,
+                               tile_cap=tile_cap)
     return image_features, soft_mask, face_idx

@@ -186,8 +186,41 @@ def _interpolate_at_winners(face_idx, scaled, features, multiplier, eps):
     return torch.where(hit, interp, 0.0)
 
 
+BACKENDS = ("brute", "binned")
+IMPLS = ("pallas", "xla")
+
+
+def check_name(name, value, choices):
+    """Refuse a value of a JAX option that is neither None nor a name the
+    JAX package documents for it."""
+    if value is not None and value not in choices:
+        raise ValueError(f"unknown {name} {value!r}; expected None or one of "
+                         f"{choices}")
+
+
+def check_options(height, width, backend=None, tile_px=None, impl=None):
+    """Check the JAX package's rasterizer options as it does → tile_px.
+
+    ``backend`` is None or one of ``BACKENDS``, ``impl`` None or one of
+    ``IMPLS``. ``tile_px`` defaults to 16 for "pallas" and 32 otherwise (an
+    ``impl`` of None is "xla" off a TPU); "binned" needs it to divide the
+    image. The values choose among the JAX package's searches, which all
+    give one result; the port has one search per device and no capacities,
+    so beyond these checks they have no effect here."""
+    check_name("backend", backend, BACKENDS)
+    check_name("impl", impl, IMPLS)
+    if tile_px is None:
+        tile_px = 16 if impl == "pallas" else 32
+    if backend == "binned" and (height % tile_px or width % tile_px):
+        raise ValueError(
+            f"backend='binned' needs height/width divisible by tile_px="
+            f"{tile_px}, got {height}x{width}")
+    return tile_px
+
+
 def rasterize(height, width, face_vertices_z, face_vertices_image,
-              face_features, valid_faces=None, multiplier=None, eps=None):
+              face_features, valid_faces=None, multiplier=None, eps=None,
+              backend=None, tile_px=None, tile_cap=None, impl=None):
     """Differentiable rasterization to feature images.
 
     Args:
@@ -198,12 +231,18 @@ def rasterize(height, width, face_vertices_z, face_vertices_image,
         valid_faces: optional (B, F) bool.
         multiplier: coordinate scale for numerics (default 1000).
         eps: barycentric normalisation epsilon (default 1e-8).
+        backend, tile_px, tile_cap, impl: the JAX package's choice of
+            search and its per-tile face capacity, in its positions and
+            checked as it checks them (:func:`check_options`). They have no
+            effect in the port: every device runs one exact search with no
+            capacity, so no face is ever dropped.
 
     Returns:
         (image_features (B, H, W, D) [or a list], face_idx (B, H, W) int32,
         −1 for background). Differentiable with respect to
         ``face_vertices_image`` and ``face_features``.
     """
+    check_options(height, width, backend, tile_px, impl)
     if multiplier is None:
         multiplier = DEFAULT_MULTIPLIER
     if eps is None:

@@ -19,14 +19,14 @@ _F = ctypes.c_float
 _RASTER_ARGTYPES = [_P] * 9 + [_I] * 6 + [_F] * 2 + [_P]
 _UNTILE_ARGTYPES = [_P] * 4 + [_I] * 4 + [_P]
 # four threads per pixel of a tile, at most 1024 threads a block
-_MAX_TILE_PX = 16
+MAX_TILE_PX = 16
 # the level-3 cells staged in shared memory
 _MAX_BOXES = 512
 
 
 def _tiles(height, width, tile_px):
-    if not 1 <= tile_px <= _MAX_TILE_PX:
-        raise ValueError(f"tile_px must be in [1, {_MAX_TILE_PX}], "
+    if not 1 <= tile_px <= MAX_TILE_PX:
+        raise ValueError(f"tile_px must be in [1, {MAX_TILE_PX}], "
                          f"got {tile_px}")
     if height <= 0 or width <= 0 or height % tile_px or width % tile_px:
         raise ValueError(f"{width}x{height} is not a whole number of "

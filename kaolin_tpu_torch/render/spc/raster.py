@@ -479,11 +479,26 @@ def _finish(depth, nidx, overflow):
     return torch.where(valid, depth, torch.inf), nidx, valid, overflow
 
 
+def kernel_tile(tile_px):
+    """The tile side the raster bins and renders at for a requested
+    ``tile_px``: itself up to ``cuda_raster.MAX_TILE_PX`` (16), above that
+    the largest divisor of it that is at most 16 (32 → 16, 24 → 12, 20 →
+    10). Every tile the JAX package takes, one that divides the image,
+    stays a whole number of these, and the frame is the one rendered at
+    the smaller tile, on the CPU and on the card alike; the overflow counts
+    are those of the smaller tiles."""
+    if tile_px <= cuda_raster.MAX_TILE_PX:
+        return tile_px
+    return max(d for d in range(1, cuda_raster.MAX_TILE_PX + 1)
+               if tile_px % d == 0)
+
+
 def _raster_frame(units, uaabb, l3boxes, cam_r, cam_t, tan_h, tan_v, x0, y0,
                   *, width, height, tile_px, s_max, c_cap):
-    if width % tile_px or height % tile_px:
+    if tile_px < 1 or width % tile_px or height % tile_px:
         raise ValueError(f"{width}x{height} is not a whole number of "
                          f"{tile_px}-pixel tiles")
+    tile_px = kernel_tile(tile_px)
     tab, counts, dz, overflow = _bin_units(
         uaabb, cam_r, cam_t, tan_h, tan_v, x0, y0, width=width,
         height=height, tile_h=tile_px, tile_w=tile_px, s_max=s_max,
@@ -529,7 +544,9 @@ def raster_first_hit(rspc, camera, *, tile_px=16, s_max=16, c_cap=32):
     point-hierarchy index (-1 on a miss). ``overflow`` holds the binning
     capacity counts ``slot_overflow`` and ``cap_overflow``, 0-dim int32
     tensors: nonzero means grow ``s_max`` / ``c_cap`` and render again,
-    since leaves may be missed until then. Pinhole cameras only.
+    since leaves may be missed until then. ``tile_px`` may be any tile side
+    that divides the image; one above 16 is split into the tiles of
+    :func:`kernel_tile` on every device. Pinhole cameras only.
     """
     _check_pinhole(camera)
     return _raster_frame(

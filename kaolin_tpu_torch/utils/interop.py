@@ -1,4 +1,5 @@
-"""Hand numpy data to the port, so both packages see identical inputs."""
+"""Hand numpy data to the port, so both packages see identical inputs, and
+carry the JAX package's Simplicits MLP weights into the port."""
 
 import numpy as np
 import torch
@@ -22,3 +23,25 @@ def from_numpy_tree(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_numpy_tree(v, device) for v in tree)
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def simplicits_mlp_from_jax(params, bb_min=None, bb_max=None):
+    """The port's :class:`~kaolin_tpu_torch.physics.simplicits.SimplicitsMLP`
+    holding the JAX package's MLP weights: ``params`` is its list of
+    ``{"w": (in, out), "b": (out,)}`` arrays (numpy, or anything
+    ``np.asarray`` takes), transposed here into ``nn.Linear``'s (out, in).
+    ``bb_min``/``bb_max`` are the skinning function's box."""
+    from kaolin_tpu_torch.physics.simplicits.network import SimplicitsMLP
+
+    ws = [np.array(layer["w"], np.float32) for layer in params]
+    bs = [np.array(layer["b"], np.float32) for layer in params]
+    mlp = SimplicitsMLP(ws[0].shape[0], ws[0].shape[1], ws[-1].shape[1] + 1,
+                        len(ws) - 2, bb_min=bb_min, bb_max=bb_max)
+    with torch.no_grad():
+        for linear, w, b in zip(mlp.layers, ws, bs):
+            if tuple(linear.weight.shape) != w.T.shape:
+                raise ValueError(f"layer of shape {w.shape} does not fit "
+                                 f"the architecture {mlp.layers}")
+            linear.weight.copy_(torch.from_numpy(w.T.copy()))
+            linear.bias.copy_(torch.from_numpy(b))
+    return mlp

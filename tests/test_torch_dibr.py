@@ -41,14 +41,22 @@ from kaolin_tpu.render.mesh.rasterization import (
 )
 from kaolin_tpu_torch.metrics.render import mask_iou
 from kaolin_tpu_torch.render.mesh import cuda_soft_mask
-from chip_smoke import adversarial_faces
+from chip_smoke import (
+    EDGE_BOXLEN,
+    EDGE_SIGMAINV,
+    adversarial_faces,
+    edge_pixel_faces,
+)
 from kaolin_tpu_torch.render.mesh.dibr import (
     _SoftMask,
     dibr_rasterization,
     dibr_soft_mask,
     soft_mask_plain,
 )
-from kaolin_tpu_torch.render.mesh.rasterization import rasterize_search_plain
+from kaolin_tpu_torch.render.mesh.rasterization import (
+    rasterize,
+    rasterize_search_plain,
+)
 from kaolin_tpu_torch.utils import cuda_build
 from kaolin_tpu_torch.utils.interop import from_numpy_tree
 from tests.torch_parity import ROOT, grid_faces, warm_torch_exp  # noqa: F401
@@ -246,6 +254,112 @@ def test_soft_mask_adversarial_case_matches_jax():
     assert (inside == 0).sum() >= 4 and inside.max() == h * w > 4096
 
 
+def test_soft_mask_gradient_is_zero_where_a_factor_rounds_to_zero():
+    """F11: an uncovered pixel centre 0.001 from a face's edge, where that
+    face's 1 − p rounds to 0 and allprob is 0. The port's all-faces
+    gradient on the CPU takes the backward kernel's rule, the cotangent
+    ga·k·p/(1 − p) with ga = grad·allprob: a cotangent at that pixel alone
+    gives every face exactly 0, as JAX's Pallas VJP (interpret mode) does,
+    where autograd through the product would not. A seeded cotangent over
+    the whole image gives the Pallas VJP's gradient."""
+    fvi, g, h, w, (r, c) = edge_pixel_faces()
+    args = (EDGE_SIGMAINV, EDGE_BOXLEN, 1000.0, h, w)
+    only = np.zeros_like(g)
+    only[0, r, c] = 1.0
+
+    def port(cot):
+        v = torch.from_numpy(fvi).requires_grad_(True)
+        allprob = _SoftMask.apply(v, *args)
+        allprob.backward(torch.from_numpy(cot))
+        return allprob.detach().numpy(), v.grad.numpy()
+
+    def pallas(cot):
+        soft, vjp = jax.vjp(lambda v: _soft_raw_pallas(
+            v, *args[:3], h, w, (16, fvi.shape[1])), jnp.asarray(fvi[0]))
+        return np.asarray(soft), np.asarray(vjp(-jnp.asarray(cot[0]))[0])
+
+    allprob, grad = port(only)
+    soft_j, grad_j = pallas(only)
+    assert allprob[0, r, c] == 0.0 and soft_j[r, c] == 1.0
+    assert not grad.any() and not grad_j.any()
+    v = torch.from_numpy(fvi).requires_grad_(True)
+    (by_product,) = torch.autograd.grad(soft_mask_plain(v, *args), v,
+                                        torch.from_numpy(only))
+    assert by_product.abs().max() > 0      # the case bites
+    allprob, grad = port(g)
+    soft_j, grad_j = pallas(g)
+    np.testing.assert_allclose(allprob[0], 1.0 - soft_j, atol=1e-5)
+    _assert_grads_close(grad[0], grad_j)
+
+
+def _jax_style_case():
+    rng = np.random.RandomState(4)
+    b, f, h, w = 1, 30, 32, 48
+    tri = (rng.randn(b, f, 3, 3) * 0.4).astype(np.float32)
+    nz = rng.randn(b, f).astype(np.float32)
+    return from_numpy_tree({"fvz": tri[..., 2] - 2.0, "fvi": tri[..., :2],
+                            "feats": rng.rand(b, f, 3, 2).astype(np.float32),
+                            "nz": nz}, "cpu"), h, w
+
+
+def test_jax_style_calls_give_the_same_results():
+    """F12: the JAX package's arguments in its positions (backend, tile_px,
+    tile_cap, impl of rasterize; tile_px, tile_cap, impl before knum_mode
+    in dibr_soft_mask; rast_backend, tile_px, tile_cap of
+    dibr_rasterization), positional and by keyword, give bit for bit what
+    the calls without them give; the values are checked as JAX checks
+    them."""
+    t, h, w = _jax_style_case()
+    valid = t["nz"] >= 0
+    img, idx = rasterize(h, w, t["fvz"], t["fvi"], t["feats"],
+                         valid_faces=valid)
+    for got in (rasterize(h, w, t["fvz"], t["fvi"], t["feats"], valid, None,
+                          None, "brute", 16, 64, "xla"),
+                rasterize(h, w, t["fvz"], t["fvi"], t["feats"],
+                          valid_faces=valid, backend="binned", tile_px=16,
+                          tile_cap=8, impl="pallas")):
+        assert torch.equal(got[0], img) and torch.equal(got[1], idx)
+    for mode in ("all", "first"):
+        want = dibr_soft_mask(t["fvi"], idx, 700, 0.1, 5, knum_mode=mode)
+        for got in (dibr_soft_mask(t["fvi"], idx, 700, 0.1, 5, 1000.0, 16,
+                                   64, "xla", mode),
+                    dibr_soft_mask(t["fvi"], idx, 700, 0.1, 5, tile_px=8,
+                                   tile_cap=4, impl="pallas",
+                                   knum_mode=mode)):
+            assert torch.equal(got, want)
+    want = dibr_rasterization(h, w, t["fvz"], t["fvi"], t["feats"], t["nz"],
+                              700, 0.1)
+    for got in (dibr_rasterization(h, w, t["fvz"], t["fvi"], t["feats"],
+                                   t["nz"], 700, 0.1, 30, None, None, "brute",
+                                   16, 64),
+                dibr_rasterization(h, w, t["fvz"], t["fvi"], t["feats"],
+                                   t["nz"], 700, 0.1, rast_backend="binned",
+                                   tile_px=16, tile_cap=64)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_jax_style_values_are_checked_as_jax_checks_them():
+    """F12: a binned search on an image that is not a whole number of
+    tiles raises in both packages (tile_px 32 by default off a TPU); an
+    unknown backend or impl name raises in the port."""
+    t, h, w = _jax_style_case()
+    args = (h, w, t["fvz"], t["fvi"], t["feats"])
+    jargs = (h, w, *(jnp.asarray(x.numpy()) for x in args[2:]))
+    for kw in ({"backend": "binned"}, {"backend": "binned", "tile_px": 20}):
+        with pytest.raises(ValueError, match="divisible"):
+            rasterize_jax(*jargs, **kw)
+        with pytest.raises(ValueError, match="divisible"):
+            rasterize(*args, **kw)
+    for kw in ({"backend": "tiles"}, {"impl": "cuda"}):
+        with pytest.raises(ValueError, match="unknown"):
+            rasterize(*args, **kw)
+    idx = torch.full((1, h, w), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unknown impl"):
+        dibr_soft_mask(t["fvi"], idx, impl="triton")
+    with pytest.raises(ValueError, match="unknown rast_backend"):
+        dibr_rasterization(*args, t["nz"], rast_backend="dense")
+
+
 def test_dibr_rasterization_and_mask_iou_match_jax():
     """The whole slice, forward and backward: dibr_rasterization (with a
     culled face and one with face_normals_z == 0) into mask_iou plus an
@@ -389,7 +503,9 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "kaolin_tpu_torch.render.spc.cuda_raster, "
             "kaolin_tpu_torch.utils.primitives_bench, "
             "kaolin_tpu_torch.utils.profiling, "
-            "kaolin_tpu_torch.utils.cuda_gather\n"
+            "kaolin_tpu_torch.utils.cuda_gather, kaolin_tpu_torch.physics, "
+            "kaolin_tpu_torch.physics.simplicits.simulation, runpy\n"
+            "runpy.run_path('examples/torch_simplicits_drop.py')\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'kaolin_tpu.')) or m == 'kaolin_tpu']\n"
             "print(bad)\n"

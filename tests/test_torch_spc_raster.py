@@ -530,3 +530,35 @@ def test_tile_kernel_takes_tiles_of_at_most_16_pixels():
     assert cuda_raster._tiles(64, 64, 16) == (4, 4)
     with pytest.raises(ValueError, match="tile_px"):
         cuda_raster._tiles(64, 64, 32)
+
+
+def test_tiles_above_16_pixels_are_split_on_every_device(monkeypatch):
+    """F13: a tile above the kernel's 16 px is split into the largest tiles
+    of at most 16 px that divide it, on the CPU as on the card: the plain
+    tile renderer is handed 16-px tiles for tile_px 32 and 12-px ones for
+    24, and each frame equals the frame at that tile bit for bit."""
+    assert [raster.kernel_tile(t) for t in (8, 16, 20, 24, 32, 48)] == \
+        [8, 16, 10, 12, 16, 16]
+    rspc = raster_scene(shell_points(4, (0.6,)), 4)
+    seen = []
+    plain = raster.raster_tiles_plain
+
+    def spy(*args, tile_px, **kw):
+        seen.append(tile_px)
+        return plain(*args, tile_px=tile_px, **kw)
+
+    monkeypatch.setattr(raster, "raster_tiles_plain", spy)
+    for res, big, small in ((32, 32, 16), (48, 24, 12)):
+        cam = camera_pair([1.4, 1.0, 1.3], res)[1]
+        seen.clear()
+        got = raster_first_hit(rspc, cam, tile_px=big, s_max=256, c_cap=64)
+        want = raster_first_hit(rspc, cam, tile_px=small, s_max=256,
+                                c_cap=64)
+        assert seen == [small, small]
+        assert int(got[3]["cap_overflow"]) == 0
+        assert int(got[3]["slot_overflow"]) == 0
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1]) and bool(got[2].any())
+    with pytest.raises(ValueError, match="whole number"):
+        raster_first_hit(rspc, cam, tile_px=36)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's four paths on one NVIDIA GPU and check them:
+"""Run the PyTorch port's five paths on one NVIDIA GPU and check them:
 the DIB-R inverse-rendering step, the SPC first-hit raster, the
-primitive-cost probe with its table-gather kernel, and the Simplicits sim
-step (config 1, plain PyTorch: the JAX package has no kernel there).
+primitive-cost probe with its table-gather kernel, the Simplicits sim
+step (config 1) and Simplicits contact (``bench.py``'s ``collision_10k``;
+both plain PyTorch: the JAX package has no kernel there).
 
     python3 chip_smoke.py
 
@@ -37,7 +38,14 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
 4. the sim step on the card against the port's CPU step from the CPU's
    states, 10 steps at ``__graft_entry__``'s size and 3 at config 1, the
    displacement B z within 1e-4 of its largest entry (B z does not depend
-   on the QR basis of z); TF32 off in every sim phase;
+   on the QR basis of z); TF32 off in every sim phase; contact on the card
+   against the CPU: each broad phase's pair set and diagnostics on three
+   seeded scenes of 3 x 400 points (grid and sweep equal to dense on both
+   devices); at 5 states of the example's stack (2 x 300 points, a
+   10 x 10 plate) the detection, the contact terms and the step's energy
+   within 1e-4 (``check_stack_step`` says why its step is not held); and
+   ``make_demo_scene``'s scene, 10 steps (5 for the sweep) from the CPU's
+   states, B z within 1e-4 of max|B z| plus twice the card's own spread;
 5. the DIB-R path: ``config2_step`` (512², a 4992-face UV sphere, forward
    and backward, 5 steps) with every launch counter set to 0 before and
    read after (each soft-mask forward given the rasterizer's ids), its
@@ -68,7 +76,13 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    eager and from the graph) are timed after the kernels, from a graph
    captured after earlier graphs were freed and replayed after their
    memory was filled with NaN (fault F14), held against eager from the same
-   start;
+   start; then ``collision_10k`` at full size (10,712 contact particles,
+   the grid): steps and capacity checks until a 20-step window needs no
+   resize, then 20 steps eager and 20 from the graph from one start,
+   counters set to 0 before and read after (no kernel may launch): finite,
+   the flags 0, pairs found, every cube above the floor, no graph step run
+   again eagerly, graph against eager within 1e-4 of max|B z|; its steps/s
+   (eager ``run_sim_step``, one replay, ``run_sim_steps(20)``);
 9. time each kernel and each path against the plain versions with CUDA
    events, in the order plain, kernel, kernel, plain;
 10. ``torch.profiler`` (``kaolin_tpu_torch.utils.profiling.trace``) over 10
@@ -77,8 +91,9 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    idle share; the gathers and the library calls beside the kernels
    (``library_ms``), warm, at the probe's shapes; both gather routes on
    tables of 2^10 to 58,112 floats, to show where the route rule belongs;
-   the config-1 sim step eager and as a graph replay: device busy, idle
-   share and the largest ops;
+   the config-1 sim step and the collision_10k step eager and as a graph
+   replay: device busy, idle share and the largest ops, and detection's
+   share of the collision_10k step;
 11. each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
    and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), the
    operations counted from this run's inputs, a term that depends on the
@@ -89,7 +104,9 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    ray enters nearer than its best, the level-3 boxes); then the kernels
    in the order in which to make them faster; and the config-1 sim step's
    bound, its dense products and factorizations over 67 TFLOP/s, at the
-   graph's 5 Newton iterations and at the eager path's measured count.
+   graph's 5 Newton iterations and at the eager path's measured count; the
+   collision_10k step's, the same products object by object plus the
+   contact terms at this run's contact count and the grid's pair tests.
 
 Prints a JSON line with each kernel's launches, error, times and bound, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, without
@@ -131,6 +148,18 @@ PROFILE_STEPS = 10
 SIM_PARITY_STEPS = {"graft": 10, "config1": 3}
 SIM_Z_TOL = 1e-4
 SIM_TIMED_STEPS = 30
+# contact: three seeded scenes of 3 x 400 points for the broad phases; the
+# example's stack at 2 x 300 points over a 10 x 10 plate (5 states) and
+# make_demo_scene's scene (10 steps a broad phase, 5 for the sweep) for the
+# step; collision_10k at full size for 20 steps eager and 20 from the graph
+COLLISION_SEEDS = (0, 1, 2)
+COLLISION_STACK = dict(objects=2, qp=300, plate_side=10)
+COLLISION_PARITY_STEPS = 5
+COLLISION_DEMO = dict(num_qp=48, kinematic_qp=25, max_contact_pairs=512)
+COLLISION_DEMO_STEPS = {"dense": 10, "grid": 10, "sweep": 5}
+COLLISION_STEPS = 20
+COLLISION_TIMED_STEPS = 10
+COLLISION_PROFILE_STEPS = 4
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores
@@ -350,6 +379,30 @@ def blob_points(seed=1, level=5):
                              grid - 1), axis=0).astype(np.int16)
 
 
+def contact_clouds(seed, n_per_obj=400, n_obj=3, spread=0.6):
+    """``n_obj`` seeded clouds of ``n_per_obj`` points (side 0.6, centres
+    in a box of side 2 * ``spread``) and a seeded displacement → (dx, x0,
+    obj_ids), float32 and int32: the scenes of the broad-phase parity."""
+    rng = np.random.RandomState(seed)
+    pts, ids = [], []
+    for o in range(n_obj):
+        center = rng.uniform(-spread, spread, (3,))
+        pts.append(center + rng.uniform(-0.3, 0.3, (n_per_obj, 3)))
+        ids.append(np.full(n_per_obj, o))
+    x0 = np.concatenate(pts).astype(np.float32)
+    dx = rng.uniform(-0.05, 0.05, x0.shape).astype(np.float32)
+    return dx, x0, np.concatenate(ids).astype(np.int32)
+
+
+def pair_set(contacts):
+    """The unordered valid pairs of a contact buffer."""
+    c = contacts
+    keep = c.valid.cpu().numpy()
+    ia = c.indices_a.cpu().numpy()[keep]
+    ib = c.indices_b.cpu().numpy()[keep]
+    return set(zip(np.minimum(ia, ib).tolist(), np.maximum(ia, ib).tolist()))
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -383,8 +436,11 @@ class Smoke:
         self.ex = load_example("torch_dibr_optimization")
         self.spc_ex = load_example("torch_spc_raster")
         self.sim_ex = load_example("torch_simplicits_drop")
-        from kaolin_tpu_torch.physics.common import optimization
+        self.col_ex = load_example("torch_collision_stack")
+        self.col = {}   # collision_10k's scene and measurements
+        from kaolin_tpu_torch.physics.common import Collision, optimization
         self.opt = optimization
+        self.Collision = Collision
         self.newton = optimization.newtons_method
         self.sim = {}   # the sim step's measurements, for the bound
         self.failures = []
@@ -1159,8 +1215,8 @@ class Smoke:
                 out = opt._direct_solve(static, g)
             failed.zero_()
             graph.replay()
-            chol = torch.cholesky_solve(g[:, None],
-                                        torch.linalg.cholesky_ex(h)[0])[:, 0]
+            chol = torch.cholesky_solve(
+                g[:, None], torch.linalg.cholesky_ex(h.mT)[0])[:, 0]
             # the Cholesky of an indefinite H is not a solution: not compared
             flags.append((bool(failed),
                           bool(failed) or torch.equal(out, chol)))
@@ -1357,6 +1413,423 @@ class Smoke:
               f"({ex.STEPS * 1e3 / re_ms:.1f} steps/s) [{self.card}]",
               flush=True)
 
+    # -- contact (collision_10k) ---------------------------------------------
+    def qr_conv(self, card, cpu):
+        """(z_card = conv @ z_cpu in float64, the same pivots): the
+        block-diagonal K_card⁻¹ K_cpu, identity for objects without QR."""
+        torch, f64 = self.torch, self.torch.float64
+
+        def blocks(scene, name):
+            return torch.block_diag(*(
+                torch.eye(12 * o.num_handles, dtype=f64)
+                if getattr(o, name) is None
+                else getattr(o, name).cpu().to(f64)
+                for o in scene.sim_obj_dict.values()))
+
+        same = all(torch.equal(a.qr_tfm.cpu(), b.qr_tfm)
+                   for a, b in zip(card.sim_obj_dict.values(),
+                                   cpu.sim_obj_dict.values())
+                   if a.qr_tfm is not None)
+        return blocks(card, "qr_tfm_inv") @ blocks(cpu, "qr_tfm"), same
+
+    def phase_collision_parity(self):
+        """Contact on the card against the port's CPU version from the same
+        inputs: each broad phase's pair set on three seeded scenes of 3 x 400
+        points (and the grid's and the sweep's against the dense set on each
+        device, the diagnostics equal); the stack scene's contact terms
+        (``check_stack_step``); the demo scene's step, by B z
+        (``check_demo_steps``)."""
+        torch = self.torch
+        self.check_precision("phase_collision_parity")
+        Collision = self.Collision
+        for seed in COLLISION_SEEDS:
+            dx, x0, ids = contact_clouds(seed)
+            sets, diags = {}, {}
+            for bp in ("dense", "grid", "sweep"):
+                col = Collision(dt=0.02, collision_particle_radius=0.03,
+                                broad_phase=bp, max_contacting_pairs=20000)
+                if bp == "grid":
+                    col.configure_grid(x0, obj_ids=ids)
+                for dev in ("cpu", "cuda"):
+                    args = [torch.from_numpy(a).to(dev) for a in (dx, x0, ids)]
+                    c, d = col.detect_collisions(*args, return_diag=True)
+                    sets[bp, dev] = pair_set(c)
+                    diags[bp, dev] = {k: int(v) for k, v in d.items()}
+            n = len(sets["dense", "cpu"])
+            same = {bp: sets[bp, "cuda"] == sets[bp, "cpu"]
+                    and diags[bp, "cuda"] == diags[bp, "cpu"]
+                    for bp in ("dense", "grid", "sweep")}
+            exact = all(sets[bp, dev] == sets["dense", dev]
+                        for bp in ("grid", "sweep") for dev in ("cpu", "cuda"))
+            self.check(all(same.values()) and exact and n > 0
+                       and diags["dense", "cuda"]["contacts_overflow"] == 0,
+                       f"contact pair sets, seed {seed}, {len(x0)} points: "
+                       f"{n} pairs; card = CPU (sets and diagnostics) "
+                       f"{same}; grid and sweep = dense on both devices "
+                       f"{exact}; the most points in a cell "
+                       f"{diags['grid', 'cuda']['max_cell_occupancy']}")
+        self.check_stack_step()
+        self.check_demo_steps()
+
+    def step_system(self, scene, fn, consts, z_in):
+        """The Newton system a step of ``scene`` starts from at state
+        ``z_in``: its energy, gradient and Hessian at z, read by stepping
+        with ``newtons_method`` replaced by a probe that records them."""
+        sim = sys.modules[type(scene).__module__]
+        real, got = sim.newtons_method, {}
+
+        def probe(x, energy_fcn, gradient_fcn, hessian_fcn, **kw):
+            got.update(energy=energy_fcn(x), gradient=gradient_fcn(x),
+                       hessian=hessian_fcn(x))
+            return x
+
+        sim.newtons_method = probe
+        try:
+            with self.torch.no_grad():
+                fn(consts, *z_in)
+        finally:
+            sim.newtons_method = real
+        return got
+
+    def check_stack_step(self):
+        """The example's stack (2 x 300 points, a 10 x 10 plate) on the card
+        against the CPU at 5 of the CPU's states: the card's detection from
+        the CPU's displacement equals the CPU's (pairs in order), and the
+        contact terms on those contacts at the step the CPU took (energy,
+        gradient, Hessian, the pullbacks, the bounds) and the energy of the
+        step's Newton system lie within 1e-4 of each one's largest entry.
+
+        The rest of the step is printed, not held: this scene's QR rotation
+        has entries up to 7.2e4 (sin(x·f) over a cube of side 0.5 leaves B's
+        columns nearly dependent), so ``qr.T @ c_H @ qr`` turns contact
+        Hessian entries of 1e8 into a Newton Hessian of some 6e3 whose
+        value float32 rounding decides (the JAX package has the same
+        rotations); and a 1e-7 change of z moves the next B z by a large
+        share of max|B z|. The card's step is checked finite."""
+        torch, ex, n = self.torch, self.col_ex, COLLISION_PARITY_STEPS
+        f64 = torch.float64
+        cpu = ex.stack_scene("cpu", **COLLISION_STACK)
+        states = [(cpu.sim_z, cpu.sim_z_prev, cpu.sim_z_dot)]
+        for _ in range(n):
+            cpu.run_sim_step()
+            states.append((cpu.sim_z, cpu.sim_z_prev, cpu.sim_z_dot))
+        card = ex.stack_scene("cuda", **COLLISION_STACK)
+        _, same = self.qr_conv(card, cpu)
+        fn, consts = card.build_functional_step(with_diag=True)
+        fn_c, consts_c = cpu.build_functional_step(with_diag=True)
+        col_k, col_c = consts["collision"], consts_c["collision"]
+        term_errs, energy_errs, sys_errs, errs, flags, pairs = \
+            [], [], [], [], [], []
+        same_contacts, finite = True, True
+
+        def rel(a, b):
+            return float((a.cpu().double() - b.cpu().double()).abs().max()
+                         / max(float(b.abs().max()), 1e-30))
+
+        for k in range(n):
+            z_in = [x.cuda() for x in states[k]]
+            dx = (cpu.sim_B @ states[k][0]).reshape(-1, 3)
+            c_c = col_c.detect_collisions(dx, cpu.sim_pts,
+                                          cpu.qp_to_object_map,
+                                          cpu.qp_is_kinematic,
+                                          weights=consts_c["col_w"])
+            c_k = col_k.detect_collisions(dx.cuda(), card.sim_pts,
+                                          card.qp_to_object_map,
+                                          card.qp_is_kinematic,
+                                          weights=consts["col_w"])
+            same_contacts &= all(torch.equal(getattr(c_k, f).cpu(),
+                                             getattr(c_c, f))
+                                 for f in ("indices_a", "indices_b", "valid"))
+            pairs.append(int(c_c.valid.sum()))
+            zq = consts_c["qr_tfm"] @ (states[k + 1][0] - states[k][0])
+            terms = []
+            for col, c, dev in ((col_c, c_c, "cpu"), (col_k, c_k, "cuda")):
+                z_, d_ = zq.to(dev), 2.0 * zq.to(dev)
+                g = col.gradient(c, coeff=1000.0, zq=z_)
+                h = col.hessian(c, coeff=1000.0, zq=z_)
+                terms.append([col.energy(c, coeff=1000.0, zq=z_), g, h,
+                              col.pullback_gradient(c, g),
+                              col.reduced_hessian(c, h),
+                              col.get_bounds_q(c, d_, z_)])
+            term_errs.append(max(rel(a, b) for b, a in zip(*terms)))
+            want_sys = self.step_system(cpu, fn_c, consts_c, states[k])
+            got_sys = self.step_system(card, fn, consts, z_in)
+            energy_errs.append(rel(got_sys["energy"], want_sys["energy"]))
+            sys_errs.append(max(rel(got_sys[key], want_sys[key])
+                                for key in ("gradient", "hessian")))
+            with torch.no_grad():
+                out = fn(consts, *z_in)
+            finite &= bool(torch.isfinite(out[0]).all())
+            want = cpu.sim_B.to(f64) @ states[k + 1][0].to(f64)
+            got = card.sim_B.cpu().to(f64) @ out[0].cpu().to(f64)
+            errs.append(float((got - want).abs().max()
+                              / want.abs().max()))
+            flags.append(int(out[3]))
+        rot = max(float(o.qr_tfm.abs().max())
+                  for o in card.sim_obj_dict.values() if o.qr_tfm is not None)
+        self.check(same and same_contacts and max(term_errs) <= SIM_Z_TOL
+                   and max(energy_errs) <= SIM_Z_TOL and finite
+                   and flags == [0] * n and min(pairs) > 0,
+                   f"contact terms card vs CPU [stack {COLLISION_STACK}, "
+                   f"{card.total_qp} points, D {card.total_dofs}, "
+                   f"{col_k.broad_phase}], {n} states of the CPU: the same "
+                   f"QR pivots {same}; contacts the same {same_contacts} "
+                   f"({pairs} pairs); contact terms max err / max "
+                   + ", ".join(f"{e:.1e}" for e in term_errs)
+                   + "; the step's energy " + ", ".join(
+                       f"{e:.1e}" for e in energy_errs)
+                   + f"; not held (a QR rotation entry of {rot:.4g}): its "
+                   "gradient and Hessian " + ", ".join(
+                       f"{e:.1e}" for e in sys_errs)
+                   + ", its max |d(B z)| / max|B z| "
+                   + ", ".join(f"{e:.1e}" for e in errs)
+                   + f"; the step finite {finite}, flags {flags} "
+                   f"[{self.card}]")
+
+    def check_demo_steps(self):
+        """``make_demo_scene``'s scene (48 points, 3 handles, a 25-point
+        plate; its QR rotation is small) on the card against the CPU for
+        each broad phase: the card's step from each of the CPU's states, by
+        B z within 1e-4 of max|B z| plus twice the card's own spread under
+        a ±1e-7 change of z (about 1e-7 of max|B z| where the step is well
+        conditioned; the CPU tests see 9.1e-5 at step 9, where contacts
+        press into the barrier)."""
+        torch, ex = self.torch, self.col_ex
+        f64 = torch.float64
+        for bp, n in COLLISION_DEMO_STEPS.items():
+            cpu = ex.demo_scene("cpu", 3, broad_phase=bp, **COLLISION_DEMO)
+            states = [(cpu.sim_z, cpu.sim_z_prev, cpu.sim_z_dot)]
+            for _ in range(n):
+                cpu.run_sim_step()
+                states.append((cpu.sim_z, cpu.sim_z_prev, cpu.sim_z_dot))
+            card = ex.demo_scene("cuda", 3, broad_phase=bp, **COLLISION_DEMO)
+            conv, same = self.qr_conv(card, cpu)
+            fn, consts = card.build_functional_step(with_diag=True)
+            bk = card.sim_B.cpu().to(f64)
+            u = torch.from_numpy(np.random.RandomState(0).choice(
+                [-1.0, 1.0], card.total_dofs).astype(np.float32)).cuda()
+            errs, spreads, flags = [], [], []
+            for k in range(n):
+                z_in = [(x if same else (conv @ x.to(f64)).float()).cuda()
+                        for x in states[k]]
+                size = max(float(x.abs().max()) for x in
+                           (states[k][0], states[k + 1][0]))
+                with torch.no_grad():
+                    out = fn(consts, *z_in)
+                    got = bk @ out[0].cpu().to(f64)
+                    spread = max(float((bk @ fn(
+                        consts, z_in[0] + e * size * u, *z_in[1:])[0]
+                        .cpu().to(f64) - got).abs().max())
+                        for e in (1e-7, -1e-7))
+                want = cpu.sim_B.to(f64) @ states[k + 1][0].to(f64)
+                scale = float(want.abs().max())
+                errs.append(float((got - want).abs().max()) / scale)
+                spreads.append(spread / scale)
+                flags.append(int(out[3]))
+            pairs = int(cpu.collision_diagnostics()["num_pairs"])
+            rot = float(card.get_object(0).qr_tfm.abs().max())
+            self.check(all(e <= SIM_Z_TOL + 2 * s
+                           for e, s in zip(errs, spreads))
+                       and flags == [0] * n and pairs > 0
+                       and all(bool(torch.isfinite(x).all())
+                               for x in states[-1]),
+                       f"contact step card vs CPU [demo scene, {bp}, "
+                       f"{card.total_qp} points, D {card.total_dofs}], {n} "
+                       f"steps from the CPU's states: max |d(B z)| / "
+                       f"max|B z| " + ", ".join(f"{e:.1e}" for e in errs)
+                       + " (the card's own spread under a 1e-7 change of z "
+                       + ", ".join(f"{e:.1e}" for e in spreads)
+                       + f"); flags {flags}; {pairs} pairs at the end; the "
+                       f"same QR pivots {same}, the QR rotation's largest "
+                       f"entry {rot:.4g} [{self.card}]")
+
+    def collision_scene(self, graphs=False):
+        return self.col_ex.collision_10k_scene("cuda",
+                                               use_cuda_graphs=graphs)
+
+    def col_heights(self, scene):
+        """Each cube's mean height (the plate, the last object, left out)."""
+        return [self.col_ex.mean_height(scene, i)
+                for i in range(len(scene.sim_obj_dict) - 1)]
+
+    def phase_collision_path(self):
+        """``collision_10k`` at full size: steps and capacity checks until a
+        20-step window needs no resize (at most three attempts, as bench.py
+        runs it), then 20 eager steps and 20 from the CUDA graph from one
+        start, every launch counter set to 0 before each and read after."""
+        torch = self.torch
+        self.check_precision("phase_collision_path")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scene = self.collision_scene()
+        col = scene.force_dict["collision"]["object"]
+        build_s = time.perf_counter() - t0
+        print(f"collision_10k: {scene.total_qp} contact particles, "
+              f"{len(scene.sim_obj_dict)} objects, D {scene.total_dofs} "
+              f"({len(scene.dyn_idx)} dynamic), broad phase "
+              f"{col.broad_phase}, grid dims {col.grid_dims}, K "
+              f"{col.cell_capacity}, M {col.max_occupied_cells}, pp "
+              f"{col.point_contact_capacity}, {col.max_contacts} contacts; "
+              f"B {tuple(scene.sim_B.shape)}, dF/dz "
+              f"{tuple(scene.sim_dFdz.shape)}; the QR rotations' largest "
+              f"entries " + ", ".join(
+                  f"{float(o.qr_tfm.abs().max()):.4g}"
+                  for o in scene.sim_obj_dict.values()
+                  if o.qr_tfm is not None)
+              + f"; built in {build_s:.1f} s host", flush=True)
+        t0 = time.perf_counter()
+        for attempt in range(3):
+            scene.run_sim_step()
+            scene.check_collision_capacity()
+            before = scene.collision_resizes
+            scene.run_sim_steps(COLLISION_STEPS)
+            if scene.collision_resizes == before:
+                break
+        torch.cuda.synchronize()
+        print(f"collision_10k resize loop: {attempt + 1} attempts, "
+              f"{scene.current_sim_step} steps, {scene.collision_resizes} "
+              f"resizes, K {col.cell_capacity}, M {col.max_occupied_cells}, "
+              f"pp {col.point_contact_capacity}, {col.max_contacts} "
+              f"contacts; {time.perf_counter() - t0:.1f} s host", flush=True)
+        settled = scene.collision_resizes == before
+        start = [x.clone() for x in (scene.sim_z, scene.sim_z_prev,
+                                     scene.sim_z_dot)]
+        runs = {}
+        for label, graphs in (("eager", False), ("graph", True)):
+            scene.sim_z, scene.sim_z_prev, scene.sim_z_dot = (
+                x.clone() for x in start)
+            scene.use_cuda_graphs = graphs
+
+            def path():
+                for _ in range(COLLISION_STEPS):
+                    scene.run_sim_step()
+                return scene.check_collision_capacity()
+
+            t0 = time.perf_counter()
+            flags, launches = self.drive(tuple(KERNELS), path)
+            wall = time.perf_counter() - t0
+            diag = scene.collision_diagnostics()
+            runs[label] = dict(z=scene.sim_z.clone(), flags=flags,
+                               pairs=int(diag["num_pairs"]),
+                               heights=self.col_heights(scene),
+                               launches=launches, wall=wall,
+                               finite=all(bool(torch.isfinite(x).all())
+                                          for x in (scene.sim_z,
+                                                    scene.sim_z_dot)))
+            r = runs[label]
+            print(f"collision_10k, {COLLISION_STEPS} steps {label}: "
+                  f"{wall:.3f} s host wall (the graph's capture included), "
+                  f"flags {flags}, {r['pairs']} pairs at the end, cube mean "
+                  f"heights " + ", ".join(f"{h:.4f}" for h in r["heights"])
+                  + f", {scene.graph_steps_rerun} graph steps run again "
+                  f"eagerly, {scene.graph_steps_lu} graph steps took the LU,"
+                  f" kernel launches {launches} [{self.card}]", flush=True)
+        print(f"collision_10k peak device memory allocated while the path "
+              f"ran: {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+              f"(the scene, its steps and its graph, and what earlier "
+              f"phases still held) [{self.card}]", flush=True)
+        B = scene.sim_B.to(torch.float64)
+        be, bg = (B @ runs[k]["z"].to(torch.float64) for k in ("eager",
+                                                               "graph"))
+        err = float((be - bg).abs().max() / be.abs().max())
+        low = min(min(r["heights"]) for r in runs.values())
+        self.check(settled and all(r["finite"] and r["flags"] == 0
+                                   and r["pairs"] > 0
+                                   and not any(r["launches"].values())
+                                   for r in runs.values())
+                   and low > -0.6 and scene.graph_steps_rerun == 0
+                   and err <= SIM_Z_TOL and col.broad_phase == "grid"
+                   and scene.total_qp == 10712,
+                   f"collision_10k path: a window without resize {settled} "
+                   f"({scene.collision_resizes} resizes); eager and graph "
+                   f"finite, flags 0, pairs "
+                   f"{[r['pairs'] for r in runs.values()]}, no kernel "
+                   f"launched; lowest cube mean height {low:.4f} above the "
+                   f"floor at -0.6; {scene.graph_steps_rerun} graph steps "
+                   f"run again eagerly; graph vs eager max |d(B z)| / "
+                   f"max|B z| {err:.3e}")
+        self.col.update(scene=scene, start=start, pairs=runs["eager"]["pairs"])
+        self.check_resize_under_graph()
+
+    def check_resize_under_graph(self):
+        """A capacity resize under the CUDA graph: ``collision_10k``'s
+        builder at 2 cubes of 1,100 points (2,216 particles, the grid) with
+        64 contacts and a fan-out of 4 a point, eager and from the graph
+        side by side, 3 steps a ``run_sim_steps`` call until the flags stay
+        0: each overflow frees the graph, re-measures and doubles, and the
+        next call captures anew; the two scenes resize alike and end
+        together."""
+        torch = self.torch
+        scenes = [self.col_ex.collision_10k_scene("cuda", 2, 1100, 3, 16,
+                                                  use_cuda_graphs=graphs)
+                  for graphs in (False, True)]
+        for scene in scenes:
+            col = scene.force_dict["collision"]["object"]
+            col.max_contacts, col.point_contact_capacity = 64, 4
+        graph, seen = scenes[1], []
+        for _ in range(6):
+            for scene in scenes:
+                scene.run_sim_steps(3)
+            seen.append(scenes[0].collision_resizes)
+            if graph._graph is not None:     # this call needed no resize
+                break
+        col = graph.force_dict["collision"]["object"]
+        err = float((scenes[0].sim_B @ (scenes[0].sim_z - graph.sim_z)).abs()
+                    .max() / (scenes[0].sim_B @ scenes[0].sim_z).abs().max())
+        flags = [int(s._flags()) for s in scenes]
+        self.check(graph.collision_resizes == scenes[0].collision_resizes >= 1
+                   and flags == [0, 0] and err <= SIM_Z_TOL
+                   and graph.graph_steps_rerun == 0
+                   and bool(torch.isfinite(graph.sim_z).all()),
+                   f"resize under the graph ({graph.total_qp} particles, "
+                   f"{col.broad_phase}): resizes after each call {seen} "
+                   f"(graph {graph.collision_resizes}), the graph captured "
+                   f"{len(seen)} times, capacities now "
+                   f"{col.max_contacts} contacts, fan-out "
+                   f"{col.point_contact_capacity}, K {col.cell_capacity}, M "
+                   f"{col.max_occupied_cells}; flags {flags}; graph vs eager "
+                   f"max |d(B z)| / max|B z| {err:.3e}")
+
+    def phase_collision_timing(self):
+        """Steps/s of collision_10k from the path's start: eager
+        ``run_sim_step``, one graph replay a step and ``run_sim_steps(20)``
+        from the graph, CUDA-event medians."""
+        torch = self.torch
+        self.check_precision("phase_collision_timing")
+        scene, start = self.col["scene"], self.col["start"]
+        n = COLLISION_TIMED_STEPS
+
+        def reset(graphs):
+            scene.sim_z, scene.sim_z_prev, scene.sim_z_dot = (
+                x.clone() for x in start)
+            scene.use_cuda_graphs = graphs
+
+        reset(False)
+        before = self.newton.iterations
+        e_ms = statistics.median(self.time_ms(scene.run_sim_step, n))
+        iters = (self.newton.iterations - before) / (n + 1)
+        reset(True)
+        rerun = scene.graph_steps_rerun
+        g_ms = statistics.median(self.time_ms(scene.run_sim_step, n))
+        reset(True)
+        r_ms = statistics.median(self.time_ms(
+            lambda: scene.run_sim_steps(COLLISION_STEPS), 3))
+        rerun = scene.graph_steps_rerun - rerun
+        flags = scene.check_collision_capacity()
+        self.check(rerun == 0 and flags == 0,
+                   f"collision_10k timed steps: {rerun} graph steps run "
+                   f"again eagerly, flags {flags}")
+        self.col.update(eager_ms=e_ms, graph_ms=g_ms, iterations=iters)
+        print(f"collision_10k step, medians from the path's start: eager "
+              f"run_sim_step {e_ms:.4f} ms ({1e3 / e_ms:.2f} steps/s, "
+              f"{iters:.2f} Newton iterations a step); graph replay "
+              f"{g_ms:.4f} ms ({1e3 / g_ms:.2f} steps/s, "
+              f"{scene.max_newton_steps} iterations); run_sim_steps"
+              f"({COLLISION_STEPS}) from the graph {r_ms:.4f} ms "
+              f"({COLLISION_STEPS * 1e3 / r_ms:.2f} steps/s) [{self.card}]",
+              flush=True)
+
     def phase_probe_path(self):
         buf = io.StringIO()
         try:
@@ -1436,8 +1909,7 @@ class Smoke:
         return sum(us for _, us in self.device_events(label, fn, reps)) \
             / reps / 1e3
 
-    def profile_path(self, label, names, fn):
-        n = PROFILE_STEPS
+    def profile_path(self, label, names, fn, n=PROFILE_STEPS):
         events = self.device_events(label, fn, n)
         busy = sum(us for _, us in events) / n / 1e3
         wall = self.wall_ms(fn, n)
@@ -1492,6 +1964,7 @@ class Smoke:
                        f"run again eagerly")
             if graph.graph_steps_rerun == 0:
                 self.sim["graph_busy"] = busy
+        self.profile_collision()
         for k in (*DIBR_KERNELS, "spc_raster"):
             self.results[k]["library_ms"] = None
         b = self.spc_bins(rspc, cam, (tile_px, s_max, c_cap))
@@ -1522,6 +1995,43 @@ class Smoke:
                   f" shared memory {ms['table_gather_smem']:.4f}, L2 "
                   f"{ms['table_gather_l2']:.4f} device ms [{self.card}]")
         torch.cuda.synchronize()
+
+    def profile_collision(self):
+        """collision_10k from the path's start: an eager step and a graph
+        replay (device busy, idle share, the largest ops), and detection
+        alone at that state, its share of each."""
+        torch = self.torch
+        if "scene" not in self.col:
+            raise RuntimeError("phase_collision_path did not run")
+        scene, start = self.col["scene"], self.col["start"]
+        busy = {}
+        for label, graphs in (("eager", False), ("graph replay", True)):
+            scene.sim_z, scene.sim_z_prev, scene.sim_z_dot = (
+                x.clone() for x in start)
+            scene.use_cuda_graphs = graphs
+            rerun = scene.graph_steps_rerun
+            busy[label] = self.profile_path(f"collision_10k step, {label}",
+                                            (), scene.run_sim_step,
+                                            n=COLLISION_PROFILE_STEPS)
+            self.check(scene.graph_steps_rerun == rerun,
+                       f"profiled collision_10k {label} steps: "
+                       f"{scene.graph_steps_rerun - rerun} run again eagerly")
+        scene.sim_z, scene.sim_z_prev, scene.sim_z_dot = (
+            x.clone() for x in start)
+        col = scene.force_dict["collision"]["object"]
+        w = scene.build_functional_step()[1]["col_w"]
+        with torch.no_grad():
+            dx = (scene.sim_B @ scene.sim_z).reshape(-1, 3)
+        det = self.device_ms("collision_10k detection", lambda: (
+            col.detect_collisions(dx, scene.sim_pts, scene.qp_to_object_map,
+                                  scene.qp_is_kinematic, weights=w,
+                                  return_diag=True)))
+        self.col.update(eager_busy=busy["eager"],
+                        graph_busy=busy["graph replay"], detection_ms=det)
+        print(f"collision_10k detection alone (grid, from the start state): "
+              f"{det:.4f} device ms, {det / busy['eager']:.3f} of an eager "
+              f"step's busy time, {det / busy['graph replay']:.3f} of a "
+              f"replay's [{self.card}]", flush=True)
 
     # -- bounds ------------------------------------------------------------
     def set_bound(self, name, nbytes, ops, what):
@@ -1594,6 +2104,92 @@ class Smoke:
                   f" x {per_iter / 1e9:.4f} GFLOP ({grad / 1e6:.1f} M "
                   f"gradient, {hess / 1e6:.1f} M Hessian, {solve / 1e6:.1f} M"
                   f" solves, {search / 1e6:.1f} M line search) = "
+                  f"{ops / 1e9:.4f} GFLOP -> {t_ops:.6f} ms; {nbytes} bytes "
+                  f"-> {t_bytes:.6f} ms; bound {bound:.6f} ms by "
+                  f"{'operations' if t_ops >= t_bytes else 'bytes'}; device "
+                  f"busy {busy} [{self.card}]")
+
+    def grid_tests(self, scene):
+        """The pairs the grid's narrow phase needs at the scene's state: in
+        each occupied cell its pairs, and its points against those of its 13
+        half-stencil neighbours (the capacities' padding not counted)."""
+        col = scene.force_dict["collision"]["object"]
+        if col.grid_dims is None:
+            return scene.total_qp * (scene.total_qp - 1) // 2
+        with self.torch.no_grad():
+            cur = (scene.sim_pts + (scene.sim_B @ scene.sim_z).reshape(-1, 3)
+                   ).cpu().numpy()
+        dims = np.asarray(col.grid_dims)
+        cell = np.clip(((cur - col.grid_origin) / np.float32(col.grid_cell)
+                        ).astype(np.int64), 0, dims - 1)
+        counts = {}
+        for c in map(tuple, cell):
+            counts[c] = counts.get(c, 0) + 1
+        tests = 0
+        offsets = ((0, 0, 1), (0, 1, -1), (0, 1, 0), (0, 1, 1),
+                   (1, -1, -1), (1, -1, 0), (1, -1, 1), (1, 0, -1),
+                   (1, 0, 0), (1, 0, 1), (1, 1, -1), (1, 1, 0), (1, 1, 1))
+        for (x, y, z), n in counts.items():
+            tests += n * (n - 1) // 2
+            for ox, oy, oz in offsets:
+                tests += n * counts.get((x + ox, y + oy, z + oz), 0)
+        return tests
+
+    def collision_bound(self):
+        """collision_10k's step bound: the dense products counted as config
+        1's are (``sim_bound``), object by object where the operators are
+        block-diagonal (the work the step needs, not the zeros the dense
+        scene matrices hold), over 67 TFLOP/s; plus the contact terms at
+        this run's contact count C: per Newton iteration the offsets of the
+        gradient, Hessian, bounds and the line search's K energies (2 sides
+        x 2·3·4H·C each), the pullback (2·4H·3·C), the reduced Hessian's
+        nine (4H, C) x (C, 4H) products (9·2·(4H)²·C) and ~200 elementwise
+        operations a contact; once a step the narrow phase's tests (19
+        operations a pair: two squared distances, the compares) and the
+        compaction. Bytes: B and dF/dz blocks, BMB and the contact factors
+        read once."""
+        c = self.col
+        if "iterations" not in c or "pairs" not in c:
+            raise RuntimeError("the collision_10k phases did not run")
+        scene = c["scene"]
+        objs = list(scene.sim_obj_dict.values())
+        d = scene.total_dofs
+        d_dyn = len(scene.dyn_idx)
+        nd = sum(o.num_qp * 12 * o.num_handles for o in objs)
+        nd2 = sum(o.num_qp * (12 * o.num_handles) ** 2 for o in objs)
+        m = scene.max_ls_steps
+        k = 2 * m + 2
+        grad = 4 * 2 * 12 * nd + 2 * d * d
+        hess = 2 * 2 * 12 * nd + 2 * nd * (9 + 81) + 2 * 12 * nd2 \
+            + 3 * d * d
+        solve = d_dyn ** 3 / 3 + 2 * d_dyn ** 3 / 3 + 4 * 2 * d_dyn ** 2
+        search = 2 * d * d + 2 * (k - 1) * d * d + k * (2 * 12 * nd
+                                                       + 2 * d * d)
+        h4 = d // 3
+        cc = c["pairs"]
+        offsets = (3 + k) * 2 * 2 * 3 * h4 * cc
+        contact = offsets + 2 * h4 * 3 * cc + 9 * 2 * h4 * h4 * cc \
+            + (200 + 9 * h4) * cc
+        per_iter = grad + hess + solve + search + contact
+        tests = self.grid_tests(scene)
+        detect = tests * 19 + 16 * scene.total_qp
+        nbytes = 4 * (12 * nd + d * d) + 4 * 2 * h4 * cc
+        for label, iters, ms in (
+                ("graph (fixed trip)", scene.max_newton_steps,
+                 c.get("graph_busy")),
+                ("eager (stops early)", c["iterations"], c.get("eager_busy"))):
+            ops = per_iter * iters + detect
+            t_ops = ops / FP32_OPS_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            bound = max(t_ops, t_bytes)
+            busy = "not measured" if ms is None else \
+                f"{ms:.4f} ms, share {bound / ms:.4f}"
+            print(f"collision_10k step, {label}: {iters:g} Newton iterations"
+                  f" x {per_iter / 1e9:.4f} GFLOP ({grad / 1e6:.1f} M "
+                  f"gradient, {hess / 1e6:.1f} M Hessian, {solve / 1e6:.1f} M"
+                  f" solves, {search / 1e6:.1f} M line search, "
+                  f"{contact / 1e6:.1f} M contact terms at C = {cc}) + "
+                  f"{detect / 1e6:.1f} M detection ({tests} pair tests) = "
                   f"{ops / 1e9:.4f} GFLOP -> {t_ops:.6f} ms; {nbytes} bytes "
                   f"-> {t_bytes:.6f} ms; bound {bound:.6f} ms by "
                   f"{'operations' if t_ops >= t_bytes else 'bytes'}; device "
@@ -1679,6 +2275,7 @@ class Smoke:
                            f"and values written")
         torch.cuda.synchronize()
         self.sim_bound()
+        self.collision_bound()
 
         # the order in which to make the kernels faster: first those slower
         # than their library call, largest factor first; then by launches
@@ -1701,13 +2298,15 @@ class Smoke:
     def run(self):
         for phase in (self.phase_card, self.phase_build, self.phase_parity,
                       self.phase_spc_parity, self.phase_gather_parity,
-                      self.phase_sim_parity, self.phase_main_path,
-                      self.phase_spc_main_path, self.phase_probe_path,
-                      self.phase_sim_path, self.phase_timing,
+                      self.phase_sim_parity, self.phase_collision_parity,
+                      self.phase_main_path, self.phase_spc_main_path,
+                      self.phase_probe_path, self.phase_sim_path,
+                      self.phase_collision_path, self.phase_timing,
                       self.phase_spc_timing, self.phase_gather_timing,
-                      self.phase_sim_timing, self.phase_profile,
-                      self.phase_bounds):
+                      self.phase_sim_timing, self.phase_collision_timing,
+                      self.phase_profile, self.phase_bounds):
             print(f"== {phase.__name__}", flush=True)
+            t0 = time.perf_counter()
             try:
                 phase()
             except Exception:   # report the phase, run the others
@@ -1716,6 +2315,9 @@ class Smoke:
                 self.failures.append(phase.__name__)
                 if phase in (self.phase_card, self.phase_build):
                     break
+            finally:
+                print(f"   ({phase.__name__}: {time.perf_counter() - t0:.1f}"
+                      f" s)", flush=True)
         for name, r in self.results.items():
             missing = [k for k in ENTRY_KEYS[1:] if k not in r]
             self.check(not missing, f"{name} has every number ({missing} "

@@ -7,7 +7,9 @@ sufficiency bits, so a Newton iteration reads nothing back to the host. The
 linear solve is a dense Cholesky with an LU fallback (or a Jacobi-
 preconditioned CG); ``torch.linalg``'s ``*_ex`` forms keep their error
 checks on the device. A CUDA graph captures the Cholesky alone
-(:func:`cholesky_only`) and is run again eagerly where it failed.
+(:func:`cholesky_only`) and is run again eagerly where it failed, or, where
+failures are common (contact), both solves, taking the LU where the
+Cholesky failed.
 
 Two loops:
 - ``differentiable=True``: a fixed trip of ``nm_max_iters`` iterations;
@@ -108,13 +110,15 @@ _FAILED = contextvars.ContextVar("cholesky_failed", default=None)
 
 
 @contextlib.contextmanager
-def cholesky_only(failed):
-    """Inside, :func:`_direct_solve` reads nothing back to the host: it keeps
-    the Cholesky solution and ORs a failure into ``failed`` (a 0-dim bool
-    tensor) instead of taking the LU. For a CUDA graph capture, whose
-    caller reads ``failed`` after the replays and runs them again eagerly
-    where it is set."""
-    token = _FAILED.set(failed)
+def cholesky_only(failed, with_lu=False):
+    """Inside, :func:`_direct_solve` reads nothing back to the host: it ORs a
+    Cholesky failure into ``failed`` (a 0-dim bool tensor) and keeps the
+    Cholesky solution, for a CUDA graph whose caller reads ``failed`` after
+    a replay and runs the step again eagerly where it is set. With
+    ``with_lu`` it also solves by LU every time and takes that solution
+    where the Cholesky failed, as the eager solve would: the graph needs
+    no step run again, at the LU's cost in every iteration."""
+    token = _FAILED.set((failed, with_lu))
     try:
         yield failed
     finally:
@@ -124,13 +128,22 @@ def cholesky_only(failed):
 def _direct_solve(red_H, red_g):
     """H⁻¹g by Cholesky; where the factorization fails or its solution is not
     finite (an indefinite H far from a minimum), by LU. The choice reads
-    one flag back to the host, unless inside :func:`cholesky_only`."""
-    L, info = torch.linalg.cholesky_ex(red_H)
+    one flag back to the host, unless inside :func:`cholesky_only`.
+
+    The Cholesky reads H's upper triangle, as ``jax.scipy.linalg.cho_factor``
+    does: with contact, friction makes H not symmetric, and the two
+    triangles give two other systems. It factors Hᵀ's lower triangle (the
+    same numbers), which cuSOLVER factors faster than an upper one."""
+    L, info = torch.linalg.cholesky_ex(red_H.mT)
     dx = torch.cholesky_solve(red_g[:, None], L)[:, 0]
     failed = (info != 0) | ~torch.isfinite(dx).all()
     deferred = _FAILED.get()
     if deferred is not None:
-        deferred.logical_or_(failed)
+        flag, with_lu = deferred
+        flag.logical_or_(failed)
+        if with_lu:
+            dx = torch.where(failed, torch.linalg.solve_ex(red_H, red_g)[0],
+                             dx)
     elif bool(failed):
         dx = torch.linalg.solve_ex(red_H, red_g)[0]
     return dx

@@ -14,12 +14,26 @@ no CUDA device and no ``device`` it raises. ``use_cuda_graphs=True``
 captures one step (its fixed-trip Newton loop, Cholesky solves only) in a
 ``torch.cuda.CUDAGraph`` over static state buffers, and each step replays
 it; a step whose Cholesky failed runs again eagerly, with the LU fallback.
-Collisions are not ported yet (ROADMAP, Queue A 2).
+With contact the Cholesky fails often (friction makes the Hessian not
+symmetric), so that graph solves by LU beside every Cholesky and takes it
+where the Cholesky failed, as the eager step does.
+
+Contact (:meth:`SimplicitsScene.enable_collisions`,
+:mod:`kaolin_tpu_torch.physics.common.collisions`) runs inside the step:
+detection once at its start, the contact energy, gradient and Hessian in
+the assembly, the contact bounds in the line search. Detection reads nothing
+back to the host, so the graph captures it too. Each step ORs its capacity
+overflow bits into a flag on the device; the host reads it every
+``collision_resize_interval`` steps and after ``run_sim_steps``, and on an
+overflow re-measures the capacities and builds the step (and graph) anew.
 """
+
+import warnings
 
 import numpy as np
 import torch
 
+from kaolin_tpu_torch.physics.common.collisions import Collision
 from kaolin_tpu_torch.physics.common.optimization import (
     cholesky_only,
     newtons_method,
@@ -180,8 +194,9 @@ class SimplicitsScene:
     ``device``: where the scene runs; None means the CUDA device, and raises
     without one. ``use_cuda_graphs``: capture a step in a CUDA graph and
     replay it (CUDA only); the graph runs Newton's fixed trip, which gives
-    the early-exit loop's z bit for bit, and reads one flag a step (see
-    :meth:`_replay`). ``differentiable``: the fixed trip on the eager path
+    the early-exit loop's z bit for bit, and reads one flag a step, or with
+    contact one a :meth:`run_sim_steps` call (see :meth:`_replay`).
+    ``differentiable``: the fixed trip on the eager path
     too."""
 
     def __init__(self, direct_solve=True, timestep=0.03, max_newton_steps=5,
@@ -211,15 +226,28 @@ class SimplicitsScene:
         self._ready_for_forces = False
         self._invalidate()
         self.graph_steps_rerun = 0
+        self.graph_steps_lu = 0
 
         self.sim_z = None
         self.sim_z_prev = None
         self.sim_z_dot = None
 
+        # contact capacity: each step ORs its overflow bits into
+        # _col_overflow on the device; every collision_resize_interval steps
+        # (and after run_sim_steps) the host reads it and, when set,
+        # re-measures the capacities from the current configuration
+        self.collision_auto_resize = True
+        self.collision_resize_interval = 16
+        self.collision_resizes = 0
+        self._col_overflow = None
+        self._sim_B_raw = None
+
     def _invalidate(self):
-        """Forget the built step and graph: the forces changed."""
-        self._step_fn = None
+        """Forget the built step and graph: the forces or the contact
+        capacities changed. The graph goes first, with the buffers and
+        constants it holds."""
         self._graph = None
+        self._step_fn = None
 
     # ---- objects ----
     def add_object(self, sim_object, num_qp=None, init_transform=None,
@@ -268,15 +296,23 @@ class SimplicitsScene:
         self.obj_z_slices = []
         qp0, z0 = 0, 0
         kin_dofs = []
-        for obj in objs:
+        qp_is_kin = []
+        qp_obj_ids = []
+        for oid, obj in self.sim_obj_dict.items():
             self.obj_qp_slices.append(slice(qp0, qp0 + obj.num_qp))
             self.obj_z_slices.append(slice(z0, z0 + 12 * obj.num_handles))
             if obj.is_kinematic:
                 kin_dofs.extend(range(z0, z0 + 12 * obj.num_handles))
+            qp_is_kin.append(np.full(obj.num_qp, int(obj.is_kinematic)))
+            qp_obj_ids.append(np.full(obj.num_qp, oid))
             qp0 += obj.num_qp
             z0 += 12 * obj.num_handles
         self.total_qp = qp0
         self.total_dofs = z0
+        self.qp_is_kinematic = torch.from_numpy(
+            np.concatenate(qp_is_kin).astype(np.int32)).to(self.device)
+        self.qp_to_object_map = torch.from_numpy(
+            np.concatenate(qp_obj_ids).astype(np.int32)).to(self.device)
         mask = np.ones(z0, dtype=bool)
         mask[kin_dofs] = False
         self.dyn_idx = np.nonzero(mask)[0]
@@ -323,6 +359,17 @@ class SimplicitsScene:
         self.reset_scene()
         self._ready_for_forces = True
 
+    @property
+    def sim_B_raw(self):
+        """The raw (pre-QR) LBS rows, (3N, D), made on first use: the step
+        uses the per-particle factors (w, [x;1]) instead; this is for tests
+        and tools that want the explicit operator."""
+        if self._sim_B_raw is None:
+            self._sim_B_raw = torch.block_diag(*(
+                lbs_matrix(o.pts, o.skinning_weights)
+                for o in self.sim_obj_dict.values()))
+        return self._sim_B_raw
+
     # ---- forces ----
     def set_scene_gravity(self, acc_gravity=(0.0, 9.8, 0.0),
                           gravity_coeff=1.0):
@@ -363,11 +410,122 @@ class SimplicitsScene:
         self._invalidate()
         return pinned_x
 
-    def enable_collisions(self, *args, **kwargs):
-        """Not ported yet (ROADMAP, Queue A 2)."""
-        raise NotImplementedError(
-            "enable_collisions is not ported yet (ROADMAP Queue A 2: "
-            "Simplicits collisions and training)")
+    # contact particles from which the grid broad phase is the default
+    GRID_BROAD_PHASE_THRESHOLD = 2048
+
+    def enable_collisions(self, collision_particle_radius=0.1,
+                          detection_ratio=1.5, impenetrable_barrier_ratio=0.25,
+                          collision_penalty=1000.0, max_contact_pairs=10000,
+                          friction=0.5, broad_phase=None, cell_capacity=None,
+                          sweep_window=None, slot_contact_capacity=None,
+                          max_occupied_cells=None):
+        """Particle contact between the scene's points.
+
+        ``broad_phase``: ``"dense"`` (the exact N² pair matrix), ``"grid"``
+        (the occupied-cell grid), ``"sweep"`` (sort and window along the
+        longest axis), or None: the grid from ``GRID_BROAD_PHASE_THRESHOLD``
+        contact particles, and then the dense matrix where N² is below the
+        grid's M·14·K² tests; below the threshold the dense matrix.
+        ``cell_capacity`` (K) and ``max_occupied_cells`` (M) default to sizes
+        measured at rest with headroom, the sweep window to
+        :meth:`_auto_sweep_window`. ``slot_contact_capacity`` is accepted and
+        unused, as in the JAX package. Overflow in a step is reported
+        (:meth:`collision_diagnostics`) and resized
+        (:meth:`check_collision_capacity`)."""
+        if not self._ready_for_forces:
+            self._get_scene_ready_for_forces()
+        objs = list(self.sim_obj_dict.values())
+        if any(o.num_real_qp is not None and int(o.num_real_qp) < o.num_qp
+               for o in objs):
+            raise NotImplementedError(
+                "collisions of padded objects (phantom points) are not "
+                "ported yet (ROADMAP Queue A 10: scene batching)")
+        auto_broad = broad_phase is None
+        if broad_phase is None:
+            broad_phase = ("grid" if self.total_qp >=
+                           self.GRID_BROAD_PHASE_THRESHOLD else "dense")
+        if broad_phase == "sweep" and sweep_window is None:
+            sweep_window = self._auto_sweep_window(
+                collision_particle_radius, detection_ratio)
+        collision = Collision(
+            dt=self.timestep,
+            collision_particle_radius=collision_particle_radius,
+            detection_ratio=detection_ratio,
+            impenetrable_barrier_ratio=impenetrable_barrier_ratio,
+            collision_penalty_stiffness=collision_penalty,
+            friction_regularization=0.1, friction_fluid=0.1,
+            friction=friction,
+            max_contacting_pairs=min(max_contact_pairs,
+                                     self.total_qp * (self.total_qp - 1) // 2),
+            bounds=True, broad_phase=broad_phase,
+            cell_capacity=16 if cell_capacity is None else cell_capacity,
+            sweep_window=128 if sweep_window is None else sweep_window,
+            max_occupied_cells=(2048 if max_occupied_cells is None
+                                else max_occupied_cells))
+        if broad_phase == "grid":
+            collision.configure_grid(
+                self.sim_pts.cpu().numpy(),
+                obj_ids=self.qp_to_object_map.cpu().numpy(),
+                headroom_k=1.25,
+                auto_capacities=(cell_capacity is None
+                                 or max_occupied_cells is None))
+            if cell_capacity is not None:
+                collision.cell_capacity = int(cell_capacity)
+            if max_occupied_cells is not None:
+                collision.max_occupied_cells = int(max_occupied_cells)
+            if auto_broad:
+                # cells cannot shrink below the detection radius: a cloud
+                # packed tighter than it makes K large, and then the N²
+                # matrix takes fewer tests
+                grid_tests = (collision.max_occupied_cells * 14
+                              * collision.cell_capacity ** 2)
+                if self.total_qp * self.total_qp < grid_tests:
+                    collision.broad_phase = "dense"
+        self.force_dict["collision"] = {"object": collision,
+                                        "coeff": float(collision_penalty)}
+        self._invalidate()
+
+    def _collision_provably_empty(self):
+        """True when the collision force can never make a contact, so the
+        step leaves detection out with the same result: one object (the
+        narrow phase ignores same-object pairs whose squared rest distance
+        is under ``collision_radius * ignore_self_collision_ratio``, and
+        rest distances never change) whose rest box diagonal² is under that
+        bound."""
+        if "collision" not in self.force_dict:
+            return True
+        col = self.force_dict["collision"]["object"]
+        if torch.unique(self.qp_to_object_map).numel() > 1:
+            return False
+        pts = self.sim_pts.cpu().numpy()
+        diag2 = float(((pts.max(0) - pts.min(0)) ** 2).sum())
+        return diag2 < col.collision_radius * col.ignore_self_collision_ratio
+
+    def _auto_sweep_window(self, collision_particle_radius, detection_ratio,
+                           margin=1.5, minimum=64):
+        """The sweep window from the rest configuration: the most points in
+        any point's detection slab along the longest axis, with headroom,
+        rounded up to a power of two."""
+        pts = self.sim_pts.cpu().numpy()
+        axis = int(np.argmax(pts.max(0) - pts.min(0)))
+        key = np.sort(pts[:, axis])
+        radius = 2.0 * collision_particle_radius * detection_ratio
+        load = np.searchsorted(key, key + radius, side="right") \
+            - np.arange(key.shape[0]) - 1
+        want = int(load.max() * margin) + 8
+        return int(min(max(minimum, 1 << int(np.ceil(np.log2(max(want, 1))))),
+                       self.total_qp))
+
+    def collision_diagnostics(self):
+        """The collision force's :meth:`Collision.detection_diagnostics` at
+        the scene's current state."""
+        if "collision" not in self.force_dict:
+            raise RuntimeError("collisions are not enabled on this scene")
+        col = self.force_dict["collision"]["object"]
+        with torch.no_grad():
+            dx = (self.sim_B @ self.sim_z).reshape(-1, 3)
+            return col.detection_diagnostics(
+                dx, self.sim_pts, self.qp_to_object_map, self.qp_is_kinematic)
 
     # ---- state ----
     def reset_scene(self):
@@ -377,6 +535,7 @@ class SimplicitsScene:
         self.sim_z = torch.cat([o.z for o in self.sim_obj_dict.values()])
         self.sim_z_prev = torch.zeros_like(self.sim_z)
         self.sim_z_dot = torch.zeros_like(self.sim_z)
+        self._col_overflow = None
 
     def set_object_initial_transform(self, object_id, init_transform):
         if self.current_sim_step > 0:
@@ -466,14 +625,24 @@ class SimplicitsScene:
         ``step_fn(consts, z, z_prev, z_dot) -> (z_new, z_prev_out, z_dot_new)``
 
         (``z_prev`` is not read: the step starts from z). ``with_diag=True``
-        adds a fourth output, the int32 collision-overflow flags, always 0
-        here (collisions are not ported). ``fixed_trip=True`` runs Newton's
-        fixed trip whatever ``differentiable`` says."""
+        adds a fourth output, the step's int32 contact-overflow bitmask
+        (:meth:`Collision.diag_flags`; 0 without contact).
+        ``fixed_trip=True`` runs Newton's fixed trip whatever
+        ``differentiable`` says.
+
+        With contact, detection runs once at the step's start from z, and
+        its contacts carry the factors w ⊗ [x;1] of their LBS rows, so the
+        contact terms inside Newton are dense products in the raw (pre-QR)
+        basis, taken to z's basis by the QR rotation."""
         dt = self.timestep
         reg = self.newton_hessian_regularizer
         total_dofs = self.total_dofs
         dyn_idx = torch.as_tensor(self.dyn_idx, device=self.device)
         obj_slices = list(zip(self.obj_qp_slices, self.obj_z_slices))
+        has_collision = ("collision" in self.force_dict
+                         and not self._collision_provably_empty())
+        collision_bounds = (has_collision
+                            and self.force_dict["collision"]["object"].bounds)
         nm_kwargs = dict(nm_max_iters=self.max_newton_steps,
                          cg_tol=self.cg_tol, cg_iters=self.cg_iters,
                          conv_tol=self.conv_tol,
@@ -497,6 +666,26 @@ class SimplicitsScene:
             "defo_forces": [(f["object"], f["coeff"]) for f in
                             self.force_dict["defo_grad_wise"].values()],
         }
+        no_flags = torch.zeros((), dtype=torch.int32, device=self.device)
+        if has_collision:
+            collision = self.force_dict["collision"]["object"]
+            consts["collision"] = collision
+            consts["collision_coeff"] = self.force_dict["collision"]["coeff"]
+            consts["qr_tfm"] = self.sim_qr_tfm
+            consts["qp_obj_ids"] = self.qp_to_object_map
+            consts["qp_is_kin"] = self.qp_is_kinematic
+            # the global block-diagonal skinning weights (N, H_total), from
+            # which detection makes the contacts' q-form factors
+            wblocks = self.sim_pts.new_zeros((self.total_qp,
+                                              self.total_dofs // 12))
+            h0 = 0
+            for o, (qsl, _) in zip(objs, obj_slices):
+                wblocks[qsl, h0:h0 + o.num_handles] = o.skinning_weights
+                h0 += o.num_handles
+            consts["col_w"] = wblocks
+            if collision.broad_phase == "grid":
+                # made here, outside any capture, and held by the graph
+                consts["grid_tensors"] = collision.grid_tensors(self.device)
 
         def step(c, z, z_prev_in, z_dot):
             B, dFdz, BMB, pts = c["B"], c["dFdz"], c["BMB"], c["pts"]
@@ -510,6 +699,23 @@ class SimplicitsScene:
             def delta_of(z_):
                 return z_ - z - dt * z_dot
 
+            flags = no_flags
+            contacts = None
+            if has_collision:
+                col, col_coeff, qr = (c["collision"], c["collision_coeff"],
+                                      c["qr_tfm"])
+                contacts, det_diag = col.detect_collisions(
+                    dx_of(z), pts, c["qp_obj_ids"], c["qp_is_kin"],
+                    weights=c["col_w"], return_diag=True)
+                flags = Collision.diag_flags(det_diag)
+
+                def zq_of(z_):
+                    dzq = z_ - z
+                    return dzq if qr is None else qr @ dzq
+
+                def to_post(g_raw):
+                    return g_raw if qr is None else qr.T @ g_raw
+
             def energy_fn(z_):
                 dx = dx_of(z_)
                 F = F_of(z_)
@@ -519,6 +725,9 @@ class SimplicitsScene:
                     pe = pe + obj.energy(dx, pts, coeff)
                 for obj, coeff in c["defo_forces"]:
                     pe = pe + obj.energy(F, coeff)
+                if has_collision:
+                    pe = pe + col.energy(contacts, coeff=col_coeff,
+                                         zq=zq_of(z_))
                 ke = 0.5 * delta @ (BMB @ delta)
                 return ke + dt * dt * pe
 
@@ -532,6 +741,10 @@ class SimplicitsScene:
                 for obj, coeff in c["defo_forces"]:
                     dEdF = dEdF + obj.gradient(F, coeff)
                 g = B.T @ dEdx.reshape(-1) + dFdz.T @ dEdF.reshape(-1)
+                if has_collision:
+                    c_dEdx = col.gradient(contacts, coeff=col_coeff,
+                                          zq=zq_of(z_))
+                    g = g + to_post(col.pullback_gradient(contacts, c_dEdx))
                 return BMB @ delta_of(z_) + dt * dt * g
 
             def hess_fn(z_):
@@ -549,16 +762,28 @@ class SimplicitsScene:
                               c["obj_Bs"], c["obj_dFdzs"], obj_slices)]
                 H = blocks[0] if len(blocks) == 1 else torch.block_diag(
                     *blocks)
+                if has_collision:
+                    c_h = col.hessian(contacts, coeff=col_coeff,
+                                      zq=zq_of(z_))
+                    c_H = col.reduced_hessian(contacts, c_h)
+                    if qr is not None:
+                        c_H = qr.T @ c_H @ qr
+                    H = H + c_H
                 return BMB + dt * dt * H + reg * eye_d
 
+            bounds_fn = None
+            if collision_bounds:
+                def bounds_fn(dz_full, z_):
+                    dzq = dz_full if qr is None else qr @ dz_full
+                    return col.get_bounds_q(contacts, dzq, zq_of(z_))
+
             z_new = newtons_method(
-                z, energy_fn, grad_fn, hess_fn, dyn_idx=dyn_idx,
-                bounds_qr_tfm=c["qr_red"], bounds_qr_tfm_inv=c["qr_red_inv"],
-                **nm_kwargs)
+                z, energy_fn, grad_fn, hess_fn, bounds_fcn=bounds_fn,
+                dyn_idx=dyn_idx, bounds_qr_tfm=c["qr_red"],
+                bounds_qr_tfm_inv=c["qr_red_inv"], **nm_kwargs)
             z_dot_new = (z_new - z) / dt
             if with_diag:
-                return z_new, z, z_dot_new, torch.zeros(
-                    (), dtype=torch.int32, device=z.device)
+                return z_new, z, z_dot_new, flags
             return z_new, z, z_dot_new
 
         return step, consts
@@ -567,92 +792,137 @@ class SimplicitsScene:
         if not self._ready_for_forces:
             raise RuntimeError("Forces need to be set")
 
+    def _flags(self):
+        """The device flag the steps OR their overflow bits into."""
+        if self._col_overflow is None:
+            self._col_overflow = torch.zeros((), dtype=torch.int32,
+                                             device=self.device)
+        return self._col_overflow
+
     def _eager_step(self):
         if self._step_fn is None:
-            self._step_fn = self.build_functional_step()
+            self._step_fn = self.build_functional_step(with_diag=True)
         step, consts = self._step_fn
         with torch.no_grad():
-            self.sim_z, self.sim_z_prev, self.sim_z_dot = step(
-                consts, self.sim_z, self.sim_z_prev, self.sim_z_dot)
+            (self.sim_z, self.sim_z_prev, self.sim_z_dot,
+             flags) = step(consts, self.sim_z, self.sim_z_prev,
+                           self.sim_z_dot)
+            self._col_overflow = self._flags() | flags
+
+    def _graph_takes_lu(self):
+        """With contact the Hessian is not symmetric (friction) and often
+        indefinite, so the Cholesky fails in many steps: the graph then
+        solves by LU too and takes it where the Cholesky failed, rather than
+        run those steps again eagerly."""
+        return ("collision" in self.force_dict
+                and not self._collision_provably_empty())
 
     def _capture(self):
         """One fixed-trip step captured in a CUDA graph that advances the
-        static state buffers in place → (graph, state, start, failed,
-        keep). The graph first copies the state into ``start``, takes every
-        Cholesky solution as it is and ORs any failure into ``failed``,
-        which :meth:`_replay` reads after each replay.
+        static state buffers (z, z_prev, z_dot and the overflow flag) in
+        place → (graph, state, start, failed, lu_steps, keep). The graph
+        first copies the state into ``start`` and ORs any Cholesky failure
+        of the step into ``failed``. Without LU (no contact) it keeps every
+        Cholesky solution, and :meth:`_replay` reads ``failed`` after each
+        replay; with it, the graph takes the LU where the Cholesky failed
+        and counts those steps in ``lu_steps``, read once a
+        :meth:`_replay`.
 
         A replay reads the tensors the step was built over at the addresses
         they had at the capture: ``keep`` holds the step and its constants
-        (the identity matrices and the dynamic-DOF index live only in the
-        step's closure), so that none of them is freed and its memory handed
-        to another tensor while the graph lives."""
-        step, consts = self.build_functional_step(fixed_trip=True)
+        (the identity matrices, the dynamic-DOF index, the contact weights
+        and grid tensors, the ``Collision``), so that none of them is freed
+        and its memory handed to another tensor while the graph lives."""
+        step, consts = self.build_functional_step(with_diag=True,
+                                                  fixed_trip=True)
+        with_lu = self._graph_takes_lu()
         state = [self.sim_z.clone(), self.sim_z_prev.clone(),
-                 self.sim_z_dot.clone()]
+                 self.sim_z_dot.clone(), self._flags().clone()]
         start = [torch.empty_like(b) for b in state]
         failed = torch.zeros((), dtype=torch.bool, device=self.device)
+        lu_steps = (torch.zeros((), dtype=torch.int32, device=self.device)
+                    if with_lu else None)
 
         def advance():
             failed.zero_()
             for keep, buf in zip(start, state):
                 keep.copy_(buf)
-            z, z_prev, z_dot = state
-            z1, _, zd1 = step(consts, z, z_prev, z_dot)
+            z, z_prev, z_dot, ovf = state
+            z1, _, zd1, flags = step(consts, z, z_prev, z_dot)
             z_prev.copy_(z)
             z_dot.copy_(zd1)
             z.copy_(z1)
+            ovf.bitwise_or_(flags)
+            if with_lu:
+                lu_steps.add_(failed)
 
         # warm up on a side stream (workspaces, the step-size grid), as
         # torch.cuda.graphs asks; the state is copied in before the replays
         graph = torch.cuda.CUDAGraph()
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.no_grad(), torch.cuda.stream(side), cholesky_only(failed):
+        with torch.no_grad(), torch.cuda.stream(side), \
+                cholesky_only(failed, with_lu):
             advance()
         torch.cuda.current_stream(self.device).wait_stream(side)
-        with torch.no_grad(), torch.cuda.graph(graph), cholesky_only(failed):
+        with torch.no_grad(), torch.cuda.graph(graph), \
+                cholesky_only(failed, with_lu):
             advance()
-        return graph, state, start, failed, (step, consts)
+        if with_lu:
+            lu_steps.zero_()
+        return graph, state, start, failed, lu_steps, (step, consts)
+
+    def _live_state(self):
+        return (self.sim_z, self.sim_z_prev, self.sim_z_dot, self._flags())
 
     def _replay(self, num_steps):
-        """``num_steps`` replays from the scene's state, with one host read
-        of ``failed`` after each: a step whose Cholesky failed is run again
-        eagerly from its start, with the LU fallback
-        (``graph_steps_rerun`` counts them)."""
+        """``num_steps`` replays from the scene's state. Without LU in the
+        graph, one host read of ``failed`` after each: a step whose Cholesky
+        failed is run again eagerly from its start, with the LU fallback
+        (``graph_steps_rerun`` counts them). With it, the replays run back
+        to back, and the steps that took the LU are read once at the end
+        (``graph_steps_lu``)."""
         if self._graph is None:
             self._graph = self._capture()
-        graph, state, start, failed, _ = self._graph
-        for buf, value in zip(state, (self.sim_z, self.sim_z_prev,
-                                      self.sim_z_dot)):
+        graph, state, start, failed, lu_steps, _ = self._graph
+        for buf, value in zip(state, self._live_state()):
             buf.copy_(value)
         for _ in range(num_steps):
             graph.replay()
-            if bool(failed):
-                self.sim_z, self.sim_z_prev, self.sim_z_dot = (
-                    b.clone() for b in start)
+            if lu_steps is None and bool(failed):
+                (self.sim_z, self.sim_z_prev, self.sim_z_dot,
+                 self._col_overflow) = (b.clone() for b in start)
                 self._eager_step()
                 self.graph_steps_rerun += 1
-                for buf, value in zip(state, (self.sim_z, self.sim_z_prev,
-                                              self.sim_z_dot)):
+                for buf, value in zip(state, self._live_state()):
                     buf.copy_(value)
-        self.sim_z, self.sim_z_prev, self.sim_z_dot = (b.clone()
-                                                       for b in state)
+        if lu_steps is not None:
+            self.graph_steps_lu += int(lu_steps)
+            lu_steps.zero_()
+        (self.sim_z, self.sim_z_prev, self.sim_z_dot,
+         self._col_overflow) = (b.clone() for b in state)
 
     def run_sim_step(self):
         """One implicit time step: the captured graph replayed once when
-        ``use_cuda_graphs``, else the step's ops one by one."""
+        ``use_cuda_graphs``, else the step's ops one by one. With contact,
+        every ``collision_resize_interval`` steps the overflow flag is read
+        (:meth:`check_collision_capacity`) while ``collision_auto_resize``."""
         self._check_ready()
         if self.use_cuda_graphs:
             self._replay(1)
         else:
             self._eager_step()
         self.current_sim_step += 1
+        if (self.collision_auto_resize and "collision" in self.force_dict
+                and self.current_sim_step % self.collision_resize_interval
+                == 0):
+            self.check_collision_capacity()
 
     def run_sim_steps(self, num_steps):
         """``num_steps`` time steps, the same as as many
-        :meth:`run_sim_step` calls: with ``use_cuda_graphs`` the graph
-        replayed ``num_steps`` times with one copy in and out."""
+        :meth:`run_sim_step` calls but for the capacity check, made once
+        after them: with ``use_cuda_graphs`` the graph replayed
+        ``num_steps`` times with one copy in and out."""
         self._check_ready()
         if self.use_cuda_graphs:
             self._replay(int(num_steps))
@@ -660,3 +930,54 @@ class SimplicitsScene:
             for _ in range(int(num_steps)):
                 self._eager_step()
         self.current_sim_step += int(num_steps)
+        if self.collision_auto_resize and "collision" in self.force_dict:
+            self.check_collision_capacity()
+
+    def check_collision_capacity(self):
+        """Read the overflow flag the steps ORed on the device (one scalar)
+        → the bitmask, 0 when healthy. When set, the capacities are
+        re-measured from the current configuration with growing headroom,
+        and the step and graph are built anew at the next step (the
+        overflowing steps are not undone)."""
+        if "collision" not in self.force_dict or self._col_overflow is None:
+            return 0
+        flags = int(self._col_overflow)
+        if flags == 0:
+            return 0
+        self._resize_collision_capacities(flags)
+        return flags
+
+    def _resize_collision_capacities(self, flags):
+        # the graph and its buffers go before anything it reads changes
+        self._invalidate()
+        col = self.force_dict["collision"]["object"]
+        self.collision_resizes += 1
+        headroom = 1.5 * (2.0 ** min(self.collision_resizes - 1, 4))
+        with torch.no_grad():
+            cur = (self.sim_pts + (self.sim_B @ self.sim_z).reshape(-1, 3)
+                   ).cpu().numpy()
+        if col.broad_phase == "grid":
+            def sizes():
+                return (col.grid_dims, col.cell_capacity,
+                        col.max_occupied_cells)
+
+            old = sizes()
+            col.configure_grid(
+                cur, obj_ids=self.qp_to_object_map.cpu().numpy(),
+                headroom=headroom, bounds_pts=self.sim_pts.cpu().numpy())
+            warnings.warn(
+                f"collision capacity overflow (flags={flags:#x}); grid "
+                f"re-measured from the current configuration: dims/K/M "
+                f"{old} -> {sizes()} (resize #{self.collision_resizes}; "
+                f"the step is built anew)")
+        if flags & Collision.FLAG_CONTACTS_OVERFLOW:
+            col.max_contacts = int(min(
+                max(col.max_contacts * 2, 1024),
+                self.total_qp * (self.total_qp - 1) // 2))
+        if flags & Collision.FLAG_PP_OVERFLOW:
+            col.point_contact_capacity = int(min(
+                max(col.point_contact_capacity * 2, 8),
+                14 * col.cell_capacity))
+        if flags & Collision.FLAG_WINDOW_OVERFLOW:
+            col.sweep_window = int(min(col.sweep_window * 2, self.total_qp))
+        self._col_overflow = None

@@ -4,7 +4,7 @@ Counterpart of ``kaolin_tpu/physics/simplicits/training.py``: the point
 containers and :class:`SimplicitsObject` with its rigid and analytic
 constructors and its baking. Training an MLP skinning field
 (``create_with_mlp``) and RKPM weights (``create_with_rkpm``) are not
-ported yet (ROADMAP, Queue A 2).
+ported yet (ROADMAP, Queue A 2b).
 """
 
 import numpy as np
@@ -164,18 +164,18 @@ class SimplicitsObject(PhysicsPoints):
     @classmethod
     def create_with_mlp(cls, *args, **kwargs):
         """Not ported yet: MLP training needs the losses and an Adam loop
-        (ROADMAP, Queue A 2)."""
+        (ROADMAP, Queue A 2b)."""
         raise NotImplementedError(
-            "create_with_mlp is not ported yet (ROADMAP Queue A 2: "
-            "Simplicits collisions and training)")
+            "create_with_mlp is not ported yet (ROADMAP Queue A 2b: "
+            "Simplicits training)")
 
     @classmethod
     def create_with_rkpm(cls, *args, **kwargs):
         """Not ported yet: RKPM weights need farthest-point sampling
-        (ROADMAP, Queue A 2)."""
+        (ROADMAP, Queue A 2b)."""
         raise NotImplementedError(
-            "create_with_rkpm is not ported yet (ROADMAP Queue A 2: "
-            "Simplicits collisions and training)")
+            "create_with_rkpm is not ported yet (ROADMAP Queue A 2b: "
+            "Simplicits training)")
 
     def subsample(self, num_pts=None, sample_indices=None):
         idx = self._get_subsample_indices(num_pts, sample_indices)

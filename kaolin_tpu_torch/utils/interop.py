@@ -1,5 +1,6 @@
 """Hand numpy data to the port, so both packages see identical inputs, and
-carry the JAX package's Simplicits MLP weights into the port."""
+carry the JAX package's Simplicits MLP weights, contact buffers and
+configured ``Collision`` objects into the port."""
 
 import numpy as np
 import torch
@@ -45,3 +46,51 @@ def simplicits_mlp_from_jax(params, bb_min=None, bb_max=None):
             linear.weight.copy_(torch.from_numpy(w.T.copy()))
             linear.bias.copy_(torch.from_numpy(b))
     return mlp
+
+
+def contacts_from_jax(contacts, device="cpu"):
+    """The port's :class:`~kaolin_tpu_torch.physics.common.Contacts` holding
+    a JAX ``Contacts`` buffer's arrays (numpy, or anything ``np.asarray``
+    takes): the same values, indices as int64, fields that are None kept
+    None."""
+    from kaolin_tpu_torch.physics.common.collisions import Contacts
+
+    def conv(name, value):
+        if value is None:
+            return None
+        a = np.array(value, copy=True)
+        if name.startswith("indices"):
+            a = a.astype(np.int64)
+        return torch.from_numpy(a).to(device)
+
+    return Contacts(**{name: conv(name, getattr(contacts, name))
+                       for name in Contacts._fields})
+
+
+_COLLISION_FIELDS = (
+    "dt", "collision_radius", "collision_detection_ratio",
+    "collision_barrier_ratio", "ignore_self_collision_ratio",
+    "collision_penalty_stiffness", "friction_reg", "friction_fluid",
+    "friction", "max_contacts", "bounds", "broad_phase", "cell_capacity",
+    "sweep_window", "slot_contact_capacity", "max_occupied_cells",
+    "point_contact_capacity", "grid_dims", "grid_cell")
+
+
+def collision_from_jax(collision):
+    """The port's :class:`~kaolin_tpu_torch.physics.common.Collision` with a
+    configured JAX ``Collision``'s parameters, capacities and grid geometry
+    (dims, origin, cell): both then detect over the same grid."""
+    from kaolin_tpu_torch.physics.common.collisions import Collision
+
+    out = Collision(dt=1.0)
+    for name in _COLLISION_FIELDS:
+        value = getattr(collision, name)
+        if name == "grid_dims" and value is not None:
+            value = tuple(int(d) for d in value)
+        elif isinstance(value, (np.generic, np.ndarray)) or hasattr(
+                value, "__array__"):
+            value = np.asarray(value).item()
+        setattr(out, name, value)
+    if collision.grid_origin is not None:
+        out.grid_origin = np.array(collision.grid_origin, np.float32)
+    return out

@@ -312,8 +312,18 @@ def test_scene_needs_a_device(monkeypatch):
 
 
 def test_collisions_are_not_ported(graft):
-    with pytest.raises(NotImplementedError, match="Queue A 2"):
-        graft["port"].enable_collisions()
+    """Contact is ported (``tests/test_torch_collision_scene.py``) but for
+    padded objects, whose phantom points wait for scene batching (ROADMAP
+    Queue A 10); a scene without forces does not step."""
+    points = graft["points"]
+    padded = simulation.SkinnedPhysicsPoints(
+        pts=points["pts"], yms=1e4, prs=0.45, rhos=500.0, appx_vol=1.0,
+        skinning_weights=points["w"], dwdx=points["dwdx"], num_real_qp=200)
+    scene = SimplicitsScene(device="cpu")
+    scene.add_object(padded)
+    scene.set_scene_gravity()
+    with pytest.raises(NotImplementedError, match="Queue A 10"):
+        scene.enable_collisions()
     with pytest.raises(RuntimeError, match="Forces"):
         SimplicitsScene(device="cpu").run_sim_step()
 

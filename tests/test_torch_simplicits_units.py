@@ -439,7 +439,7 @@ def test_direct_solve_falls_back_to_lu_where_cholesky_fails():
     np.testing.assert_array_equal(
         opt._direct_solve(t(ind), t(g)).numpy(),
         torch.linalg.solve(t(ind), t(g)).numpy())
-    L = torch.linalg.cholesky(t(spd))
+    L = torch.linalg.cholesky(t(spd).mT)     # H's upper triangle
     chol = torch.cholesky_solve(t(g)[:, None], L)[:, 0]
     np.testing.assert_array_equal(opt._direct_solve(t(spd), t(g)).numpy(),
                                   chol.numpy())
@@ -450,3 +450,39 @@ def test_direct_solve_falls_back_to_lu_where_cholesky_fails():
         assert not bool(failed)
         opt._direct_solve(t(ind), t(g))
     assert bool(failed) and torch.equal(kept, chol)
+    # with the LU in the graph: the eager solve's result, bit for bit
+    failed = torch.zeros((), dtype=torch.bool)
+    with opt.cholesky_only(failed, with_lu=True):
+        for h in (spd, ind):
+            assert torch.equal(opt._direct_solve(t(h), t(g)),
+                               eager_solve(t(h), t(g)))
+    assert bool(failed)
+
+
+def eager_solve(h, g):
+    """``_direct_solve`` outside any graph context."""
+    token = opt._FAILED.set(None)
+    try:
+        return opt._direct_solve(h, g)
+    finally:
+        opt._FAILED.reset(token)
+
+
+def test_direct_solve_reads_the_upper_triangle_as_jax():
+    """Fault F15: the JAX solve factors H's upper triangle
+    (``cho_factor(lower=False)``); the port factored the lower. With
+    contact H is not symmetric (friction), and the two solve other
+    systems. On a non-symmetric positive definite H the port's solution is
+    JAX's to rounding (the lower triangle's is 1e-2 away)."""
+    rng = np.random.RandomState(3)
+    a = rng.randn(6, 6).astype(np.float32)
+    h = a @ a.T + 6 * np.eye(6, dtype=np.float32)
+    h[0, 3] += 2.0
+    g = rng.randn(6).astype(np.float32)
+    want = np.asarray(jax.scipy.linalg.cho_solve(
+        jax.scipy.linalg.cho_factor(jnp.asarray(h)), jnp.asarray(g)))
+    got = opt._direct_solve(t(h), t(g)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    lower = torch.cholesky_solve(t(g)[:, None], torch.linalg.cholesky(t(h))
+                                 )[:, 0].numpy()
+    assert np.abs(lower - want).max() > 1e-3

@@ -37,11 +37,62 @@ def grid_faces(n=4, step=0.125):
     return np.asarray(faces, np.float32)[None]
 
 
-def load_example():
-    """``examples/torch_dibr_optimization.py`` as a module."""
-    path = os.path.join(ROOT, "examples", "torch_dibr_optimization.py")
-    spec = importlib.util.spec_from_file_location("torch_dibr_optimization",
-                                                  path)
+def load_example(name="torch_dibr_optimization"):
+    """``examples/<name>.py`` as a module."""
+    path = os.path.join(ROOT, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def random_contact_scene(seed, n_per_obj=60, n_obj=3, spread=1.0):
+    """``tests/physics/test_collisions.py``'s ``_random_scene`` in numpy:
+    ``n_obj`` clouds of ``n_per_obj`` points around seeded centres and a
+    seeded displacement → (dx, x0, obj_ids), float32 and int32."""
+    rng = np.random.RandomState(seed)
+    pts, ids = [], []
+    for o in range(n_obj):
+        center = rng.uniform(-spread, spread, (3,))
+        pts.append(center + rng.uniform(-0.3, 0.3, (n_per_obj, 3)))
+        ids.append(np.full(n_per_obj, o))
+    x0 = np.concatenate(pts).astype(np.float32)
+    obj_ids = np.concatenate(ids).astype(np.int32)
+    dx = rng.uniform(-0.2, 0.2, x0.shape).astype(np.float32)
+    return dx, x0, obj_ids
+
+
+def pair_set(contacts):
+    """The unordered valid pairs of a contact buffer (either package)."""
+    ia = np.asarray(contacts.indices_a)
+    ib = np.asarray(contacts.indices_b)
+    valid = np.asarray(contacts.valid)
+    return {tuple(sorted((int(a), int(b))))
+            for a, b, v in zip(ia, ib, valid) if v}
+
+
+def qr_blocks(scene, name):
+    """A scene's block-diagonal ``qr_tfm`` or ``qr_tfm_inv`` in float64, the
+    identity for objects without the QR (either package)."""
+    import scipy.linalg
+
+    blocks = []
+    for o in scene.sim_obj_dict.values():
+        m = getattr(o, name)
+        blocks.append(np.eye(12 * o.num_handles) if m is None
+                      else np.asarray(m, np.float64))
+    return scipy.linalg.block_diag(*blocks)
+
+
+def z_converter(port_scene, jax_scene):
+    """JAX's z (numpy) → the port's z in its own basis, through the pre-QR
+    basis in float64 (the two may take other QR pivots)."""
+    conv = qr_blocks(port_scene, "qr_tfm_inv") @ qr_blocks(jax_scene,
+                                                           "qr_tfm")
+    return lambda z: torch.from_numpy(
+        (conv @ np.asarray(z, np.float64)).astype(np.float32))
+
+
+def displacement(scene, z):
+    """B z in float64: the points' displacement, whatever the basis."""
+    return np.asarray(scene.sim_B, np.float64) @ np.asarray(z, np.float64)

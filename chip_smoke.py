@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's five paths on one NVIDIA GPU and check them:
+"""Run the PyTorch port's six paths on one NVIDIA GPU and check them:
 the DIB-R inverse-rendering step, the SPC first-hit raster, the
 primitive-cost probe with its table-gather kernel, the Simplicits sim
-step (config 1) and Simplicits contact (``bench.py``'s ``collision_10k``;
-both plain PyTorch: the JAX package has no kernel there).
+step (config 1), Simplicits contact (``bench.py``'s ``collision_10k``) and
+Simplicits training, config 1's easy-API path from a closed mesh
+(``examples/torch_simplicits_train.py``; the last three plain PyTorch: the
+JAX package has no kernel there).
 
     python3 chip_smoke.py
 
@@ -46,6 +48,13 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    within 1e-4 (``check_stack_step`` says why its step is not held); and
    ``make_demo_scene``'s scene, 10 steps (5 for the sweep) from the CPU's
    states, B z within 1e-4 of max|B z| plus twice the card's own spread;
+   the training path's pieces on the card against the CPU: ``check_sign`` of
+   the example's torus (4,096 faces) on 100,000 candidates, equal but
+   within 1e-5 of an edge or a face (``check_sign_margin``); the losses at
+   full width (33 handles, 6 layers, 1,000 samples, batch 10) from one set
+   of weights and draws, and 20 Adam steps from one generator, within
+   2e-3; FPS bit for bit with inf and NaN rows; the sparse builders within
+   1e-5;
 5. the DIB-R path: ``config2_step`` (512², a 4992-face UV sphere, forward
    and backward, 5 steps) with every launch counter set to 0 before and
    read after (each soft-mask forward given the rasterizer's ids), its
@@ -82,7 +91,18 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    counters set to 0 before and read after (no kernel may launch): finite,
    the flags 0, pairs found, every cube above the floor, no graph step run
    again eagerly, graph against eager within 1e-4 of max|B z|; its steps/s
-   (eager ``run_sim_step``, one replay, ``run_sim_steps(20)``);
+   (eager ``run_sim_step``, one replay, ``run_sim_steps(20)``); then the
+   training path, counters set to 0 before and read after (no kernel may
+   launch): the torus's interior from 100,000 candidates (its share within
+   2% of the torus's volume share of its box), 1,000 Adam steps at full
+   width (the loss falls, the weights are finite), the bake at 1,000 points
+   (396 DOFs) and 30 sim steps eager and from the graph (falling, above
+   the floor, graph = eager within 1e-4 of max|B z|), ``create_with_rkpm``
+   at config 1's points (33 handles, 256 nodes) and 10 steps of it; the
+   differentiable step's gradient (graft scene) card vs CPU within 1e-3 of
+   max|g|, finite and not zero; the training step's steps/s (steps 100-300
+   of one run), ``check_sign``, FPS, ``create_with_rkpm`` and one
+   differentiable config-1 step forward and backward;
 9. time each kernel and each path against the plain versions with CUDA
    events, in the order plain, kernel, kernel, plain;
 10. ``torch.profiler`` (``kaolin_tpu_torch.utils.profiling.trace``) over 10
@@ -92,8 +112,8 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    (``library_ms``), warm, at the probe's shapes; both gather routes on
    tables of 2^10 to 58,112 floats, to show where the route rule belongs;
    the config-1 sim step and the collision_10k step eager and as a graph
-   replay: device busy, idle share and the largest ops, and detection's
-   share of the collision_10k step;
+   replay, and one training step: device busy, idle share and the largest
+   ops, and detection's share of the collision_10k step;
 11. each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
    and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), the
    operations counted from this run's inputs, a term that depends on the
@@ -106,7 +126,8 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    bound, its dense products and factorizations over 67 TFLOP/s, at the
    graph's 5 Newton iterations and at the eager path's measured count; the
    collision_10k step's, the same products object by object plus the
-   contact terms at this run's contact count and the grid's pair tests.
+   contact terms at this run's contact count and the grid's pair tests;
+   the training step's, its MLP rows' and LBS products over 67 TFLOP/s.
 
 Prints a JSON line with each kernel's launches, error, times and bound, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, without
@@ -114,9 +135,11 @@ that line, when there is no CUDA device or any phase fails.
 """
 
 import contextlib
+import copy
 import importlib.util
 import io
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -160,6 +183,16 @@ COLLISION_DEMO_STEPS = {"dense": 10, "grid": 10, "sweep": 5}
 COLLISION_STEPS = 20
 COLLISION_TIMED_STEPS = 10
 COLLISION_PROFILE_STEPS = 4
+# the training path (``examples/torch_simplicits_train.py`` at full width)
+TRAIN_PARITY_STEPS = 20
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_PATH_STEPS = 1000
+TRAIN_SIM_STEPS = 30
+TRAIN_TIMED = (100, 300)
+RKPM_CASE = dict(handles=33, nodes=256, steps=10)
+INTERIOR_TOL = 0.02
+CHECK_SIGN_MARGIN = 1e-5
+GRAD_TOL = 1e-3
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores
@@ -403,6 +436,33 @@ def pair_set(contacts):
     return set(zip(np.minimum(ia, ib).tolist(), np.maximum(ia, ib).tolist()))
 
 
+def check_sign_margin(verts, faces, pts):
+    """How near each point (numpy) is to changing ``check_sign``'s answer,
+    in its normalized units (the mesh's largest box side is 1), in float64:
+    the least of its +z ray's xy distance to any face's edge and, over the
+    faces whose xy triangle holds it, |z of the face − z of the point|.
+    Rounding can part two devices' answers only at a small margin."""
+    v = np.asarray(verts, np.float64)
+    scale = (v.max(0) - v.min(0)).max()
+    tri = v[np.asarray(faces)] / scale                        # (F, 3, 3)
+    a, b = tri[:, :, :2], tri[:, [1, 2, 0], :2]               # edges a → b
+    ab = b - a
+    out = []
+    for q in np.asarray(pts, np.float64) / scale:
+        aq = q[:2] - a
+        s = np.clip((aq * ab).sum(-1) / np.maximum((ab * ab).sum(-1),
+                                                    1e-300), 0.0, 1.0)
+        edge = np.linalg.norm(aq - s[..., None] * ab, axis=-1).min()
+        e = ab[..., 0] * aq[..., 1] - ab[..., 1] * aq[..., 0]  # (F, 3)
+        inside = (e > 0).all(1) | (e < 0).all(1)
+        area = e.sum(1)[inside]
+        ei, zi = e[inside], tri[inside, :, 2]
+        z = (ei[:, 1] * zi[:, 0] + ei[:, 2] * zi[:, 1]
+             + ei[:, 0] * zi[:, 2]) / area
+        out.append(min([edge, *np.abs(z - q[2])]))
+    return out
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -438,6 +498,8 @@ class Smoke:
         self.sim_ex = load_example("torch_simplicits_drop")
         self.col_ex = load_example("torch_collision_stack")
         self.col = {}   # collision_10k's scene and measurements
+        self.train_ex = load_example("torch_simplicits_train")
+        self.train = {}   # the training path's measurements
         from kaolin_tpu_torch.physics.common import Collision, optimization
         self.opt = optimization
         self.Collision = Collision
@@ -1830,6 +1892,488 @@ class Smoke:
               f"({COLLISION_STEPS * 1e3 / r_ms:.2f} steps/s) [{self.card}]",
               flush=True)
 
+    # -- training (the easy-API path of config 1) ----------------------------
+    @contextlib.contextmanager
+    def train_log(self):
+        """The training steps' logged (step, le, lo), while inside."""
+        from kaolin_tpu_torch.physics.simplicits import training
+
+        records = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                records.append(record.args)
+
+        handler = Keep(level=logging.INFO)
+        level = training.logger.level
+        training.logger.addHandler(handler)
+        training.logger.setLevel(logging.INFO)
+        try:
+            yield records
+        finally:
+            training.logger.removeHandler(handler)
+            training.logger.setLevel(level)
+
+    def torus_candidates(self, device):
+        """The example's torus at full size and its 100,000 candidates from
+        seed 0 on ``device``."""
+        ex = self.train_ex
+        verts, faces = ex.torus_mesh(device=device)
+        return verts, faces, ex.candidates(verts, ex.CANDIDATES, seed=0)
+
+    def train_step_fn(self, pts, seed=0):
+        """``create_with_mlp``'s Adam step at full width (33 handles, 6
+        layers, 1,000 samples, batch 10) on the points ``pts``, normalized
+        to their box as ``create_with_mlp`` does, from a generator on their
+        device → (step(i) → (le, lo), the MLP)."""
+        torch, ex = self.torch, self.train_ex
+        from kaolin_tpu_torch.physics.simplicits import (
+            PhysicsPoints,
+            SimplicitsMLP,
+            training,
+        )
+
+        phys = PhysicsPoints(pts, 1e4, 0.45, 500.0, ex.torus_volume())
+        gen = torch.Generator(device=pts.device).manual_seed(seed)
+        lo, hi = pts.amin(dim=0), pts.amax(dim=0)
+        mlp = SimplicitsMLP(3, 64, ex.NUM_HANDLES, ex.LAYERS, bb_min=lo,
+                            bb_max=hi, key=gen)
+        step = training._adam_step_fn(
+            mlp, (pts - lo) / (hi - lo), phys,
+            phys.appx_vol / float(torch.prod(hi - lo)), gen,
+            num_samples=ex.NUM_SAMPLES, batch_size=ex.BATCH,
+            num_steps=ex.TRAIN_STEPS, lr_start=1e-3, lr_end=1e-3,
+            le_coeff=1e-1, lo_coeff=1e6)
+        return step, mlp
+
+    def check_sign_parity(self):
+        """check_sign on the torus's 100,000 candidates, card against CPU:
+        every candidate whose margin (``check_sign_margin``) exceeds
+        ``CHECK_SIGN_MARGIN`` the same; → the CPU's interior mask."""
+        torch, ex = self.torch, self.train_ex
+        verts, faces, cand = self.torus_candidates("cpu")
+        cpu = ex.check_sign(verts[None], faces, cand[None])[0]
+        card = ex.check_sign(verts[None].cuda(), faces.cuda(),
+                             cand[None].cuda())[0].cpu()
+        differ = torch.nonzero(cpu != card)[:, 0].numpy()
+        margins = check_sign_margin(verts.numpy(), faces.numpy(),
+                                    cand.numpy()[differ])
+        # the candidates near the surface: those whose answer on the card
+        # changes when they move by the margin along an axis
+        step = CHECK_SIGN_MARGIN * float((verts.amax(0) - verts.amin(0)).max())
+        near = torch.zeros_like(cpu)
+        for axis in range(3):
+            for sign in (-1.0, 1.0):
+                moved = cand.clone()
+                moved[:, axis] += sign * step
+                near |= ex.check_sign(verts[None].cuda(), faces.cuda(),
+                                      moved[None].cuda())[0].cpu() != card
+        self.check(all(m <= CHECK_SIGN_MARGIN for m in margins),
+                   f"check_sign card vs CPU, the torus ({faces.shape[0]} "
+                   f"faces), {cand.shape[0]} candidates: {len(differ)} "
+                   f"differ, at margins "
+                   f"{[float(f'{m:.2e}') for m in margins]} (each within "
+                   f"{CHECK_SIGN_MARGIN:g} of an edge or face); the rest "
+                   f"equal; {int(near.sum())} candidates lie near the "
+                   f"surface (their answer changes on a move of "
+                   f"{CHECK_SIGN_MARGIN:g} along an axis); {int(cpu.sum())} "
+                   f"inside on the CPU")
+        return cpu
+
+    def phase_train_parity(self):
+        """The training path's pieces on the card against the port's CPU:
+        check_sign on the torus; the losses at full width from one set of
+        weights and draws; 20 Adam steps from one generator (on the CPU:
+        both devices get its initialization and draws); FPS with inf and
+        NaN rows; the sparse builders."""
+        torch, ex = self.torch, self.train_ex
+        from kaolin_tpu_torch.ops import farthest_point_sampling as fps
+        from kaolin_tpu_torch.physics.simplicits import (
+            PhysicsPoints,
+            SimplicitsMLP,
+            SimplicitsObject,
+            losses,
+        )
+
+        self.check_precision("phase_train_parity")
+        inside = self.check_sign_parity()
+        _, _, cand = self.torus_candidates("cpu")
+        pts = cand[inside]
+        lo, hi = pts.amin(dim=0), pts.amax(dim=0)
+        tp = (pts - lo) / (hi - lo)
+        n = pts.shape[0]
+        mats = [torch.full((n,), v) for v in (1e4, 0.45, 500.0)]
+        mlp = SimplicitsMLP(3, 64, ex.NUM_HANDLES, ex.LAYERS, key=3)
+        idx, tfms = losses._draw_batch(torch.Generator().manual_seed(4), n,
+                                       ex.NUM_SAMPLES, ex.BATCH,
+                                       ex.NUM_HANDLES - 1)
+        vals = {}
+        with torch.no_grad():
+            for label, dev, dt in (("cpu", "cpu", torch.float32),
+                                   ("card", "cuda", torch.float32),
+                                   ("cpu64", "cpu", torch.float64)):
+                m = copy.deepcopy(mlp).to(device=dev, dtype=dt)
+                vals[label] = [float(x) for x in losses._evaluate_losses(
+                    m, tp.to(dev, dt), *(x.to(dev, dt) for x in mats), 0.5,
+                    3.0, 0.1, 1e6, idx, tfms.to(dt))]
+        errs = [abs(a - b) / abs(b) for a, b in zip(vals["card"],
+                                                    vals["cpu"])]
+        off64 = [abs(vals[k][0] - vals["cpu64"][0]) / abs(vals["cpu64"][0])
+                 for k in ("cpu", "card")]
+        self.check(max(errs) <= TRAIN_LOSS_RTOL,
+                   f"training losses at full width ({n} points, "
+                   f"{ex.NUM_SAMPLES} samples, batch {ex.BATCH}, interp "
+                   f"0.5), card vs CPU from one set of weights and draws: "
+                   f"le {vals['card'][0]:.6f} / {vals['cpu'][0]:.6f}, lo "
+                   f"{vals['card'][1]:.3f} / {vals['cpu'][1]:.3f}, relative "
+                   f"{errs[0]:.2e}, {errs[1]:.2e} (tolerance "
+                   f"{TRAIN_LOSS_RTOL:g}); le from float64 on the CPU: CPU "
+                   f"{off64[0]:.2e}, card {off64[1]:.2e}")
+        # 20 Adam steps, card and CPU, one generator on the CPU
+        logs, objs = {}, {}
+        for label, dev in (("cpu", "cpu"), ("card", "cuda")):
+            phys = PhysicsPoints(pts.to(dev), 1e4, 0.45, 500.0,
+                                 ex.torus_volume())
+            with self.train_log() as log:
+                objs[label] = SimplicitsObject.create_with_mlp(
+                    phys, ex.NUM_HANDLES, ex.NUM_SAMPLES, ex.LAYERS,
+                    training_batch_size=ex.BATCH,
+                    training_num_steps=TRAIN_PARITY_STEPS,
+                    training_log_every=1,
+                    key=torch.Generator().manual_seed(5))
+            logs[label] = np.array(log)[:, 1:]
+        rel = np.abs(logs["card"] - logs["cpu"]) / np.abs(logs["cpu"])
+        w_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(
+            objs["card"].skinning_mod.parameters(),
+            objs["cpu"].skinning_mod.parameters())) / 1e-3
+        self.check(rel.shape == (TRAIN_PARITY_STEPS, 2)
+                   and float(rel.max()) <= TRAIN_LOSS_RTOL,
+                   f"{TRAIN_PARITY_STEPS} Adam steps at full width card vs "
+                   f"CPU: per-step losses relative "
+                   f"{float(rel[:, 0].max()):.2e} (le), "
+                   f"{float(rel[:, 1].max()):.2e} (lo), tolerance "
+                   f"{TRAIN_LOSS_RTOL:g}; the weights part by {w_err:.3f} lr")
+        # FPS with non-finite rows, card = CPU
+        cloud = cand.clone()
+        cloud[[17, 4242]] = float("inf")
+        cloud[99, 1] = float("nan")
+        cases = ((torch.as_tensor(self.sim_ex.config1_points()["pts"]), 256),
+                 (cloud, 1000))
+        same = []
+        for p, k in cases:
+            a = fps(p[None], k)
+            b = fps(p[None].cuda(), k).cpu()
+            same.append(bool(torch.equal(a, b)))
+        self.check(all(same), f"FPS card = CPU: 256 of config 1's 1,000 "
+                   f"points {same[0]}, 1,000 of the 100,000 candidates with "
+                   f"inf and NaN rows {same[1]}")
+        self.check_sparse_builders()
+
+    def check_sparse_builders(self):
+        torch = self.torch
+        from kaolin_tpu_torch.physics.simplicits import precomputed as pre
+
+        rng = np.random.RandomState(6)
+        n, h = 300, 8
+        x0, w = rng.rand(n, 3), rng.randn(n, h)
+        dwdx, rhos = rng.randn(n, h, 3), rng.uniform(100, 1000, n)
+        freqs = rng.randn(3, h - 1)
+        idx = rng.randint(0, n, 64)
+        static = rng.rand(64) < 0.3
+        data = self.from_numpy_tree(
+            dict(x0=x0, w=w, dwdx=dwdx, rhos=rhos, freqs=freqs),
+            "cpu")
+        data = {k: v.float() for k, v in data.items()}
+
+        def builders(d, dev):
+            def fn(x):
+                return torch.cat([torch.sin(x @ d["freqs"]),
+                                  x.new_ones((x.shape[0], 1))], 1)
+
+            i = torch.as_tensor(idx, device=dev)
+            s = torch.as_tensor(static, device=dev)
+            return [pre.sparse_lbs_matrix(d["w"], d["x0"]),
+                    pre.sparse_dFdz_matrix(d["w"], d["dwdx"], d["x0"]),
+                    pre.sparse_dFdz_matrix_from_dense(fn, d["x0"]),
+                    pre.sparse_mass_matrix(d["rhos"]),
+                    pre.sparse_collision_jacobian_matrix(d["w"], d["x0"], i,
+                                                         s)]
+
+        cpu = builders(data, "cpu")
+        card = builders({k: v.cuda() for k, v in data.items()}, "cuda")
+        errs = [float((a.cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(card, cpu)]
+        self.check(max(errs) <= 1e-5 and all(
+            tuple(a.shape) == tuple(b.shape) for a, b in zip(card, cpu)),
+            f"sparse builders card vs CPU ({n} points, {h} handles): "
+            f"largest error over max|.| " + ", ".join(f"{e:.1e}" for e in errs)
+            + " (lbs, dFdz, dFdz from the weight function, mass, collision "
+            "jacobian)")
+
+    def phase_train_path(self):
+        """The example's path at full width on the card with every launch
+        counter set to 0 just before and read just after: the torus's
+        interior from 100,000 candidates, 1,000 Adam steps (33 handles, 6
+        layers), the bake and 30 sim steps eager and 30 from the CUDA
+        graph; then ``create_with_rkpm`` at config 1's 1,000 points (33
+        handles, 256 nodes) and 10 sim steps of it. None of the six
+        kernels may launch."""
+        torch, ex = self.torch, self.train_ex
+        from kaolin_tpu_torch.physics.simplicits import (
+            PhysicsPoints,
+            SimplicitsObject,
+        )
+
+        self.check_precision("phase_train_path")
+        r = {}
+
+        def path():
+            verts, faces = ex.torus_mesh(device="cuda")
+            pts, r["share"], box = ex.interior_points(verts, faces, seed=0)
+            r["vol_share"] = ex.torus_volume() / box
+            t0 = time.perf_counter()
+            with self.train_log() as log:
+                obj = ex.trained_object(pts, TRAIN_PATH_STEPS, seed=0,
+                                        log_every=100)
+            torch.cuda.synchronize()
+            r["train_s"] = time.perf_counter() - t0
+            r["log"] = np.array(log)
+            r["n"] = pts.shape[0]
+            w = obj.skinning_mod.compute_skinning_weights(pts)
+            r["w_finite"] = bool(torch.isfinite(w).all())
+            r["w_shape"] = tuple(w.shape)
+            for label, graphs in (("eager", False), ("graph", True)):
+                scene = ex.trained_scene(obj, use_cuda_graphs=graphs)
+                heights = [ex.mean_height(scene)]
+                for _ in range(TRAIN_SIM_STEPS // 10):
+                    scene.run_sim_steps(10)
+                    heights.append(ex.mean_height(scene))
+                r[label] = (scene, heights)
+            p1 = self.sim_ex.config1_points()
+            phys = PhysicsPoints(torch.as_tensor(p1["pts"], device="cuda"),
+                                 1e4, 0.45, 500.0, 1.0)
+            t0 = time.perf_counter()
+            robj = SimplicitsObject.create_with_rkpm(
+                phys, RKPM_CASE["handles"], RKPM_CASE["nodes"])
+            r["rkpm_s"] = time.perf_counter() - t0
+            baked = robj.bake(num_qps=1000)
+            scene = self.sim_ex.make_scene(
+                {"pts": baked.pts, "w": baked.skinning_weights,
+                 "dwdx": baked.dwdx}, "cuda", 0.01, 5, 10)
+            heights = [self.sim_ex.mean_height(scene)]
+            scene.run_sim_steps(RKPM_CASE["steps"])
+            heights.append(self.sim_ex.mean_height(scene))
+            r["rkpm"] = (scene, heights)
+
+        _, launches = self.drive(tuple(KERNELS), path)
+        share_err = abs(r["share"] - r["vol_share"]) / r["vol_share"]
+        self.check(share_err <= INTERIOR_TOL,
+                   f"torus interior: {r['n']} of {ex.CANDIDATES} candidates "
+                   f"inside, share {r['share']:.4f} against the torus's "
+                   f"volume share {r['vol_share']:.4f} of its box (relative "
+                   f"{share_err:.4f}, tolerance {INTERIOR_TOL:g})")
+        log = r["log"]
+        total = log[:, 1] + log[:, 2]
+        self.check(np.isfinite(log).all() and total[-1] < total[0]
+                   and r["w_finite"] and r["w_shape"] == (r["n"],
+                                                          ex.NUM_HANDLES),
+                   f"{TRAIN_PATH_STEPS} training steps at full width in "
+                   f"{r['train_s']:.2f} s host "
+                   f"({TRAIN_PATH_STEPS / r['train_s']:.1f} steps/s with the "
+                   f"set-up): le + lo at steps "
+                   + ", ".join(f"{int(s)}: {v:.4g}"
+                               for s, v in zip(log[:, 0], total))
+                   + f"; weights {r['w_shape']} finite {r['w_finite']} "
+                   f"[{self.card}]")
+        (eager, he), (graph, hg) = r["eager"], r["graph"]
+        B = eager.sim_B.to(torch.float64)
+        be, bg = (B @ s.sim_z.to(torch.float64) for s in (eager, graph))
+        err = float((be - bg).abs().max() / be.abs().max())
+        for label, scene, h in (("eager", eager, he), ("graph", graph, hg)):
+            self.check(all(bool(torch.isfinite(x).all())
+                           for x in (scene.sim_z, scene.sim_z_dot))
+                       and h[-1] < h[0] and min(h) > -1.0
+                       and scene.graph_steps_rerun == 0,
+                       f"trained torus (D {scene.total_dofs}), "
+                       f"{TRAIN_SIM_STEPS} steps {label}: finite, mean "
+                       f"heights " + ", ".join(f"{x:.4f}" for x in h)
+                       + f" falling and above the floor at -1; "
+                       f"{scene.graph_steps_rerun} graph steps run again "
+                       f"eagerly")
+        self.check(err <= SIM_Z_TOL, f"trained torus graph vs eager after "
+                   f"{TRAIN_SIM_STEPS} steps: max |d(B z)| / max|B z| "
+                   f"{err:.3e}")
+        rs, rh = r["rkpm"]
+        self.check(bool(torch.isfinite(rs.sim_z).all()) and rh[1] < rh[0],
+                   f"create_with_rkpm at config 1's 1,000 points, "
+                   f"{RKPM_CASE['handles']} handles, {RKPM_CASE['nodes']} "
+                   f"nodes in {r['rkpm_s']:.2f} s host; "
+                   f"{RKPM_CASE['steps']} sim steps finite, mean height "
+                   f"{rh[0]:.4f} -> {rh[1]:.4f} [{self.card}]")
+        self.check(not any(launches.values()),
+                   f"training path kernel launches {launches} (it has no "
+                   f"kernel)")
+
+    def phase_grad(self):
+        """The differentiable step's gradient on the card against the
+        port's CPU at the graft scene's size: d/d(z, ż) of sum((B z')²) +
+        sum((B ż')²) from a seeded state, both taken to the raw
+        displacement (dL/dq = K⁻ᵀ dL/dz for z = K⁻¹ q), which does not
+        depend on the QR basis."""
+        torch, f64 = self.torch, self.torch.float64
+        self.check_precision("phase_grad")
+        grads = {}
+        for label, dev in (("cpu", "cpu"), ("card", "cuda")):
+            scene = self.sim_scene("graft", dev, differentiable=True)
+            k_inv = scene.get_object(0).qr_tfm_inv.to("cpu", f64)
+            rng = np.random.RandomState(7)
+            q = torch.from_numpy(0.02 * rng.randn(k_inv.shape[0]))
+            qd = torch.from_numpy(0.2 * rng.randn(k_inv.shape[0]))
+            z, zd = ((k_inv @ v).float().to(dev).requires_grad_(True)
+                     for v in (q, qd))
+            step, c = scene.build_functional_step()
+            zn, _, zdn = step(c, z, z.detach(), zd)
+            loss = (c["B"] @ zn).square().sum() + (c["B"] @ zdn).square().sum()
+            loss.backward()
+            grads[label] = [k_inv.T @ g.to("cpu", f64) for g in (z.grad,
+                                                               zd.grad)]
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(grads["card"], grads["cpu"])]
+        big = [float(g.abs().max()) for g in grads["card"]]
+        finite = all(bool(torch.isfinite(g).all()) for g in grads["card"])
+        self.check(finite and min(big) > 0 and max(errs) <= GRAD_TOL,
+                   f"differentiable step gradient (graft scene, D "
+                   f"{k_inv.shape[0]}) card vs CPU: max|g| {big[0]:.4g} "
+                   f"(z), {big[1]:.4g} (z_dot), errors over max|g| "
+                   f"{errs[0]:.2e}, {errs[1]:.2e} (tolerance {GRAD_TOL:g}); "
+                   f"finite {finite}")
+
+    def phase_train_timing(self):
+        """CUDA-event medians on the card: a training step at full width
+        (steps 100 to 300 of one run, event to event), check_sign of the
+        100,000 candidates, FPS (256 of 1,000, 1,000 of 100,000), one
+        differentiable config-1 step forward and backward; and
+        ``create_with_rkpm`` on the host clock."""
+        torch, ex = self.torch, self.train_ex
+        from kaolin_tpu_torch.ops import farthest_point_sampling as fps
+        from kaolin_tpu_torch.physics.simplicits import (
+            PhysicsPoints,
+            SimplicitsObject,
+        )
+
+        self.check_precision("phase_train_timing")
+        verts, faces, cand = self.torus_candidates("cuda")
+        inside = ex.check_sign(verts[None], faces, cand[None])[0]
+        pts = cand[inside]
+        step, _ = self.train_step_fn(pts)
+        a, b = TRAIN_TIMED
+        events = []
+        for i in range(b + 1):
+            if i >= a:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            if i < b:
+                step(i)
+        torch.cuda.synchronize()
+        step_ms = statistics.median(x.elapsed_time(y) for x, y in
+                                    zip(events[:-1], events[1:]))
+        cs_ms = statistics.median(self.time_ms(
+            lambda: ex.check_sign(verts[None], faces, cand[None]), 5))
+        p1 = torch.as_tensor(self.sim_ex.config1_points()["pts"],
+                             device="cuda")
+        fps_small = statistics.median(self.time_ms(lambda: fps(p1[None],
+                                                               256), 5))
+        fps_big = statistics.median(self.time_ms(lambda: fps(cand[None],
+                                                             1000), 3))
+        phys = PhysicsPoints(p1, 1e4, 0.45, 500.0, 1.0)
+        rkpm_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            SimplicitsObject.create_with_rkpm(phys, RKPM_CASE["handles"],
+                                              RKPM_CASE["nodes"])
+            torch.cuda.synchronize()
+            rkpm_s.append(time.perf_counter() - t0)
+        scene = self.sim_scene("config1", "cuda", differentiable=True)
+        fn, consts = scene.build_functional_step()
+        z0 = scene.sim_z.detach().clone()
+
+        def fwd_bwd():
+            z = z0.clone().requires_grad_(True)
+            zn, _, _ = fn(consts, z, scene.sim_z_prev, scene.sim_z_dot)
+            (consts["B"] @ zn).square().sum().backward()
+
+        grad_ms = statistics.median(self.time_ms(fwd_bwd, 5))
+        self.train.update(step_ms=step_ms, check_sign_ms=cs_ms,
+                          fps_ms=(fps_small, fps_big),
+                          rkpm_s=statistics.median(rkpm_s), grad_ms=grad_ms,
+                          points=pts.shape[0])
+        print(f"training step at full width (33 handles, 6 layers, "
+              f"{ex.NUM_SAMPLES} samples, batch {ex.BATCH}, "
+              f"{pts.shape[0]} points), steps {a}-{b} of one run, median "
+              f"event to event: {step_ms:.4f} ms ({1e3 / step_ms:.1f} "
+              f"steps/s); check_sign of {ex.CANDIDATES} candidates against "
+              f"{faces.shape[0]} faces {cs_ms:.4f} ms; FPS 256 of 1,000 "
+              f"{fps_small:.4f} ms, 1,000 of 100,000 {fps_big:.4f} ms; "
+              f"create_with_rkpm (1,000 points, 33 handles, 256 nodes) "
+              f"{statistics.median(rkpm_s):.3f} s host (runs "
+              + ", ".join(f"{s:.3f}" for s in rkpm_s)
+              + f"); one differentiable config-1 step (D "
+              f"{scene.total_dofs}, 5 Newton iterations) forward and "
+              f"backward {grad_ms:.4f} ms [{self.card}]", flush=True)
+
+    def profile_train(self):
+        """One full-width training step, eager: device busy, idle share
+        and the largest ops (``profile_path``)."""
+        if "step_ms" not in self.train:
+            raise RuntimeError("phase_train_timing did not run")
+        ex = self.train_ex
+        verts, faces, cand = self.torus_candidates("cuda")
+        pts = cand[ex.check_sign(verts[None], faces, cand[None])[0]]
+        step, _ = self.train_step_fn(pts, seed=1)
+        count = iter(range(10 ** 6))
+        for _ in range(20):
+            step(next(count))
+        self.train["busy"] = self.profile_path(
+            "training step (full width, eager)", (),
+            lambda: step(next(count)))
+
+    def train_bound(self):
+        """The training step's bound: its float32 operations over 67
+        TFLOP/s, counted from the MLP's shapes. A step runs the MLP on
+        7,000 rows (1,000 sample points and their 6,000 finite-difference
+        probes), forward (2 operations a weight a row) and backward (twice
+        the forward); the LBS of the probes under the batch's transforms,
+        forward and backward, adds 3 x 2 x 12 (H - 1) x batch operations a
+        probe; the energies and Adam are elementwise (under 1%). Bytes:
+        Adam's weights and two moments read and written, the sampled
+        points and their materials read, the transforms read."""
+        ex = self.train_ex
+        if "busy" not in self.train:
+            raise RuntimeError("profile_train did not run")
+        sizes = ([3] + [64] * (ex.LAYERS + 1) + [ex.NUM_HANDLES - 1])
+        weights = sum(a * b + b for a, b in zip(sizes[:-1], sizes[1:]))
+        rows = 7 * ex.NUM_SAMPLES
+        mlp = 3 * 2 * weights * rows
+        lbs = 3 * 2 * 12 * (ex.NUM_HANDLES - 1) * ex.BATCH * 6 * \
+            ex.NUM_SAMPLES
+        ops = mlp + lbs
+        nbytes = 4 * (6 * weights + 6 * ex.NUM_SAMPLES
+                      + 12 * (ex.NUM_HANDLES - 1) * ex.BATCH)
+        t_ops = ops / FP32_OPS_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        bound = max(t_ops, t_bytes)
+        busy = self.train["busy"]
+        print(f"training step bound: MLP {weights} weights x {rows} rows x "
+              f"6 = {mlp / 1e9:.4f} GFLOP, LBS {lbs / 1e9:.4f} GFLOP -> "
+              f"{t_ops:.6f} ms; {nbytes} bytes (weights and Adam moments in "
+              f"and out, sampled points, transforms) -> {t_bytes:.6f} ms; "
+              f"bound {bound:.6f} ms by "
+              f"{'operations' if t_ops >= t_bytes else 'bytes'}; device busy"
+              f" {busy:.4f} ms (share {bound / busy:.4f}); a step "
+              f"{self.train['step_ms']:.4f} ms (share "
+              f"{bound / self.train['step_ms']:.4f}) [{self.card}]")
+
     def phase_probe_path(self):
         buf = io.StringIO()
         try:
@@ -1884,8 +2428,11 @@ class Smoke:
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+            # a user annotation (``Optimizer.step#Adam.step``) spans the
+            # kernels it launched on the device's timeline: not counted
             events = [(e.name, e.time_range.elapsed_us())
-                      for e in prof.events() if e.device_type == cuda]
+                      for e in prof.events() if e.device_type == cuda
+                      and not getattr(e, "is_user_annotation", False)]
             if any(us > 0 for _, us in events):
                 return events
             print(f"{label}: the profiler recorded no device time; "
@@ -1965,6 +2512,7 @@ class Smoke:
             if graph.graph_steps_rerun == 0:
                 self.sim["graph_busy"] = busy
         self.profile_collision()
+        self.profile_train()
         for k in (*DIBR_KERNELS, "spc_raster"):
             self.results[k]["library_ms"] = None
         b = self.spc_bins(rspc, cam, (tile_px, s_max, c_cap))
@@ -2276,6 +2824,7 @@ class Smoke:
         torch.cuda.synchronize()
         self.sim_bound()
         self.collision_bound()
+        self.train_bound()
 
         # the order in which to make the kernels faster: first those slower
         # than their library call, largest factor first; then by launches
@@ -2299,11 +2848,13 @@ class Smoke:
         for phase in (self.phase_card, self.phase_build, self.phase_parity,
                       self.phase_spc_parity, self.phase_gather_parity,
                       self.phase_sim_parity, self.phase_collision_parity,
-                      self.phase_main_path, self.phase_spc_main_path,
-                      self.phase_probe_path, self.phase_sim_path,
-                      self.phase_collision_path, self.phase_timing,
-                      self.phase_spc_timing, self.phase_gather_timing,
-                      self.phase_sim_timing, self.phase_collision_timing,
+                      self.phase_train_parity, self.phase_main_path,
+                      self.phase_spc_main_path, self.phase_probe_path,
+                      self.phase_sim_path, self.phase_collision_path,
+                      self.phase_train_path, self.phase_grad,
+                      self.phase_timing, self.phase_spc_timing,
+                      self.phase_gather_timing, self.phase_sim_timing,
+                      self.phase_collision_timing, self.phase_train_timing,
                       self.phase_profile, self.phase_bounds):
             print(f"== {phase.__name__}", flush=True)
             t0 = time.perf_counter()

@@ -1,1 +1,8 @@
+from kaolin_tpu_torch.ops import mesh  # noqa: F401
+from kaolin_tpu_torch.ops import pointcloud  # noqa: F401
 from kaolin_tpu_torch.ops import spc  # noqa: F401
+from kaolin_tpu_torch.ops.mesh import check_sign  # noqa: F401
+from kaolin_tpu_torch.ops.pointcloud import (  # noqa: F401
+    center_points,
+    farthest_point_sampling,
+)

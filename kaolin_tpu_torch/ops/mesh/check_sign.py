@@ -1,0 +1,86 @@
+"""Point-in-mesh test by ray-parity counting, in PyTorch.
+
+Counterpart of ``kaolin_tpu/ops/mesh/check_sign.py``. A ray goes from each
+query point along +z; a point is inside when the ray crosses the surface an
+odd number of times. The 2D point-in-triangle test in xy keeps only
+strictly positive or strictly negative edge functions, so a ray through a
+shared edge is counted by neither face, as in the JAX package.
+
+The faces are taken a tile at a time, so memory stays O(N · tile).
+"""
+
+import torch
+
+__all__ = ["check_sign"]
+
+# elements of one (points, faces) tile: the tile's faces are as many as
+# keep each temporary at 2^23 floats (32 MB), at most 1,024
+_TILE_ELEMENTS = 1 << 23
+_MAX_TILE = 1024
+
+
+def _crossings(p, tri):
+    """+z-ray crossings of points p (N, 3) with triangles tri (T, 3, 3) →
+    (N,) int32."""
+    v0, v1, v2 = tri[:, 0], tri[:, 1], tri[:, 2]
+    px, py = p[:, None, 0], p[:, None, 1]
+
+    def edge(a, b):
+        return ((b[None, :, 0] - a[None, :, 0]) * (py - a[None, :, 1])
+                - (b[None, :, 1] - a[None, :, 1]) * (px - a[None, :, 0]))
+
+    e0, e1, e2 = edge(v0, v1), edge(v1, v2), edge(v2, v0)
+    inside = (((e0 > 0) & (e1 > 0) & (e2 > 0))
+              | ((e0 < 0) & (e1 < 0) & (e2 < 0)))
+    # the barycentric z at (px, py); e1 belongs to v0, e2 to v1
+    area = e0 + e1 + e2
+    area = torch.where(area.abs() > 1e-12, area, torch.ones_like(area))
+    w0 = e1 / area
+    w1 = e2 / area
+    w2 = 1.0 - w0 - w1
+    z = w0 * v0[None, :, 2] + w1 * v1[None, :, 2] + w2 * v2[None, :, 2]
+    hit = inside & (z > p[:, None, 2])
+    return hit.sum(dim=1, dtype=torch.int32)
+
+
+def _unbatched_check_sign(verts, faces, points):
+    fv = verts[faces]                                   # (F, 3, 3)
+    n = points.shape[0]
+    tile = max(1, min(_MAX_TILE, _TILE_ELEMENTS // max(n, 1)))
+    count = torch.zeros((n,), dtype=torch.int32, device=points.device)
+    for start in range(0, fv.shape[0], tile):
+        count += _crossings(points, fv[start:start + tile])
+    return (count % 2) == 1
+
+
+def check_sign(verts, faces, points, hash_resolution=512, backend=None):
+    """True for the points inside a watertight mesh.
+
+    Args:
+        verts: (B, V, 3) tensor.
+        faces: (F, 3) integer tensor.
+        points: (B, N, 3) tensor on the vertices' device.
+        hash_resolution: the grid size of the JAX package's native
+            TriangleHash backend; unused here.
+        backend: None, the ray-parity test in PyTorch on the tensors'
+            device. ``"native"`` (the C++ TriangleHash of
+            ``kaolin_tpu/native``) is not ported yet and raises
+            NotImplementedError.
+
+    Returns:
+        (B, N) bool on the points' device.
+    """
+    if backend == "native":
+        raise NotImplementedError(
+            "check_sign(backend='native') needs the C++ TriangleHash, which "
+            "is not ported yet (ROADMAP Queue A 9: native/)")
+    if backend is not None:
+        raise ValueError(f"unknown backend {backend!r}")
+    faces = torch.as_tensor(faces, device=verts.device).long()
+    # normalise by the largest box side of each mesh
+    extent = verts.amax(dim=1) - verts.amin(dim=1)       # (B, 3)
+    maxlen = extent.amax(dim=-1)[:, None, None]
+    verts = verts / maxlen
+    points = points / maxlen
+    return torch.stack([_unbatched_check_sign(v, faces, p)
+                        for v, p in zip(verts, points)])

@@ -62,18 +62,29 @@ SkinningFn = SkinningModule
 
 class SimplicitsMLP(SkinningModule):
     """The reference architecture: Linear(d, w) → ELU → [Linear(w, w) →
-    ELU] × num_layers → Linear(w, H−1), with torch's default uniform
-    initialization drawn from seed ``key`` (0 when None)."""
+    ELU] × num_layers → Linear(w, H−1). Its weights and biases are drawn
+    U(−1/√fan_in, 1/√fan_in), torch's default for ``nn.Linear``, from
+    ``key``: a ``torch.Generator`` (the module is made on its device) or an
+    int seed of a CPU generator (0 when None)."""
 
     def __init__(self, spatial_dimensions, layer_width, num_handles,
                  num_layers, bb_min=None, bb_max=None, key=None):
         super().__init__(bb_min=bb_min, bb_max=bb_max)
         sizes = ([spatial_dimensions] + [layer_width] * (num_layers + 1)
                  + [num_handles - 1])
+        gen = key if isinstance(key, torch.Generator) else \
+            torch.Generator().manual_seed(0 if key is None else int(key))
+        # nn.Linear draws its own initialization from the global generator:
+        # keep that one as it was, then draw from ``gen``
         with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(0 if key is None else int(key))
             self.layers = nn.ModuleList(
                 nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+        self.to(gen.device)
+        with torch.no_grad():
+            for layer in self.layers:
+                bound = layer.in_features ** -0.5
+                layer.weight.uniform_(-bound, bound, generator=gen)
+                layer.bias.uniform_(-bound, bound, generator=gen)
 
     def forward(self, pts):
         h = pts

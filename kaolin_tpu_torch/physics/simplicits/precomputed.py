@@ -4,13 +4,17 @@ Counterpart of ``kaolin_tpu/physics/simplicits/precomputed.py``. At
 Simplicits scale every point touches every handle, so B (3N × 12H) and
 dF/dz (9N × 12H) are dense and their products are large matrix products.
 The DOF layout is the reference's: z = flatten((H, 3, 4)) row-major, F
-flattened row-major (3, 3) → 9.
+flattened row-major (3, 3) → 9. The ``sparse_*`` builders keep the
+reference's names and argument orders and return the same dense matrices,
+as the JAX package's do.
 """
 
 import torch
 
 __all__ = ["lbs_matrix", "dFdz_matrix", "jacobian_dF_dz",
-           "lumped_mass_matrix"]
+           "lumped_mass_matrix", "sparse_lbs_matrix", "sparse_dFdz_matrix",
+           "sparse_dFdz_matrix_from_dense", "sparse_mass_matrix",
+           "sparse_collision_jacobian_matrix"]
 
 
 def _homogeneous(x0):
@@ -84,3 +88,43 @@ def lumped_mass_matrix(rhos, total_volume, dim=3):
     pt_mass = torch.repeat_interleave(rhos * (total_volume / rhos.shape[0]),
                                       dim)
     return torch.diag(pt_mass), torch.diag(1.0 / pt_mass)
+
+
+def sparse_lbs_matrix(sim_weights, sim_pts):
+    """The LBS Jacobian B (3N × 12H), dense: :func:`lbs_matrix` under the
+    reference's name and argument order."""
+    return lbs_matrix(sim_pts, sim_weights)
+
+
+def sparse_dFdz_matrix(sim_weights, sim_weights_jac, sim_pts):
+    """dF/dz (9N × 12H), dense: :func:`dFdz_matrix`."""
+    return dFdz_matrix(sim_weights, sim_weights_jac, sim_pts)
+
+
+def sparse_dFdz_matrix_from_dense(enriched_weights_fcn, pts):
+    """dF/dz (9N × 12H) by automatic differentiation of the weight function
+    ``enriched_weights_fcn`` (points → (N, H) weights)."""
+    num_handles = enriched_weights_fcn(pts).shape[1]
+    z = pts.new_zeros((num_handles * 12, 1))
+    return jacobian_dF_dz(enriched_weights_fcn, pts, z)
+
+
+def sparse_mass_matrix(sim_rhos):
+    """The diagonal 3N × 3N mass matrix of per-point densities, dense."""
+    rhos = torch.as_tensor(sim_rhos).reshape(-1)
+    return torch.diag(torch.repeat_interleave(rhos, 3))
+
+
+def sparse_collision_jacobian_matrix(sim_weights, sim_pts, indices,
+                                     cp_is_static=None):
+    """The LBS Jacobian rows of the collision points ``sim_pts[indices]``,
+    dense (3K × 12H); the rows of points whose ``cp_is_static`` is set are
+    zero."""
+    idx = torch.as_tensor(indices, device=sim_pts.device).reshape(-1).long()
+    jac = lbs_matrix(sim_pts[idx], sim_weights[idx])
+    if cp_is_static is not None:
+        static = torch.as_tensor(cp_is_static,
+                                 device=sim_pts.device).reshape(-1)
+        keep = torch.repeat_interleave(~static.bool(), 3).to(jac.dtype)
+        jac = jac * keep[:, None]
+    return jac

@@ -196,13 +196,20 @@ class SimplicitsScene:
     replay it (CUDA only); the graph runs Newton's fixed trip, which gives
     the early-exit loop's z bit for bit, and reads one flag a step, or with
     contact one a :meth:`run_sim_steps` call (see :meth:`_replay`).
-    ``differentiable``: the fixed trip on the eager path
-    too."""
+    ``differentiable``: Newton's fixed trip on the eager path too, so that
+    the step of :meth:`build_functional_step` is differentiable by
+    ``torch.autograd`` with respect to z, z_prev and z_dot (through the
+    solves, the line search's choice and the energies). It cannot go with
+    ``use_cuda_graphs``, whose replays run under ``torch.no_grad``: the two
+    together raise."""
 
     def __init__(self, direct_solve=True, timestep=0.03, max_newton_steps=5,
                  max_ls_steps=10, newton_hessian_regularizer=1e-4,
                  cg_tol=1e-4, cg_iters=100, conv_tol=1e-4, device=None,
                  use_cuda_graphs=False, differentiable=False):
+        if use_cuda_graphs and differentiable:
+            raise ValueError("differentiable=True needs the eager step: a "
+                             "CUDA graph replays under torch.no_grad")
         self.device = _resolve_device(device)
         if use_cuda_graphs and self.device.type != "cuda":
             raise ValueError("use_cuda_graphs needs a CUDA device, got "

@@ -1,16 +1,27 @@
 """Simplicits objects: material points, baked skinning, in PyTorch.
 
 Counterpart of ``kaolin_tpu/physics/simplicits/training.py``: the point
-containers and :class:`SimplicitsObject` with its rigid and analytic
-constructors and its baking. Training an MLP skinning field
-(``create_with_mlp``) and RKPM weights (``create_with_rkpm``) are not
-ported yet (ROADMAP, Queue A 2b).
+containers and :class:`SimplicitsObject` with its constructors (rigid,
+analytic, an MLP skinning field trained by Adam, RKPM weights) and its
+baking. Training runs on the device of the object's points: a step draws
+its sample points and handle transforms, evaluates the losses of
+:mod:`~kaolin_tpu_torch.physics.simplicits.losses` and takes one
+``torch.optim.Adam`` step, with no read back to the host but the logged
+losses.
 """
+
+import logging
 
 import numpy as np
 import torch
 
-from kaolin_tpu_torch.physics.simplicits.network import SkinningModule
+from kaolin_tpu_torch.physics.simplicits import losses
+from kaolin_tpu_torch.physics.simplicits.network import (
+    SimplicitsMLP,
+    SkinningModule,
+)
+
+logger = logging.getLogger(__name__)
 
 __all__ = [
     "PhysicsPoints",
@@ -136,8 +147,8 @@ class SkinnedPhysicsPoints(PhysicsPoints):
 
 
 class SimplicitsObject(PhysicsPoints):
-    """Physics points and a skinning weight field (analytic or, once
-    training is ported, learned)."""
+    """Physics points and a skinning weight field: analytic, a trained MLP
+    or RKPM eigenmodes."""
 
     def __init__(self, pts, yms, prs, rhos, appx_vol,
                  skinning_mod: SkinningModule):
@@ -162,20 +173,79 @@ class SimplicitsObject(PhysicsPoints):
                    SkinningModule.from_function(fcn))
 
     @classmethod
-    def create_with_mlp(cls, *args, **kwargs):
-        """Not ported yet: MLP training needs the losses and an Adam loop
-        (ROADMAP, Queue A 2b)."""
-        raise NotImplementedError(
-            "create_with_mlp is not ported yet (ROADMAP Queue A 2b: "
-            "Simplicits training)")
+    def create_with_mlp(cls,
+                        physics_points: PhysicsPoints,
+                        num_handles,
+                        num_samples,
+                        model_layers,
+                        training_batch_size=10,
+                        training_num_steps=10000,
+                        training_lr_start=1e-3,
+                        training_lr_end=1e-3,
+                        training_le_coeff=1e-1,
+                        training_lo_coeff=1e6,
+                        training_log_every=1000,
+                        normalize_for_training=True,
+                        key=None):
+        """Train an MLP skinning-weight field on the points' device: the
+        points normalized to their box, ``training_num_steps`` Adam steps on
+        the elastic and orthogonality losses, the elastic energy blended
+        from linear to neohookean over the steps (step i at i / steps).
+
+        ``key``: a ``torch.Generator`` or an int seed (None: 0) of a
+        generator on the points' device; the MLP's initialization and every
+        step's draws come from it. One constant handle
+        (``num_handles == 1``) gives :meth:`create_rigid`. The losses are
+        logged (``logging``, this module's logger) every
+        ``training_log_every`` steps."""
+        if num_handles < 1:
+            raise ValueError(f"num_handles {num_handles} < 1")
+        if num_handles == 1:
+            return cls.create_rigid(physics_points)
+        pts = physics_points.pts
+        gen = key if isinstance(key, torch.Generator) else \
+            torch.Generator(device=pts.device).manual_seed(
+                0 if key is None else int(key))
+        if normalize_for_training:
+            bb_min, bb_max = pts.amin(dim=0), pts.amax(dim=0)
+            bb_vol = float(torch.prod(bb_max - bb_min))
+            training_pts = (pts - bb_min) / (bb_max - bb_min)
+            training_appx_vol = physics_points.appx_vol / bb_vol
+        else:
+            bb_min, bb_max = None, None
+            training_pts = pts
+            training_appx_vol = physics_points.appx_vol
+        skin = SimplicitsMLP(3, 64, num_handles, model_layers, bb_min=bb_min,
+                             bb_max=bb_max, key=gen).to(pts.device)
+        _train_mlp(skin, training_pts, physics_points, training_appx_vol,
+                   gen, num_samples=num_samples,
+                   batch_size=training_batch_size,
+                   num_steps=training_num_steps,
+                   lr_start=training_lr_start, lr_end=training_lr_end,
+                   le_coeff=training_le_coeff, lo_coeff=training_lo_coeff,
+                   log_every=training_log_every)
+        return cls(pts, physics_points.yms, physics_points.prs,
+                   physics_points.rhos, physics_points.appx_vol, skin)
 
     @classmethod
-    def create_with_rkpm(cls, *args, **kwargs):
-        """Not ported yet: RKPM weights need farthest-point sampling
-        (ROADMAP, Queue A 2b)."""
-        raise NotImplementedError(
-            "create_with_rkpm is not ported yet (ROADMAP Queue A 2b: "
-            "Simplicits training)")
+    def create_with_rkpm(cls, physics_points: PhysicsPoints, num_handles,
+                         num_nodes, num_points=None, radius_scale=1.0,
+                         radius_init_kNN=2, radius_min="3x", dtype=None):
+        """Skinning weights from RKPM generalized eigenmodes (NVIDIA's
+        "Freeform"): deterministic, no training. The basis is built on the
+        host in float64; its nodes are sampled on the points' device."""
+        from kaolin_tpu_torch.physics.simplicits.rkpm import SimplicitsRKPM
+
+        pts = physics_points.pts
+        skin = SimplicitsRKPM(num_handles=num_handles, num_nodes=num_nodes,
+                              radius_scale=radius_scale,
+                              radius_init_kNN=radius_init_kNN,
+                              radius_min=radius_min, num_points=num_points,
+                              bb_min=pts.amin(dim=0), bb_max=pts.amax(dim=0))
+        skin.init(pts, physics_points.yms, physics_points.prs,
+                  physics_points.rhos, physics_points.appx_vol)
+        return cls(pts, physics_points.yms, physics_points.prs,
+                   physics_points.rhos, physics_points.appx_vol, skin)
 
     def subsample(self, num_pts=None, sample_indices=None):
         idx = self._get_subsample_indices(num_pts, sample_indices)
@@ -198,3 +268,59 @@ class SimplicitsObject(PhysicsPoints):
     def bake_for_rendering(self, renderable_pts) -> SkinnedPoints:
         return SkinnedPoints.from_skinning_mod(renderable_pts,
                                                self.skinning_mod)
+
+
+def _linear_schedule(start, end, steps, count):
+    """optax's ``linear_schedule(start, end, steps)`` at update ``count``,
+    the count before the update increments it."""
+    if steps <= 0:
+        return end
+    return start + (end - start) * min(count, steps) / steps
+
+
+def _adam_step_fn(skin, training_pts, physics_points, appx_vol, generator,
+                  num_samples, batch_size, num_steps, lr_start, lr_end,
+                  le_coeff, lo_coeff):
+    """The training step of :func:`_train_mlp` as a function of its index
+    i → (elastic loss, ortho loss), each call one Adam step on ``skin``'s
+    parameters.
+
+    Step i draws from ``generator`` (:func:`losses._draw_batch`), blends
+    the energies at i / num_steps and takes its learning rate from
+    :func:`_linear_schedule` at i, as optax's ``adam(linear_schedule(...))``
+    does; torch's schedulers step after the update and would be one step
+    late."""
+    yms, prs, rhos = physics_points.yms, physics_points.prs, \
+        physics_points.rhos
+    optimizer = torch.optim.Adam(skin.parameters(), lr=lr_start)
+    h_learned = skin.layers[-1].out_features
+    n = training_pts.shape[0]
+
+    def step(i):
+        for group in optimizer.param_groups:
+            group["lr"] = _linear_schedule(lr_start, lr_end, num_steps, i)
+        sample_indices, transforms = losses._draw_batch(
+            generator, n, num_samples, batch_size, h_learned)
+        le, lo = losses._evaluate_losses(
+            skin, training_pts, yms, prs, rhos, i / num_steps, appx_vol,
+            le_coeff, lo_coeff, sample_indices, transforms)
+        optimizer.zero_grad(set_to_none=True)
+        (le + lo).backward()
+        optimizer.step()
+        return le.detach(), lo.detach()
+
+    return step
+
+
+def _train_mlp(skin, training_pts, physics_points, appx_vol, generator,
+               log_every, **kw):
+    """``kw["num_steps"]`` Adam steps of :func:`_adam_step_fn` on
+    ``skin``, in place; the losses are logged every ``log_every`` steps
+    (the only reads back to the host)."""
+    step = _adam_step_fn(skin, training_pts, physics_points, appx_vol,
+                         generator, **kw)
+    for i in range(kw["num_steps"]):
+        le, lo = step(i)
+        if i % log_every == 0:
+            logger.info("Training step: %d, le: %f, lo: %f",
+                        i, float(le), float(lo))

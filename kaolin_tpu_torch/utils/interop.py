@@ -1,6 +1,6 @@
 """Hand numpy data to the port, so both packages see identical inputs, and
-carry the JAX package's Simplicits MLP weights, contact buffers and
-configured ``Collision`` objects into the port."""
+carry the JAX package's Simplicits MLP weights, RKPM fields, physics points,
+contact buffers and configured ``Collision`` objects into the port."""
 
 import numpy as np
 import torch
@@ -46,6 +46,40 @@ def simplicits_mlp_from_jax(params, bb_min=None, bb_max=None):
             linear.weight.copy_(torch.from_numpy(w.T.copy()))
             linear.bias.copy_(torch.from_numpy(b))
     return mlp
+
+
+def simplicits_rkpm_from_jax(skin):
+    """The port's :class:`~kaolin_tpu_torch.physics.simplicits.
+    SimplicitsRKPM` holding a JAX ``SimplicitsRKPM``'s state: its box, its
+    RKPM nodes and radii and its eigenvectors (float64, as built)."""
+    from kaolin_tpu_torch.physics.simplicits.rkpm import SimplicitsRKPM
+
+    out = SimplicitsRKPM(num_handles=skin.num_handles + 1,
+                         num_nodes=skin.num_nodes,
+                         radius_scale=skin.radius_scale,
+                         radius_init_kNN=skin.radius_init_kNN,
+                         radius_min=skin.radius_min,
+                         num_points=skin.num_points,
+                         bb_min=np.array(skin.bb_min),
+                         bb_max=np.array(skin.bb_max))
+    out.rkpm.set_kernels(np.array(skin.rkpm.nodes),
+                         np.array(skin.rkpm.radius))
+    out.evecs = np.array(skin.evecs)
+    return out
+
+
+def physics_points_from_jax(points, device="cpu"):
+    """The port's :class:`~kaolin_tpu_torch.physics.simplicits.
+    PhysicsPoints` holding a JAX ``PhysicsPoints``' points, per-point
+    materials and volume on ``device``."""
+    from kaolin_tpu_torch.physics.simplicits.training import PhysicsPoints
+
+    def conv(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    return PhysicsPoints(conv(points.pts), conv(points.yms),
+                         conv(points.prs), conv(points.rhos),
+                         float(points.appx_vol))
 
 
 def contacts_from_jax(contacts, device="cpu"):

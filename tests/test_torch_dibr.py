@@ -504,8 +504,13 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "kaolin_tpu_torch.utils.primitives_bench, "
             "kaolin_tpu_torch.utils.profiling, "
             "kaolin_tpu_torch.utils.cuda_gather, kaolin_tpu_torch.physics, "
-            "kaolin_tpu_torch.physics.simplicits.simulation, runpy\n"
+            "kaolin_tpu_torch.physics.simplicits.simulation, "
+            "kaolin_tpu_torch.physics.simplicits.rkpm, "
+            "kaolin_tpu_torch.physics.simplicits.losses, "
+            "kaolin_tpu_torch.ops.pointcloud, kaolin_tpu_torch.ops.mesh, "
+            "runpy\n"
             "runpy.run_path('examples/torch_simplicits_drop.py')\n"
+            "runpy.run_path('examples/torch_simplicits_train.py')\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'kaolin_tpu.')) or m == 'kaolin_tpu']\n"
             "print(bad)\n"

@@ -303,10 +303,15 @@ def test_objects_bake_as_jax_bakes():
     rend = obj.bake_for_rendering(t(pts[:5]))
     close(rend.skinning_weights,
           obj_j.bake_for_rendering(jnp.asarray(pts[:5])).skinning_weights)
-    for make in (SimplicitsObject.create_with_mlp,
-                 SimplicitsObject.create_with_rkpm):
-        with pytest.raises(NotImplementedError, match="Queue A 2"):
-            make(obj, 4, 100)
+    # the trained constructors build objects that bake (their parity with
+    # JAX is tests/test_torch_simplicits_training.py's)
+    for made in (SimplicitsObject.create_with_mlp(
+                     obj, 4, 20, 1, training_num_steps=2, key=1),
+                 SimplicitsObject.create_with_rkpm(obj, 4, 30)):
+        baked = made.bake(num_qps=20)
+        assert baked.skinning_weights.shape == (20, 4)
+        assert baked.dwdx.shape == (20, 4, 3)
+        assert bool(torch.isfinite(baked.dwdx).all())
 
 
 # ---- the line search ---------------------------------------------------

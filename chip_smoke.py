@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's six paths on one NVIDIA GPU and check them:
-the DIB-R inverse-rendering step, the SPC first-hit raster, the
+"""Run the PyTorch port's seven paths on one NVIDIA GPU and check them:
+the DIB-R inverse-rendering step, the DIB-R pose-and-texture fit (config 2
+as written, ``examples/torch_dibr_texture_fit.py``, with the two ported
+camera and bounding-box tutorials), the SPC first-hit raster, the
 primitive-cost probe with its table-gather kernel, the Simplicits sim
 step (config 1), Simplicits contact (``bench.py``'s ``collision_10k``) and
 Simplicits training, config 1's easy-API path from a closed mesh
@@ -54,14 +56,25 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    full width (33 handles, 6 layers, 1,000 samples, batch 10) from one set
    of weights and draws, and 20 Adam steps from one generator, within
    2e-3; FPS bit for bit with inf and NaN rows; the sparse builders within
-   1e-5;
+   1e-5; one step of the texture fit at 512², B = 2, from one seeded state
+   and the card's target views, against the same step on the CPU (the
+   plain versions): face_idx equal, the soft mask within 1e-5, the loss
+   within 1e-5 relative, each parameter's gradient within 1e-4 of its
+   largest entry; ``texture_mapping`` card against CPU at the template's
+   UVs (the seam at u = 1, the rings at v = 0 and 1);
 5. the DIB-R path: ``config2_step`` (512², a 4992-face UV sphere, forward
    and backward, 5 steps) with every launch counter set to 0 before and
    read after (each soft-mask forward given the rasterizer's ids), its
    first step held against the same step through the plain versions; then
    the 64² silhouette optimisation of
    ``examples/torch_dibr_optimization.py`` (final loss < 0.30, |shift| <
-   0.05);
+   0.05); then 100 steps of the texture fit from its start, the counters
+   set to 0 before and read after each step: #1-3 launch on every step,
+   the losses are finite, the silhouette term falls by at least half and
+   the pose error (angle and translation) falls; its peak memory; then the
+   camera tutorial (256²) and the bounding-box fit (4 views at 128², 153
+   Adam steps) at full size, each asserting what its JAX counterpart
+   asserts;
 6. the SPC path: ``config3_frames`` of ``examples/torch_spc_raster.py``
    (a level-9 sphere shell, 512², 60 frames, capacities grown until no
    overflow), counters set to 0 before and read after; frame 0 held against
@@ -104,7 +117,8 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    of one run), ``check_sign``, FPS, ``create_with_rkpm`` and one
    differentiable config-1 step forward and backward;
 9. time each kernel and each path against the plain versions with CUDA
-   events, in the order plain, kernel, kernel, plain;
+   events, in the order plain, kernel, kernel, plain; the texture fit's
+   step event to event over steps 20-80 of one run;
 10. ``torch.profiler`` (``kaolin_tpu_torch.utils.profiling.trace``) over 10
    config-2 steps and 10 config-3 frames after warm-up: each kernel's
    device ms and launches per step or frame, each path's device-busy and
@@ -113,7 +127,9 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    tables of 2^10 to 58,112 floats, to show where the route rule belongs;
    the config-1 sim step and the collision_10k step eager and as a graph
    replay, and one training step: device busy, idle share and the largest
-   ops, and detection's share of the collision_10k step;
+   ops, and detection's share of the collision_10k step (the texture fit's
+   step, with #1-3's device ms at its shapes, is profiled in its timing
+   phase);
 11. each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
    and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), the
    operations counted from this run's inputs, a term that depends on the
@@ -193,6 +209,9 @@ RKPM_CASE = dict(handles=33, nodes=256, steps=10)
 INTERIOR_TOL = 0.02
 CHECK_SIGN_MARGIN = 1e-5
 GRAD_TOL = 1e-3
+TEXFIT_PATH_STEPS = 100
+TEXFIT_TIMED = (20, 80)
+TEXFIT_GRAD_TOL = 1e-4
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores
@@ -500,6 +519,8 @@ class Smoke:
         self.col = {}   # collision_10k's scene and measurements
         self.train_ex = load_example("torch_simplicits_train")
         self.train = {}   # the training path's measurements
+        self.tex_ex = load_example("torch_dibr_texture_fit")
+        self.texfit = {}  # the texture fit's measurements
         from kaolin_tpu_torch.physics.common import Collision, optimization
         self.opt = optimization
         self.Collision = Collision
@@ -895,6 +916,258 @@ class Smoke:
         print(f"config-2 step (forward + backward) at {RES}x{RES}, 4992 "
               f"faces: kernels {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"[{self.card}]", flush=True)
+
+    # -- the DIB-R pose-and-texture fit (config 2 as written) -------------
+    def texfit_state(self, scene):
+        """A seeded state of the fit away from its start (offsets, texture,
+        pose and scale all moved), as the fit's parameters on the scene's
+        device: the same numbers on every device."""
+        torch = self.torch
+        rng = np.random.RandomState(7)
+        v = scene["template"].shape[0]
+        tex = scene["target_texture"].shape[-1]
+        state = {"texture": rng.uniform(0.3, 0.7, (3, tex, tex)),
+                 "offsets": rng.normal(0.0, 0.02, (v, 3)),
+                 "q": [0.05, -0.03, 0.02, 1.0], "t": [0.02, 0.0, -0.01],
+                 "s": [0.05]}
+        dev = scene["template"].device
+        return {k: torch.tensor(np.asarray(x, np.float32), device=dev,
+                                requires_grad=True)
+                for k, x in state.items()}
+
+    def texfit_grad(self, scene, step=1):
+        """One forward and backward of the fit's loss at ``texfit_state``
+        → (loss, its terms, soft mask, face_idx, {param: gradient})."""
+        params = self.texfit_state(scene)
+        loss, terms, soft, idx = self.tex_ex.texfit_loss(scene, params, step)
+        loss.backward()
+        return (loss.detach(), terms, soft.detach(), idx,
+                {k: params[k].grad for k in self.tex_ex.PARAMS})
+
+    def phase_texfit_parity(self):
+        """One step of the texture fit at 512², B = 2, on the card against
+        the same step on the port's CPU path (the plain versions) from the
+        same inputs: the target views rendered on the card and copied, and
+        one seeded state. face_idx equal, the soft mask within 1e-5, the
+        loss within 1e-5 relative, each parameter's gradient within 1e-4 of
+        its largest entry (the texture's gradient is a scatter whose adds
+        collide on the card). Then ``texture_mapping`` alone, card against
+        CPU, at the template's UVs (the seam at u = 1, the first and last
+        rings at v = 0 and 1)."""
+        torch, ex = self.torch, self.tex_ex
+        card = ex.texfit_setup(ex.texfit_inputs(), "cuda", RES)
+        cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+               for k, v in card.items()}
+        t0 = time.perf_counter()
+        got = self.texfit_grad(card)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = self.texfit_grad(cpu)
+        t2 = time.perf_counter()
+        self.check(torch.equal(got[3].cpu(), want[3]),
+                   f"texture fit at {RES}x{RES}, B=2: face_idx card = CPU "
+                   f"({int((want[3] >= 0).sum())} covered pixels; card "
+                   f"{t1 - t0:.2f} s, CPU {t2 - t1:.2f} s host)")
+        err = float((got[2].cpu() - want[2]).abs().max())
+        self.check(err <= 1e-5, f"texture fit soft mask card vs CPU: max "
+                   f"|diff| {err:.2e} (1e-5)")
+        rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        self.check(rel <= 1e-5, f"texture fit loss card vs CPU: "
+                   f"{float(got[0]):.7f} vs {float(want[0]):.7f} (rel "
+                   f"{rel:.2e}; terms "
+                   + ", ".join(f"{k} {float(v.detach()):.6f}"
+                               for k, v in want[1].items()) + ")")
+        for k in ex.PARAMS:
+            g, w = got[4][k].cpu(), want[4][k]
+            ratio = float((g - w).abs().max() / w.abs().max())
+            self.check(ratio <= TEXFIT_GRAD_TOL and float(w.abs().max()) > 0,
+                       f"texture fit grad {k} {tuple(w.shape)} card vs CPU "
+                       f"within {TEXFIT_GRAD_TOL:g} of max "
+                       f"{float(w.abs().max()):.3e}: {ratio:.2e}")
+        # texture_mapping alone at the template's corner UVs and between
+        from kaolin_tpu_torch.render.mesh import texture_mapping
+        uv = card["face_uvs"].reshape(1, -1, 2)
+        rng = np.random.RandomState(8)
+        uv = torch.cat([uv, torch.tensor(rng.uniform(0, 1, (1, 500, 2)),
+                                         dtype=torch.float32,
+                                         device="cuda")], 1)
+        tex = card["target_texture"][None]
+        w = torch.tensor(rng.randn(1, uv.shape[1], 3), dtype=torch.float32,
+                         device="cuda")
+        for mode in ("bilinear", "nearest"):
+            out = {}
+            for dev in ("cuda", "cpu"):
+                u = uv.to(dev).clone().requires_grad_(True)
+                t = tex.to(dev).clone().requires_grad_(True)
+                val = texture_mapping(u, t, mode)
+                (val * w.to(dev)).sum().backward()
+                out[dev] = [x.detach().cpu() for x in
+                            (val, t.grad, u.grad if u.grad is not None
+                             else torch.zeros_like(u))]
+            errs = [float((a - b).abs().max()) for a, b in
+                    zip(out["cuda"], out["cpu"])]
+            scale = float(out["cpu"][1].abs().max())
+            self.check(errs[0] <= 1e-6 and errs[1] <= 1e-5 * scale
+                       and errs[2] <= 1e-5 * max(
+                           float(out["cpu"][2].abs().max()), 1.0),
+                       f"texture_mapping {mode} card vs CPU at "
+                       f"{uv.shape[1]} UVs (the template's corners: the "
+                       f"seam at u = 1, rings at v = 0 and 1): values "
+                       f"{errs[0]:.2e}, texture grad {errs[1]:.2e} (max "
+                       f"{scale:.3e}), UV grad {errs[2]:.2e}")
+
+    def phase_texfit_path(self):
+        """The texture fit from the example's start, 100 steps at 512²,
+        B = 2, each step driven with every launch counter set to 0 just
+        before and read just after: #1, #2 and #3 launch on every step
+        (the forward given the rasterizer's ids each time), every loss is
+        finite, the silhouette term falls by at least half, the pose error
+        (the angle to the target quaternion and |t − t*|) falls; the peak
+        memory."""
+        torch, ex = self.torch, self.tex_ex
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        scene = ex.texfit_setup(ex.texfit_inputs(), "cuda", RES)
+        params = ex.initial_params(scene)
+        opt = ex.make_optimizer(params)
+        start = [float(x) for x in ex.pose_error(scene, params)]
+        losses, sil, counts, with_idx = [], [], [], []
+        for i in range(TEXFIT_PATH_STEPS):
+            (loss, terms), n = self.drive(
+                DIBR_KERNELS, lambda i=i: ex.texfit_step(scene, params, opt,
+                                                         i))
+            losses.append(float(loss))
+            sil.append(float(terms["silhouette"]))
+            counts.append(n)
+            with_idx.append(self.cs.soft_mask_fwd_cuda.launches_with_face_idx)
+        host_s = time.perf_counter() - t0
+        end = [float(x) for x in ex.pose_error(scene, params)]
+        peak = torch.cuda.max_memory_allocated() - base
+        self.texfit.update(path_s=host_s, peak=peak, per_step=counts[-1],
+                           losses=losses, sil=sil, start=start, end=end)
+        every = all(all(c[k] > 0 for k in DIBR_KERNELS) for c in counts)
+        self.check(every and with_idx == [c["soft_mask_fwd"] for c in counts],
+                   f"texture fit: every one of {TEXFIT_PATH_STEPS} steps "
+                   f"launched #1-3 (step 0 {counts[0]}, last {counts[-1]}; "
+                   f"totals " + ", ".join(
+                       f"{k} {sum(c[k] for c in counts)}"
+                       for k in DIBR_KERNELS)
+                   + "), the forward given the rasterizer's ids each time")
+        n = len(losses)
+        self.check(all(np.isfinite(losses)),
+                   "texture fit losses finite: " + ", ".join(
+                       f"step {i} {losses[i]:.4f}"
+                       for i in (0, n // 4, n // 2, n - 1)))
+        self.check(sil[-1] <= 0.5 * sil[0],
+                   f"texture fit silhouette term {sil[0]:.4f} -> "
+                   f"{sil[-1]:.4f} (falls by at least half)")
+        self.check(end[0] < start[0] and end[1] < start[1],
+                   f"texture fit pose error falls: angle to the target "
+                   f"{np.degrees(start[0]):.3f} -> {np.degrees(end[0]):.3f} "
+                   f"deg, |t - t*| {start[1]:.4f} -> {end[1]:.4f}")
+        print(f"texture fit path: {TEXFIT_PATH_STEPS} steps at {RES}x{RES}, "
+              f"B=2, 4992 faces, 256x256 texture in {host_s:.2f} s host "
+              f"with the set-up and a sync a step; peak memory "
+              f"{peak / 2 ** 20:.1f} MiB above the "
+              f"{base / 2 ** 20:.1f} MiB held before it [{self.card}]",
+              flush=True)
+
+    def phase_tutorials(self):
+        """The two ported tutorials at their full sizes on the card, each
+        asserting what its JAX counterpart asserts, every launch counter
+        set to 0 just before each and read just after: the camera tutorial
+        (256², an icosphere of 320 faces, 4 frames and a gradient) runs
+        the winner search; the bounding-box fit (4 views at 128², 153 Adam
+        steps) runs #1-3."""
+        for name, kernels in (
+                ("torch_tutorial_camera_rasterization", ("winner",)),
+                ("torch_tutorial_bbox_fitting", DIBR_KERNELS)):
+            mod = load_example(name)
+            t0 = time.perf_counter()
+            _, n = self.drive(DIBR_KERNELS, lambda: mod.main("cuda"))
+            self.check(all(n[k] > 0 for k in kernels),
+                       f"{name} at full size passed its checks in "
+                       f"{time.perf_counter() - t0:.2f} s; launches {n}")
+
+    def phase_texfit_timing(self):
+        """The fit's step on the card: the median CUDA-event time event to
+        event over steps 20-80 of one run from the start; then
+        ``torch.profiler`` over 10 steps: device busy, idle share, the
+        largest ops and #1-#3's device ms at this path's shapes."""
+        torch, ex = self.torch, self.tex_ex
+        scene = ex.texfit_setup(ex.texfit_inputs(), "cuda", RES)
+        params = ex.initial_params(scene)
+        opt = ex.make_optimizer(params)
+        a, b = TEXFIT_TIMED
+        events = []
+        for i in range(b + 1):
+            if i >= a:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            if i < b:
+                ex.texfit_step(scene, params, opt, i)
+        torch.cuda.synchronize()
+        step_ms = statistics.median(x.elapsed_time(y) for x, y in
+                                    zip(events[:-1], events[1:]))
+        count = iter(range(b, 10 ** 6))
+        busy, kernel_ms = self.profile_path(
+            f"texture fit step ({RES}x{RES}, B=2)", DIBR_KERNELS,
+            lambda: ex.texfit_step(scene, params, opt, next(count)),
+            record=False)
+        self.texfit.update(step_ms=step_ms, busy=busy, kernel_ms=kernel_ms)
+        self.texfit_scatters(scene, params)
+        print(f"texture fit step at {RES}x{RES}, B=2, 4992 faces, a "
+              f"256x256 texture: steps {a}-{b} of one run, median event to "
+              f"event {step_ms:.4f} ms ({1e3 / step_ms:.1f} steps/s); "
+              f"device busy {busy:.4f} ms; #1-3 "
+              + ", ".join(f"{k} {v:.4f}" for k, v in kernel_ms.items())
+              + f" device ms a step [{self.card}]", flush=True)
+
+    def texfit_scatters(self, scene, params):
+        """The fit's two gathers alone, forward and backward, on its data
+        (views 0 and 1 at the current state): the rasterizer's re-gather of
+        the winners' vertices and features, and ``texture_mapping``'s four
+        texel gathers at the rasterized UVs. Each one's device ms, and the
+        part of it in the colliding scatter-add of its backward."""
+        torch = self.torch
+        from kaolin_tpu_torch.render.mesh import (
+            prepare_vertices,
+            texture_mapping,
+        )
+        uvs = scene["face_uvs"].expand(2, -1, -1, -1)
+        feats = torch.cat([uvs, torch.ones_like(uvs[..., :1])], -1)
+        with torch.no_grad():
+            v = self.tex_ex.posed_vertices(scene["template"], params)
+            fvc, fvi, normals = prepare_vertices(
+                v[None], scene["faces"], scene["proj"],
+                camera_transform=scene["cams"][[0, 1]])
+            image, idx = self.rast.rasterize(RES, RES, fvc[..., 2], fvi,
+                                             feats,
+                                             valid_faces=normals[..., 2] >= 0)
+        scaled = (fvi * 1000.0).requires_grad_(True)
+        feats = feats.clone().requires_grad_(True)
+        uv = image[..., :2].clone().requires_grad_(True)
+        tex = params["texture"].detach().clone().requires_grad_(True)
+        cases = {
+            f"re-gather (2 x {RES}² winners, 4992 x 3 x 3 features)":
+                lambda: self.rast._interpolate_at_winners(
+                    idx, scaled, feats, 1000, 1e-8).sum().backward(),
+            f"texture_mapping (2 x {RES}² UVs, 3 x 256² texture)":
+                lambda: texture_mapping(
+                    uv, tex[None].expand(2, -1, -1, -1),
+                    "bilinear").sum().backward()}
+        for label, fn in cases.items():
+            events = self.device_events(label, fn, 10)
+            total = sum(us for _, us in events) / 10 / 1e3
+            scatter = sum(us for name, us in events
+                          if "scatter" in name and "ReduceAdd" in name) \
+                / 10 / 1e3
+            self.texfit[label] = (total, scatter)
+            print(f"texture fit's {label}: forward and backward "
+                  f"{total:.4f} device ms, {scatter:.4f} of it in the "
+                  f"backward's scatter-add [{self.card}]", flush=True)
 
     # -- the SPC raster ----------------------------------------------------
     def config3(self):
@@ -2456,32 +2729,40 @@ class Smoke:
         return sum(us for _, us in self.device_events(label, fn, reps)) \
             / reps / 1e3
 
-    def profile_path(self, label, names, fn, n=PROFILE_STEPS):
+    def profile_path(self, label, names, fn, n=PROFILE_STEPS, record=True):
+        """Device busy ms a step of ``fn``, its idle share against the host
+        wall, the kernels ``names``' device ms (helpers included) and
+        launches a step, and the largest ops. ``record`` keeps the kernels'
+        numbers as their kernel-table entries; else they are returned:
+        (busy, {kernel: device ms})."""
         events = self.device_events(label, fn, n)
         busy = sum(us for _, us in events) / n / 1e3
         wall = self.wall_ms(fn, n)
         print(f"{label}: {len(events) / n:.1f} device ops per step, device "
               f"busy {busy:.4f} ms of {wall:.4f} ms host wall per step "
               f"(idle share {1 - busy / wall:.3f}) [{self.card}]")
+        kernel_ms = {}
         for k in names:
             main, *helpers = DEVICE_NAMES[k]
             mine = [us for name, us in events if main in name]
             extra = [us for name, us in events
                      if any(h in name for h in helpers)]
-            self.results[k]["device_ms"] = (sum(mine) + sum(extra)) / n / 1e3
-            self.per_step[k] = len(mine) / n
+            kernel_ms[k] = (sum(mine) + sum(extra)) / n / 1e3
+            if record:
+                self.results[k]["device_ms"] = kernel_ms[k]
+                self.per_step[k] = len(mine) / n
             self.check(len(mine) > 0, f"{label} profile holds {k}")
-            print(f"  {k}: {self.results[k]['device_ms']:.4f} device ms "
+            print(f"  {k}: {kernel_ms[k]:.4f} device ms "
                   f"({sum(extra) / n / 1e3:.4f} of it in "
                   f"{len(extra) / n:g} helper launches), "
                   f"{len(mine) / n:g} launches per step, "
-                  f"{100 * self.results[k]['device_ms'] / busy:.1f}% of busy")
+                  f"{100 * kernel_ms[k] / busy:.1f}% of busy")
         top = {}
         for name, us in events:
             top[name] = top.get(name, 0.0) + us / n / 1e3
         for name, ms in sorted(top.items(), key=lambda x: -x[1])[:8]:
             print(f"    {ms:.4f} ms  {name[:160]}")
-        return busy
+        return busy if record else (busy, kernel_ms)
 
     def phase_profile(self):
         torch = self.torch
@@ -2848,11 +3129,14 @@ class Smoke:
         for phase in (self.phase_card, self.phase_build, self.phase_parity,
                       self.phase_spc_parity, self.phase_gather_parity,
                       self.phase_sim_parity, self.phase_collision_parity,
-                      self.phase_train_parity, self.phase_main_path,
+                      self.phase_train_parity, self.phase_texfit_parity,
+                      self.phase_main_path, self.phase_texfit_path,
+                      self.phase_tutorials,
                       self.phase_spc_main_path, self.phase_probe_path,
                       self.phase_sim_path, self.phase_collision_path,
                       self.phase_train_path, self.phase_grad,
-                      self.phase_timing, self.phase_spc_timing,
+                      self.phase_timing, self.phase_texfit_timing,
+                      self.phase_spc_timing,
                       self.phase_gather_timing, self.phase_sim_timing,
                       self.phase_collision_timing, self.phase_train_timing,
                       self.phase_profile, self.phase_bounds):

@@ -19,6 +19,7 @@ kernel in the JAX package and is plain PyTorch here (dense products and
 
 __version__ = "0.1.0"
 
+from kaolin_tpu_torch import math     # noqa: F401
 from kaolin_tpu_torch import metrics  # noqa: F401
 from kaolin_tpu_torch import ops      # noqa: F401
 from kaolin_tpu_torch import physics  # noqa: F401

@@ -1,19 +1,24 @@
 """The Camera class: extrinsics × intrinsics.
 
-Counterpart of ``kaolin_tpu/render/camera/camera.py``.
+Counterpart of ``kaolin_tpu/render/camera/camera.py``. A camera's
+differentiable parameters are its extrinsics' and intrinsics' params
+tensors (:meth:`Camera.parameters`).
 """
 
 import torch
 
+from kaolin_tpu_torch.render.camera import extrinsics as _ext
+from kaolin_tpu_torch.render.camera import intrinsics as _int
 from kaolin_tpu_torch.render.camera.extrinsics import CameraExtrinsics
 from kaolin_tpu_torch.render.camera.intrinsics import (
     CameraFOV,
+    CameraIntrinsics,
     OrthographicIntrinsics,
     PinholeIntrinsics,
 )
 from kaolin_tpu_torch.render.camera.raygen import generate_rays
 
-__all__ = ["Camera"]
+__all__ = ["Camera", "allclose"]
 
 _EXTRINSICS_TENSORS = ("eye", "view_matrix", "cam_pos")
 
@@ -127,10 +132,69 @@ class Camera:
         """World space → NDC."""
         return self.intrinsics.transform(self.extrinsics.transform(vectors))
 
+    def __getitem__(self, item):
+        return Camera(self.extrinsics[item], self.intrinsics[item])
+
+    def view_projection_matrix(self):
+        """(C, 4, 4) world → clip matrix."""
+        return self.intrinsics.projection_matrix() \
+            @ self.extrinsics.view_matrix()
+
     def generate_rays(self, coords_grid=None):
         """Ray origins and directions for every pixel."""
         return generate_rays(self, coords_grid)
 
+    # -- the differentiable parameters --
+    def parameters(self):
+        """(extrinsics params, intrinsics params)."""
+        return self.extrinsics.parameters(), self.intrinsics.parameters()
+
+    def gradient_mask(self, *args):
+        """(extrinsics mask, intrinsics mask): bool masks selecting the
+        named params; ``'R'`` and ``'t'`` go to the extrinsics, any other
+        name (e.g. ``'focal_x'``) to the intrinsics."""
+        ext_args, int_args = [], []
+        for a in args:
+            name = a if isinstance(a, str) else a.name
+            (ext_args if name in ("R", "t") else int_args).append(name)
+        return (self.extrinsics.gradient_mask(*ext_args),
+                self.intrinsics.gradient_mask(*int_args))
+
+    def named_params(self):
+        """Per camera, the extrinsics' and intrinsics' named params."""
+        return [dict(e, **i) for e, i in zip(self.extrinsics.named_params(),
+                                             self.intrinsics.named_params())]
+
+    def to_dict(self):
+        """JSON-writable dict; :meth:`from_dict` reads it."""
+        return {"classname": "Camera",
+                "extrinsics": self.extrinsics.to_dict(),
+                "intrinsics": self.intrinsics.as_dict()}
+
+    @classmethod
+    def from_dict(cls, d, dtype=torch.float32, device="cpu"):
+        if d.get("classname") != "Camera":
+            raise ValueError(f"not a Camera dict: {d.get('classname')}")
+        return cls(CameraExtrinsics.from_dict(d["extrinsics"], dtype=dtype,
+                                              device=device),
+                   CameraIntrinsics.from_dict(d["intrinsics"], dtype=dtype,
+                                              device=device))
+
+    @classmethod
+    def cat(cls, cameras):
+        """Concatenate same-type cameras along the batch dim."""
+        return cls(CameraExtrinsics.cat([c.extrinsics for c in cameras]),
+                   type(cameras[0].intrinsics).cat(
+                       [c.intrinsics for c in cameras]))
+
     def __repr__(self):
         return (f"Camera(num_cameras={len(self)}, lens={self.lens_type!r}, "
                 f"res={self.width}x{self.height})")
+
+
+def allclose(input, other, rtol=1e-05, atol=1e-08, equal_nan=False):
+    """Two cameras whose extrinsics and intrinsics are both close."""
+    return (_ext.allclose(input.extrinsics, other.extrinsics, rtol=rtol,
+                          atol=atol, equal_nan=equal_nan)
+            and _int.allclose(input.intrinsics, other.intrinsics, rtol=rtol,
+                              atol=atol, equal_nan=equal_nan))

@@ -2,16 +2,20 @@
 
 Counterpart of ``kaolin_tpu/render/camera/intrinsics.py``, for the pinhole
 and orthographic lenses. Conventions: left-handed NDC (depth increases into
-the screen), the camera looks down −z (OpenGL), NDC range [-1, 1].
+the screen), the camera looks down −z (OpenGL), NDC range [-1, 1] by
+default.
 
-``params`` is a (num_cameras, P) tensor; width, height, near and far are
-Python numbers.
+``params`` is a (num_cameras, P) tensor, the differentiable parameters
+(:meth:`CameraIntrinsics.parameters`); width, height, near, far and the NDC
+range are Python numbers.
 """
 
 import enum
 import math
 
 import torch
+
+from kaolin_tpu_torch.utils.numerics import clip
 
 __all__ = [
     "CameraFOV",
@@ -20,6 +24,10 @@ __all__ = [
     "OrthographicIntrinsics",
     "up_to_homogeneous",
     "down_from_homogeneous",
+    "IntrinsicsParamsDefEnum",
+    "PinholeParamsDefEnum",
+    "OrthoParamsDefEnum",
+    "allclose",
 ]
 
 DEFAULT_NEAR = 1e-2
@@ -46,8 +54,8 @@ def down_from_homogeneous(vectors):
 
 
 def _params(values, num_cameras, dtype, device):
-    return torch.tensor(values, dtype=dtype, device=device).expand(
-        num_cameras, len(values))
+    return torch.tensor(values, dtype=dtype, device=device).repeat(
+        num_cameras, 1)
 
 
 class CameraIntrinsics:
@@ -85,6 +93,129 @@ class CameraIntrinsics:
         """Camera space → NDC with the perspective divide (C, B, 3)."""
         return down_from_homogeneous(self.project(vectors))
 
+    def _new(self, params):
+        return type(self)(self.width, self.height, params, self.near,
+                          self.far, self.ndc_min, self.ndc_max)
+
+    def normalize_depth(self, depth):
+        """Camera depth → NDC depth in [min(ndc), max(ndc)]."""
+        if depth.dim() < 2:
+            depth = depth.expand((len(self),) + tuple(depth.shape))
+        proj = self.projection_matrix()
+        a = -proj[:, 2, 2]
+        b = -proj[:, 2, 3]
+        depth = clip(depth, min(self.near, self.far),
+                     max(self.near, self.far))
+        ndc_depth = a[:, None] - b[:, None] / depth
+        return clip(ndc_depth, min(self.ndc_min, self.ndc_max),
+                    max(self.ndc_min, self.ndc_max))
+
+    def __getitem__(self, item):
+        return self._new(self.params[item].reshape(-1,
+                                                   self.params.shape[-1]))
+
+    def aspect_ratio(self):
+        """Width over height."""
+        return self.width / self.height
+
+    def clip_mask(self, depth):
+        """Bool mask of the ``depth`` values between near and far."""
+        lo, hi = min(self.near, self.far), max(self.near, self.far)
+        return (depth >= lo) & (depth <= hi)
+
+    def viewport_matrix(self, vl=0, vr=None, vb=0, vt=None, min_depth=0.0,
+                        max_depth=1.0):
+        """NDC → pixel-space matrix (glViewport), (1, 4, 4): NDC x and y in
+        [-1, 1] go to [vl, vr] x [vb, vt], NDC z in [ndc_min, ndc_max] to
+        [min_depth, max_depth]."""
+        vr = self.width if vr is None else vr
+        vt = self.height if vt is None else vt
+        vl, vr, vb, vt = float(vl), float(vr), float(vb), float(vt)
+        ndc_d = self.ndc_max - self.ndc_min
+        vw, vh = vr - vl, vt - vb
+        dr = max_depth - min_depth
+        m = torch.tensor([
+            [vw / 2.0, 0.0, 0.0, vw / 2.0 + vl],
+            [0.0, vh / 2.0, 0.0, vh / 2.0 + vb],
+            [0.0, 0.0, dr / ndc_d, -(self.ndc_min / ndc_d) * dr + min_depth],
+            [0.0, 0.0, 0.0, 1.0]], dtype=self.dtype, device=self.device)
+        return m[None]
+
+    def set_ndc_range(self, ndc_min, ndc_max):
+        """Unsupported, as in the JAX package and the reference."""
+        raise NotImplementedError(
+            "Currently only NDC space of [-1, 1] is supported.")
+
+    @classmethod
+    def cat(cls, intrinsics):
+        """Concatenate same-type, same-canvas intrinsics along the batch
+        dim."""
+        first = intrinsics[0]
+        for other in intrinsics[1:]:
+            if type(other) is not type(first) or \
+                    (other.width, other.height) != (first.width,
+                                                    first.height):
+                raise ValueError(
+                    "cat needs same-type, same-canvas intrinsics")
+        return first._new(torch.cat([i.params for i in intrinsics], dim=0))
+
+    # -- the differentiable parameters --
+    PARAMS = ()   # a subclass's parameter names, in params order
+
+    def parameters(self):
+        """The parameter tensor (C, P)."""
+        return self.params
+
+    @classmethod
+    def param_types(cls):
+        """Names of the per-camera parameters, in params order."""
+        return cls.PARAMS
+
+    def param_count(self):
+        """Number of parameters a camera."""
+        return len(self.param_types())
+
+    def named_params(self):
+        """Per camera, {name: value}."""
+        p = self.params.detach().cpu().tolist()
+        return [dict(zip(self.param_types(), row)) for row in p]
+
+    def gradient_mask(self, *args):
+        """Bool mask over :meth:`parameters` selecting the named params
+        (names or :class:`IntrinsicsParamsDefEnum` members)."""
+        names = self.param_types()
+        mask = torch.zeros(self.params.shape, dtype=torch.bool,
+                           device=self.device)
+        for a in args:
+            name = a if isinstance(a, str) else a.name
+            if name not in names:
+                raise ValueError(
+                    f"unknown intrinsics param {name!r}; valid: {names}")
+            mask[:, names.index(name)] = True
+        return mask
+
+    def as_dict(self):
+        """JSON-writable constructor dict; :meth:`from_dict` reads it."""
+        return {"classname": type(self).__name__,
+                "width": self.width, "height": self.height,
+                "near": self.near, "far": self.far,
+                "ndc_min": self.ndc_min, "ndc_max": self.ndc_max,
+                "params": self.params.detach().cpu().tolist()}
+
+    @staticmethod
+    def from_dict(in_dict, dtype=torch.float32, device="cpu"):
+        """The subclass that :meth:`as_dict` names, rebuilt."""
+        registry = {c.__name__: c for c in CameraIntrinsics.__subclasses__()}
+        name = in_dict.get("classname")
+        if name not in registry:
+            raise ValueError(f"classname {name!r} not a registered "
+                             f"CameraIntrinsics subclass: {sorted(registry)}")
+        return registry[name](
+            in_dict["width"], in_dict["height"],
+            torch.tensor(in_dict["params"], dtype=dtype, device=device),
+            in_dict.get("near", DEFAULT_NEAR), in_dict.get("far", DEFAULT_FAR),
+            in_dict.get("ndc_min", -1.0), in_dict.get("ndc_max", 1.0))
+
 
 class PinholeIntrinsics(CameraIntrinsics):
     """Perspective pinhole camera. Params: (x0, y0, focal_x, focal_y)."""
@@ -121,6 +252,16 @@ class PinholeIntrinsics(CameraIntrinsics):
     focal_x = property(lambda self: self.params[:, 2])
     focal_y = property(lambda self: self.params[:, 3])
 
+    @property
+    def cx(self):
+        """Principal point x in image coords."""
+        return self.params[:, 0] + self.width / 2
+
+    @property
+    def cy(self):
+        """Principal point y in image coords."""
+        return self.params[:, 1] + self.height / 2
+
     def tan_half_fov(self, camera_fov_direction=CameraFOV.VERTICAL):
         if camera_fov_direction is CameraFOV.HORIZONTAL:
             return (self.width / 2.0) / self.focal_x
@@ -128,6 +269,25 @@ class PinholeIntrinsics(CameraIntrinsics):
             return (self.height / 2.0) / self.focal_y
         diag = math.sqrt(self.width ** 2 + self.height ** 2) / 2.0
         return diag / self.focal_x
+
+    def fov(self, camera_fov_direction=CameraFOV.VERTICAL, in_degrees=True):
+        """The field of view (C,), in degrees unless ``in_degrees`` is
+        False."""
+        f = 2.0 * torch.arctan(self.tan_half_fov(camera_fov_direction))
+        return torch.rad2deg(f) if in_degrees else f
+
+    def zoom(self, amount):
+        """Narrow the vertical field of view by ``amount`` degrees, keeping
+        the ratio of the two fields of view → new intrinsics."""
+        fov_y = torch.deg2rad(self.fov(CameraFOV.VERTICAL))
+        fov_x = torch.deg2rad(self.fov(CameraFOV.HORIZONTAL))
+        new_fov_y = fov_y - torch.deg2rad(torch.as_tensor(
+            amount, dtype=self.dtype, device=self.device))
+        new_fov_x = new_fov_y * fov_x / fov_y
+        focal_y = (self.height / 2) / torch.tan(new_fov_y / 2.0)
+        focal_x = (self.width / 2) / torch.tan(new_fov_x / 2.0)
+        return self._new(torch.stack([self.params[:, 0], self.params[:, 1],
+                                      focal_x, focal_y], dim=-1))
 
     def perspective_matrix(self):
         """(C, 4, 4) intrinsic matrix in homogeneous form."""
@@ -142,14 +302,23 @@ class PinholeIntrinsics(CameraIntrinsics):
         return torch.stack(rows, dim=1)
 
     def ndc_matrix(self, left, right, bottom, top, near, far):
-        """(1, 4, 4) frustum → clip matrix, NDC range [-1, 1]."""
-        if (self.ndc_min, self.ndc_max) != (-1.0, 1.0):
-            raise NotImplementedError(
-                f"NDC range [{self.ndc_min}, {self.ndc_max}] unsupported")
+        """(1, 4, 4) frustum → clip matrix, for the NDC depth ranges [-1, 1],
+        [0, 1] and [1, 0]."""
         tx = -(right + left) / (right - left)
         ty = -(top + bottom) / (top - bottom)
-        u = -2.0 * near * far / (far - near)
-        v = -(far + near) / (far - near)
+        ndc = (self.ndc_min, self.ndc_max)
+        if ndc == (-1.0, 1.0):
+            u = -2.0 * near * far / (far - near)
+            v = -(far + near) / (far - near)
+        elif ndc == (0.0, 1.0):
+            u = (near * far) / (near - far)
+            v = far / (far - near)
+        elif ndc == (1.0, 0.0):
+            u = (near * far) / (far - near)
+            v = near / (far - near)
+        else:
+            raise NotImplementedError(
+                f"NDC range [{self.ndc_min}, {self.ndc_max}] unsupported")
         m = torch.tensor([
             [2.0 / (right - left), 0.0, 0.0, -tx],
             [0.0, 2.0 / (top - bottom), 0.0, -ty],
@@ -209,3 +378,41 @@ class OrthographicIntrinsics(CameraIntrinsics):
         right = 1.0 * self.width / self.height
         return self.orthographic_matrix(-right, right, -1.0, 1.0, self.near,
                                         self.far)
+
+    def zoom(self, amount):
+        """Add ``amount`` to the distance of view, kept ≥ 1e-5."""
+        return self._new(clip(self.params + amount, 1e-5, None))
+
+
+class IntrinsicsParamsDefEnum(enum.IntEnum):
+    """Base of the enums naming the slots of an intrinsics params
+    vector."""
+
+
+class PinholeParamsDefEnum(IntrinsicsParamsDefEnum):
+    """The pinhole params layout (no axis skew)."""
+    x0 = 0
+    y0 = 1
+    focal_x = 2
+    focal_y = 3
+
+
+class OrthoParamsDefEnum(IntrinsicsParamsDefEnum):
+    """The orthographic params layout: one zoom scale, in distance
+    units."""
+    fov_distance = 0
+
+
+def allclose(input, other, rtol=1e-05, atol=1e-08, equal_nan=False):
+    """Two intrinsics of one lens type and canvas with close near, far and
+    params."""
+    return (type(input) is type(other)
+            and input.width == other.width and input.height == other.height
+            and math.isclose(input.near, other.near, rel_tol=rtol,
+                             abs_tol=atol)
+            and math.isclose(input.far, other.far, rel_tol=rtol,
+                             abs_tol=atol)
+            and input.params.shape == other.params.shape
+            and bool(torch.allclose(input.params.detach().cpu(),
+                                    other.params.detach().cpu(), rtol=rtol,
+                                    atol=atol, equal_nan=equal_nan)))

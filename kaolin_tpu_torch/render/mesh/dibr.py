@@ -23,9 +23,11 @@ from kaolin_tpu_torch.render.mesh import cuda_soft_mask
 from kaolin_tpu_torch.render.mesh.rasterization import (
     BACKENDS,
     CHUNK,
+    IMPLS,
     _pixel_coords,
     check_name,
     check_options,
+    chunk_window,
     rasterize,
 )
 from kaolin_tpu_torch.utils.backend import is_cuda
@@ -79,16 +81,38 @@ def _chunk_factor(px, py, verts, include, sigmainv, multiplier):
     return torch.prod(1.0 - prob, dim=-1)
 
 
-def _chunk_boxes(px, py, face_vertices_image, s, margin):
-    """One chunk of faces and its half-open enlarged-box test → (verts
-    (B, T, 3, 2), include (B, H, W, T))."""
+def _chunk_boxes(px, py, face_vertices_image, s, margin, multiplier,
+                 need=None):
+    """One chunk of faces and its half-open enlarged-box test on the pixels
+    its boxes can hold (``chunk_window``) → (verts (B, T, 3, 2), include,
+    where, px, py), or None where no such pixel is left.
+
+    Without ``need``, ``where`` is the window (rows, cols), px and py are
+    (h, w, 1) and include (B, h, w, T). With ``need`` (H, W) bool, only the
+    window's pixels where it holds are taken: ``where`` is their (n,) flat
+    indices, px and py are (n, 1, 1) and include (B, n, 1, T)."""
     verts = face_vertices_image[:, s:s + CHUNK]
+    height, width = px.shape[:2]
+    window = chunk_window(verts, margin, height, width, multiplier)
+    if window is None:
+        return None
+    if need is None:
+        where = window
+        wx, wy = px[window], py[window]
+    else:
+        rows, cols = window
+        r, c = torch.nonzero(need[window], as_tuple=True)
+        if r.numel() == 0:
+            return None
+        where = (r + rows.start) * width + (c + cols.start)
+        wx = px.reshape(-1)[where][:, None, None]
+        wy = py.reshape(-1)[where][:, None, None]
     box = verts.detach()
     bmin = (box.amin(dim=2) - margin)[:, None, None]     # (B, 1, 1, T, 2)
     bmax = (box.amax(dim=2) + margin)[:, None, None]
-    include = ((px >= bmin[..., 0]) & (px < bmax[..., 0])
-               & (py >= bmin[..., 1]) & (py < bmax[..., 1]))
-    return verts, include
+    include = ((wx >= bmin[..., 0]) & (wx < bmax[..., 0])
+               & (wy >= bmin[..., 1]) & (wy < bmax[..., 1]))
+    return verts, include, where, wx, wy
 
 
 def soft_mask_plain(face_vertices_image, sigmainv, boxlen, multiplier,
@@ -98,8 +122,12 @@ def soft_mask_plain(face_vertices_image, sigmainv, boxlen, multiplier,
     ``face_vertices_image`` is (B, F, 3, 2), already scaled by
     ``multiplier``. ``knum=None`` lets every in-box face contribute; an int
     keeps only each pixel's first ``knum`` in-box faces in face-index order.
-    Each chunk runs under ``torch.utils.checkpoint``, so autograd keeps one
-    (B, H, W) product per chunk, not its (B, H, W, chunk) intermediates.
+    Each chunk is computed on the window of pixels its enlarged boxes can
+    hold (``rasterization.chunk_window``; a factor of 1 elsewhere), with
+    ``face_idx`` and ``knum=None`` only at the window's pixels that some
+    batch element leaves uncovered, and runs under
+    ``torch.utils.checkpoint``, so autograd keeps one (B, H, W) product per
+    chunk, not its (B, h, w, chunk) intermediates.
     ``face_idx``, the rasterizer's (B, H, W) ids, sets allprob to 1 where an
     id is ≥ 0, as the kernel does. The plain version of the CUDA forward
     kernel.
@@ -121,15 +149,33 @@ def soft_mask_plain(face_vertices_image, sigmainv, boxlen, multiplier,
     margin = boxlen * multiplier
     allprob = torch.ones((b, height, width), dtype=dtype, device=device)
     count = torch.zeros((b, height, width), dtype=torch.int32, device=device)
+    # with the ids, only pixels some batch element leaves uncovered count
+    need = None if face_idx is None or knum is not None \
+        else (face_idx < 0).any(dim=0)
     for s in range(0, f, CHUNK):
-        verts, include = _chunk_boxes(px, py, face_vertices_image, s, margin)
+        chunk = _chunk_boxes(px, py, face_vertices_image, s, margin,
+                             multiplier, need)
+        if chunk is None:      # a factor of 1 at every pixel
+            continue
+        verts, include, where, wx, wy = chunk
         if knum is not None:
             in_box = include.to(torch.int32)
-            include = include & (count[..., None] + in_box.cumsum(-1) <= knum)
-            count = count + in_box.sum(-1, dtype=torch.int32)
-        allprob = allprob * checkpoint(_chunk_factor, px, py, verts, include,
-                                       sigmainv, multiplier,
-                                       use_reentrant=False)
+            seen = count[(slice(None),) + where]
+            include = include & (seen[..., None] + in_box.cumsum(-1) <= knum)
+            count[(slice(None),) + where] = seen + in_box.sum(
+                -1, dtype=torch.int32)
+        factor = checkpoint(_chunk_factor, wx, wy, verts, include, sigmainv,
+                            multiplier, use_reentrant=False)
+        if need is None:
+            rows, cols = where
+            allprob = allprob * torch.nn.functional.pad(
+                factor, (cols.start, width - cols.stop, rows.start,
+                         height - rows.stop), value=1.0)
+        else:
+            flat = allprob.reshape(b, -1)
+            allprob = flat.index_copy(
+                1, where, flat[:, where] * factor.reshape(b, -1)).reshape(
+                b, height, width)
     if face_idx is not None:
         allprob = torch.where(face_idx >= 0, 1.0, allprob)
     return allprob
@@ -147,7 +193,8 @@ def _soft_mask_bwd_plain(face_vertices_image, ga, sigmainv, boxlen,
     1e-12)`` (∂allprob/∂d² = allprob · k·p / (1 − p)), pushed through d²
     by autograd, tied candidates sharing it evenly. Where a factor 1 − p
     rounds to 0, allprob and so ``ga`` are 0, and every face there gets 0:
-    the rule of the CUDA backward and of JAX's Pallas and binned VJPs."""
+    the rule of the CUDA backward and of JAX's Pallas and binned VJPs. Only
+    the pixels where ``ga`` is not 0 are visited."""
     b, f = face_vertices_image.shape[:2]
     dtype = face_vertices_image.dtype
     device = face_vertices_image.device
@@ -156,15 +203,23 @@ def _soft_mask_bwd_plain(face_vertices_image, ga, sigmainv, boxlen,
     py = py[..., None]
     k = sigmainv / (multiplier * multiplier)
     grads = []
+    need = (ga != 0).any(dim=0)     # pixels with a cotangent
+    ga = ga.reshape(b, -1)
     with torch.enable_grad():
         for s in range(0, f, CHUNK):
-            verts, include = _chunk_boxes(
-                px, py, face_vertices_image.detach(), s, boxlen * multiplier)
+            chunk = _chunk_boxes(px, py, face_vertices_image.detach(), s,
+                                 boxlen * multiplier, multiplier, need)
+            if chunk is None:
+                grads.append(torch.zeros_like(
+                    face_vertices_image[:, s:s + CHUNK]))
+                continue
+            verts, include, where, wx, wy = chunk
             verts.requires_grad_(True)
-            d2, prob = _chunk_terms(px, py, verts, include, sigmainv,
+            d2, prob = _chunk_terms(wx, wy, verts, include, sigmainv,
                                     multiplier)
             prob = prob.detach()
-            c = ga[..., None] / torch.clamp(1.0 - prob, min=1e-12) * k * prob
+            c = ga[:, where][:, :, None, None] \
+                / torch.clamp(1.0 - prob, min=1e-12) * k * prob
             c = torch.where(include, c, 0.0)
             grads.append(torch.autograd.grad(d2, verts, c)[0])
     return torch.cat(grads, dim=1)
@@ -247,11 +302,13 @@ def dibr_rasterization(height, width, face_vertices_z, face_vertices_image,
     ``rast_backend``, ``tile_px`` and ``tile_cap`` are the JAX package's, in
     its positions. As there, ``tile_px`` and ``tile_cap`` go to both
     :func:`rasterize` and :func:`dibr_soft_mask`, which check them, and
-    ``rast_backend`` is taken and not used (its name is checked). None of
-    them has an effect in the port.
+    ``rast_backend`` is taken and not used. Its name is checked against the
+    names the JAX rasterizer's options take, its ``backend``'s and its
+    ``impl``'s: the JAX package's own calls pass either (its golden corpus
+    passes "xla"). None of them has an effect in the port.
 
     Returns (image_features, soft_mask (B, H, W), face_idx (B, H, W))."""
-    check_name("rast_backend", rast_backend, BACKENDS)
+    check_name("rast_backend", rast_backend, BACKENDS + IMPLS)
     valid_faces = face_normals_z >= 0.0
     image_features, face_idx = rasterize(
         height, width, face_vertices_z, face_vertices_image, face_features,

@@ -12,12 +12,15 @@ capacities. The winners' barycentrics and features are then re-computed
 from gathered vertices in plain PyTorch, and autograd gives the backward.
 """
 
+import math
+
 import torch
 
 from kaolin_tpu_torch.render.mesh import cuda_rasterize
 from kaolin_tpu_torch.utils.backend import is_cuda
 
-__all__ = ["rasterize", "rasterize_search_plain", "tile_face_lists"]
+__all__ = ["rasterize", "rasterize_search_plain", "tile_face_lists",
+           "suggest_tile_cap", "tile_overflow_report"]
 
 DEFAULT_MULTIPLIER = 1000
 DEFAULT_EPS = 1e-8
@@ -51,6 +54,37 @@ def _barycentrics(px, py, verts, eps):
     return w0 / norm, w1 / norm, w2 / norm
 
 
+def chunk_window(verts, margin, height, width, multiplier, valid=None):
+    """The rows and columns (two slices) holding every pixel centre that
+    can lie in the box of one of ``verts``' faces (B, T, 3, 2), scaled by
+    ``multiplier``, enlarged by ``margin`` and left out where ``valid``
+    (B, T) is False; None where there is no such pixel. Conservative by a
+    pixel on each side, so a plain version that tests its boxes exactly
+    inside the window computes what it computes on the whole image."""
+    lo = verts.detach().amin(dim=-2)
+    hi = verts.detach().amax(dim=-2)
+    if valid is not None:
+        lo = torch.where(valid[..., None], lo, torch.inf)
+        hi = torch.where(valid[..., None], hi, -torch.inf)
+    (x0, y0), (x1, y1) = (lo.reshape(-1, 2).amin(dim=0).tolist(),
+                          hi.reshape(-1, 2).amax(dim=0).tolist())
+    if not all(map(math.isfinite, (x0, y0, x1, y1))):
+        if x0 > x1 or y0 > y1:     # nothing valid
+            return None
+        return slice(0, height), slice(0, width)
+    x0, x1 = x0 - margin, x1 + margin
+    y0, y1 = y0 - margin, y1 + margin
+    c0 = max(math.floor((x0 / multiplier * width + width - 1) / 2) - 1, 0)
+    c1 = min(math.ceil((x1 / multiplier * width + width - 1) / 2) + 1,
+             width - 1)
+    r0 = max(math.floor((height - 1 - y1 / multiplier * height) / 2) - 1, 0)
+    r1 = min(math.ceil((height - 1 - y0 / multiplier * height) / 2) + 1,
+             height - 1)
+    if c0 > c1 or r0 > r1:
+        return None
+    return slice(r0, r1 + 1), slice(c0, c1 + 1)
+
+
 def rasterize_search_plain(face_vertices_z, face_vertices_image, valid_mask,
                            multiplier, eps, height, width):
     """Brute winner search over all faces, ``CHUNK`` faces at a time
@@ -61,8 +95,9 @@ def rasterize_search_plain(face_vertices_z, face_vertices_image, valid_mask,
     bounding box, as in the reference CUDA rasterizer. A triangle lies in
     its box, so this drops only hits that rounding makes: those of a
     zero-area face, whose barycentrics can all be 0 along its line or across
-    the whole image (the JAX package's brute search keeps them). The plain
-    version of the CUDA winner kernel."""
+    the whole image (the JAX package's brute search keeps them). Each chunk
+    is computed on the window of pixels its valid boxes can hold
+    (:func:`chunk_window`). The plain version of the CUDA winner kernel."""
     b, f = face_vertices_z.shape[:2]
     dtype = face_vertices_z.dtype
     device = face_vertices_z.device
@@ -74,22 +109,29 @@ def rasterize_search_plain(face_vertices_z, face_vertices_image, valid_mask,
     best_i = torch.full((b, height, width), -1, dtype=torch.int32,
                         device=device)
     for s in range(0, f, CHUNK):
+        window = chunk_window(face_vertices_image[:, s:s + CHUNK], 0.0,
+                              height, width, multiplier,
+                              valid_mask[:, s:s + CHUNK])
+        if window is None:
+            continue
+        rows, cols = window
+        wx, wy = px[rows, cols], py[rows, cols]
         verts = face_vertices_image[:, None, None, s:s + CHUNK]
         zs = face_vertices_z[:, None, None, s:s + CHUNK]
         lo = verts.amin(dim=-2)                              # (B, 1, 1, T, 2)
         hi = verts.amax(dim=-2)
-        in_box = ((px >= lo[..., 0]) & (px <= hi[..., 0])
-                  & (py >= lo[..., 1]) & (py <= hi[..., 1]))
-        w0, w1, w2 = _barycentrics(px, py, verts, eps)       # (B, H, W, T)
+        in_box = ((wx >= lo[..., 0]) & (wx <= hi[..., 0])
+                  & (wy >= lo[..., 1]) & (wy <= hi[..., 1]))
+        w0, w1, w2 = _barycentrics(wx, wy, verts, eps)       # (B, h, w, T)
         inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & in_box
         z = w0 * zs[..., 0] + w1 * zs[..., 1] + w2 * zs[..., 2]
         z = torch.where(inside & valid_mask[:, None, None, s:s + CHUNK], z,
                         -torch.inf)
         tmax = z.amax(dim=-1)
         targ = z.argmax(dim=-1).to(torch.int32) + s   # first maximum
-        take = tmax > best_z
-        best_z = torch.where(take, tmax, best_z)
-        best_i = torch.where(take, targ, best_i)
+        take = tmax > best_z[:, rows, cols]
+        best_z[:, rows, cols] = torch.where(take, tmax, best_z[:, rows, cols])
+        best_i[:, rows, cols] = torch.where(take, targ, best_i[:, rows, cols])
     return torch.where(torch.isfinite(best_z), best_i, -1)
 
 
@@ -150,6 +192,88 @@ def tile_face_lists(face_vertices_image, height, width, multiplier,
             per_tile.append(ids[faces[i, t, ids]])
         lists.append(per_tile)
     return lists
+
+
+def tile_rects(height, width, tile_px, multiplier, device="cpu"):
+    """The JAX package's per-tile pixel-centre extents in kernel coords
+    → (x_lo, x_hi) (W/tile_px,) and (y_lo, y_hi) (H/tile_px,)."""
+    i0 = torch.arange(width // tile_px, device=device) * tile_px
+    r0 = torch.arange(height // tile_px, device=device) * tile_px
+    i1 = i0 + tile_px - 1
+    r1 = r0 + tile_px - 1
+    x_lo = multiplier / width * (2 * i0 + 1 - width)
+    x_hi = multiplier / width * (2 * i1 + 1 - width)
+    y_hi = multiplier / height * (height - 2 * r0 - 1)
+    y_lo = multiplier / height * (height - 2 * r1 - 1)
+    return x_lo, x_hi, y_lo, y_hi
+
+
+def _tile_overlap(face_vertices_image, valid_mask, height, width, multiplier,
+                  tile_px, margin=0.0):
+    """The JAX binned backends' (num_tiles, F) bool: a face's bbox, enlarged
+    by ``margin``, meets a tile's closed pixel-centre rectangle."""
+    f = face_vertices_image.shape[0]
+    fmin = face_vertices_image.amin(dim=1) - margin     # (F, 2)
+    fmax = face_vertices_image.amax(dim=1) + margin
+    x_lo, x_hi, y_lo, y_hi = tile_rects(height, width, tile_px, multiplier,
+                                        face_vertices_image.device)
+    ox = (fmin[None, :, 0] <= x_hi[:, None]) \
+        & (fmax[None, :, 0] >= x_lo[:, None])
+    oy = (fmin[None, :, 1] <= y_hi[:, None]) \
+        & (fmax[None, :, 1] >= y_lo[:, None])
+    overlap = (oy[:, None, :] & ox[None, :, :]) & valid_mask[None, None]
+    return overlap.reshape(-1, f)
+
+
+def tile_overflow_report(face_vertices_image, height, width,
+                         valid_faces=None, multiplier=None, tile_px=32,
+                         tile_cap=512, margin_boxlen=0.0):
+    """What the JAX package's capacity-binned backends would drop at
+    ``tile_px`` and ``tile_cap``, from their binning arithmetic → a dict of
+    (B,) tensors: ``any_overflow`` (bool), ``num_overflowing_tiles`` and
+    ``max_overlap`` (int; a cap of at least this is exact there).
+
+    The port has no capacities: its searches visit every face, so nothing
+    in its path depends on this report."""
+    if multiplier is None:
+        multiplier = DEFAULT_MULTIPLIER
+    fvi = face_vertices_image
+    if fvi.dim() == 3:
+        fvi = fvi[None]
+    b, f = fvi.shape[:2]
+    if valid_faces is None:
+        valid_faces = torch.ones((b, f), dtype=torch.bool, device=fvi.device)
+    scaled = (fvi * multiplier).detach()
+    margin = margin_boxlen * multiplier
+    counts = torch.stack([
+        _tile_overlap(v, m.bool(), height, width, multiplier, tile_px,
+                      margin).sum(dim=1, dtype=torch.int32)
+        for v, m in zip(scaled, valid_faces)])
+    overflow = counts > tile_cap
+    return {"any_overflow": overflow.any(dim=1),
+            "num_overflowing_tiles": overflow.sum(dim=1, dtype=torch.int32),
+            "max_overlap": counts.amax(dim=1)}
+
+
+def suggest_tile_cap(face_vertices_image, height, width, multiplier=None,
+                     tile_px=32, boxlen=0.02, headroom=1.25):
+    """The per-tile face capacity the JAX package's binned backends need:
+    the most faces whose ``boxlen``-enlarged bbox meets one tile, over every
+    face of ``face_vertices_image`` (any batch shape) taken as one set,
+    times ``headroom``, rounded up to a multiple of 64, and held in [64, F]
+    → int. The port takes no capacity; this is the JAX package's API."""
+    if multiplier is None:
+        multiplier = DEFAULT_MULTIPLIER
+    fvi = face_vertices_image.detach().reshape(-1, 3, 2)
+    f = fvi.shape[0]
+    overlap = _tile_overlap(fvi * multiplier,
+                            torch.ones(f, dtype=torch.bool,
+                                       device=fvi.device),
+                            height, width, multiplier, tile_px,
+                            boxlen * multiplier)
+    max_overlap = int(overlap.sum(dim=1).max())
+    cap = int(math.ceil(max_overlap * headroom / 64.0)) * 64
+    return max(64, min(f, cap))
 
 
 def _rasterize_search(face_vertices_z, face_vertices_image, valid_mask,

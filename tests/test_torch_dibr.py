@@ -497,7 +497,16 @@ def test_interop_round_trip(dtype):
 
 
 def test_import_leaves_out_jax_and_kaolin_tpu():
-    code = ("import sys, kaolin_tpu_torch, kaolin_tpu_torch.render.mesh, "
+    """Every module of the port and every torch example imports with
+    ``jax`` and ``kaolin_tpu`` blocked (an import of either raises), and
+    neither is loaded afterwards."""
+    code = ("import importlib.abc, sys\n"
+            "class Block(importlib.abc.MetaPathFinder):\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'kaolin_tpu'):\n"
+            "            raise ImportError(f'blocked: {name}')\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import kaolin_tpu_torch, kaolin_tpu_torch.render.mesh, "
             "kaolin_tpu_torch.metrics.render, kaolin_tpu_torch.ops.spc, "
             "kaolin_tpu_torch.render.camera, kaolin_tpu_torch.render.spc, "
             "kaolin_tpu_torch.render.spc.cuda_raster, "
@@ -508,9 +517,29 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "kaolin_tpu_torch.physics.simplicits.rkpm, "
             "kaolin_tpu_torch.physics.simplicits.losses, "
             "kaolin_tpu_torch.ops.pointcloud, kaolin_tpu_torch.ops.mesh, "
-            "runpy\n"
-            "runpy.run_path('examples/torch_simplicits_drop.py')\n"
-            "runpy.run_path('examples/torch_simplicits_train.py')\n"
+            "kaolin_tpu_torch.ops.batch, kaolin_tpu_torch.ops.mesh.mesh, "
+            "kaolin_tpu_torch.ops.mesh.trianglemesh, "
+            "kaolin_tpu_torch.ops.mesh.tetmesh, "
+            "kaolin_tpu_torch.metrics.trianglemesh, "
+            "kaolin_tpu_torch.math.quat.util, "
+            "kaolin_tpu_torch.math.quat.quaternion, "
+            "kaolin_tpu_torch.math.quat.rotation33, "
+            "kaolin_tpu_torch.math.quat.matrix44, "
+            "kaolin_tpu_torch.math.quat.angle_axis, "
+            "kaolin_tpu_torch.math.quat.euclidean, "
+            "kaolin_tpu_torch.math.quat.transform, "
+            "kaolin_tpu_torch.render.camera.legacy, "
+            "kaolin_tpu_torch.render.camera.extrinsics_backends, "
+            "kaolin_tpu_torch.render.camera.coordinates, "
+            "kaolin_tpu_torch.render.camera.trajectory, "
+            "kaolin_tpu_torch.render.mesh.utils, "
+            "kaolin_tpu_torch.utils.numerics, runpy\n"
+            "for ex in ('torch_simplicits_drop', 'torch_simplicits_train', "
+            "'torch_dibr_optimization', 'torch_dibr_texture_fit', "
+            "'torch_tutorial_camera_rasterization', "
+            "'torch_tutorial_bbox_fitting', 'torch_spc_raster', "
+            "'torch_collision_stack'):\n"
+            "    runpy.run_path(f'examples/{ex}.py')\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'kaolin_tpu.')) or m == 'kaolin_tpu']\n"
             "print(bad)\n"

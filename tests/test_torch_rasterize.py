@@ -240,3 +240,68 @@ def test_tile_cull_loses_no_pair(case, kernel):
             assert bool((ids[1:] > ids[:-1]).all()) and bool(ok[i][ids].all())
             pairs += int(need.sum())
     assert pairs > 0
+
+
+@pytest.mark.parametrize("case", ["random", "adversarial", "grid"])
+def test_chunk_windows_compute_what_the_whole_image_computes(case,
+                                                             monkeypatch):
+    """The plain versions compute each chunk of faces on the window of
+    pixels its boxes can hold (``chunk_window``); given the rasterizer's
+    ids, the forward only at the window's uncovered pixels, and the
+    backward only where the cotangent is not 0. With the window made the
+    whole image and every pixel visited, the winner ids and the soft-mask
+    forward (both ``knum`` modes, and with the ids) are bit for bit the
+    same: what is left out is only pixels that no box of the chunk holds
+    or that the ids cover. The plain backward sums the same non-zero
+    per-pixel terms over fewer pixels, so it agrees within 1e-6 of its
+    largest entry. Faces off the image, on box edges at pixel
+    centres and over the whole image (``adversarial_faces``) included."""
+    from kaolin_tpu_torch.render.mesh import dibr, rasterization
+
+    if case == "adversarial":
+        fvi, g, h, w = adversarial_faces()
+        d = from_numpy_tree({**with_depth(fvi, 11), "g": g}, "cpu")
+        d["fvi"] = d["fvi"] / 1000.0
+    else:
+        d = from_numpy_tree(random_scene(3, 2, 140, scale=0.3)
+                            if case == "random" else grid_scene(), "cpu")
+        h, w = (24, 40) if case == "random" else (32, 32)
+        d["g"] = torch.from_numpy(np.random.RandomState(1).randn(
+            d["fvi"].shape[0], h, w).astype(np.float32))
+    if "valid" not in d:
+        d["valid"] = torch.ones(d["fvi"].shape[:2], dtype=torch.bool)
+    scaled = d["fvi"] * 1000.0
+
+    def run():
+        ids = rasterization.rasterize_search_plain(
+            d["fvz"], scaled, d["valid"], 1000, 1e-8, h, w)
+        fwd = [dibr.soft_mask_plain(scaled, 700.0, 0.05, 1000.0, h, w,
+                                    knum=k) for k in (None, 5)]
+        fwd.append(dibr.soft_mask_plain(scaled, 700.0, 0.05, 1000.0, h, w,
+                                        face_idx=ids))
+        ga = torch.where(ids >= 0, 0.0, d["g"])     # the path's cotangent
+        bwd = dibr._soft_mask_bwd_plain(scaled, ga, 700.0, 0.05, 1000.0,
+                                        h, w)
+        return [ids, *fwd, bwd]
+
+    windowed = run()
+    whole = lambda *a, **k: (slice(0, a[2]), slice(0, a[3]))   # noqa: E731
+    monkeypatch.setattr(rasterization, "chunk_window", whole)
+    monkeypatch.setattr(dibr, "chunk_window", whole)
+    boxes = dibr._chunk_boxes
+
+    def every_pixel(*a):    # the pixels of the whole window, needed or not
+        a = list(a)
+        if len(a) > 6 and a[6] is not None:
+            a[6] = torch.ones_like(a[6])
+        return boxes(*a)
+
+    monkeypatch.setattr(dibr, "_chunk_boxes", every_pixel)
+    full = run()
+    for a, b in zip(windowed[:4], full[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(windowed[3],
+                       torch.where(windowed[0] >= 0, 1.0, full[1]))
+    err = float((windowed[4] - full[4]).abs().max() / full[4].abs().max())
+    assert err <= 1e-6, err
+    assert bool((windowed[0] >= 0).any())

@@ -1,0 +1,312 @@
+"""The port's ``render/mesh/utils.py`` (``texture_mapping``,
+``spherical_harmonic_lighting``, ``prepare_vertices``) and the JAX
+rasterizer's capacity API (``suggest_tile_cap``, ``tile_overflow_report``)
+against kaolin_tpu's, on the CPU; and two of the repo's golden images
+rendered by the port.
+
+The same seeded numpy inputs go to both packages. Texture values agree
+within 1e-6 (the sampling takes JAX's gathers and weights in its order),
+their gradients within 1e-5; ``prepare_vertices`` as its test says;
+capacities, counts and flags exactly. The goldens are held at
+the thresholds of ``tests/render/test_golden_corpus.py``.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kaolin_tpu.render.mesh import rasterization as jrast
+from kaolin_tpu.render.mesh import utils as jutils
+from kaolin_tpu.utils.testing import assert_images_close
+from kaolin_tpu_torch.ops.mesh import face_normals, index_vertices_by_faces
+from kaolin_tpu_torch.render import mesh as tmesh
+from kaolin_tpu_torch.render.camera import Camera
+from kaolin_tpu_torch.render.mesh import rasterization as trast
+from kaolin_tpu_torch.render.mesh import utils as tutils
+from kaolin_tpu_torch.utils.numerics import clip
+from tests.render.golden_corpus import GOLDEN_DIR
+from tests.torch_parity import load_example, warm_torch_exp  # noqa: F401
+
+ATOL, GRAD_TOL = 1e-6, 1e-5
+RNG = np.random.RandomState(0)
+TEX = RNG.rand(2, 3, 9, 7).astype(np.float32)
+
+
+def close(got, want, atol=ATOL, rtol=0.0):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=rtol, atol=atol)
+
+
+def uv_cases():
+    """(B, H, W, 2) UVs: random ones, ones outside [0, 1], and exactly 0
+    and 1 in u and in v; and texel centres, where a nearest sample rounds
+    half to even."""
+    uv = RNG.uniform(-0.2, 1.2, (2, 4, 5, 2)).astype(np.float32)
+    uv[:, 0, :, 0] = 0.0
+    uv[:, 1, :, 0] = 1.0
+    uv[:, 2, :, 1] = 0.0
+    uv[:, 3, :, 1] = 1.0
+    half = ((np.arange(5) + 0.5) / 7).astype(np.float32)
+    uv[1, 0, :, 1] = half
+    return uv
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("flat", [False, True])
+def test_texture_mapping_values_and_gradients(mode, flat):
+    """Values, the gradient with respect to the texture and (bilinear) the
+    UVs, with UVs outside [0, 1] and exactly on 0 and 1."""
+    uv = uv_cases()
+    if flat:
+        uv = uv.reshape(2, -1, 2)
+    w = RNG.randn(*uv.shape[:-1], 3).astype(np.float32)
+
+    def loss_j(u, t):
+        return jnp.sum(jnp.asarray(w) * jutils.texture_mapping(u, t, mode))
+
+    want = jax.jit(jutils.texture_mapping, static_argnums=2)(
+        jnp.asarray(uv), jnp.asarray(TEX), mode)
+    gu_j, gt_j = jax.jit(jax.grad(loss_j, argnums=(0, 1)))(jnp.asarray(uv),
+                                                           jnp.asarray(TEX))
+    u_t = torch.tensor(uv, requires_grad=True)
+    t_t = torch.tensor(TEX, requires_grad=True)
+    got = tutils.texture_mapping(u_t, t_t, mode)
+    assert got.shape == want.shape
+    close(got, want)
+    (torch.from_numpy(w) * got).sum().backward()
+    close(t_t.grad, gt_j, atol=GRAD_TOL)
+    if mode == "nearest":      # the UVs only choose texels: no gradient
+        assert u_t.grad is None and not np.asarray(gu_j).any()
+    else:
+        close(u_t.grad, gu_j, atol=GRAD_TOL)
+
+
+def test_uv_clip_splits_the_gradient_at_0_and_1_as_jax():
+    """``jnp.clip``'s gradient at a bound is half the interior one;
+    ``torch.clamp`` gives all of it. The port's ``clip`` (the UV clip of
+    ``texture_mapping``) gives JAX's. Under border padding a sample's
+    derivative at exactly 0 or 1 is itself 0 (both neighbours clip to one
+    texel), so there ``texture_mapping``'s UV gradient is 0 in both
+    packages; inside it equals JAX's and is not 0."""
+    x = np.array([-0.5, 0.0, 0.3, 1.0, 1.5], np.float32)
+    want = jax.grad(lambda a: jnp.sum(jnp.clip(a, 0.0, 1.0) * 3.0))(
+        jnp.asarray(x))
+    xt = torch.tensor(x, requires_grad=True)
+    (clip(xt, 0.0, 1.0) * 3.0).sum().backward()
+    close(xt.grad, want, atol=0)
+    np.testing.assert_array_equal(np.asarray(want), [0, 1.5, 3, 1.5, 0])
+
+    uv = np.array([[[0.0, 0.4], [1.0, 0.4], [0.4, 0.0], [0.4, 1.0],
+                    [0.3, 0.45], [0.62, 0.7]]], np.float32)
+    g_j = jax.jit(jax.grad(lambda u: jnp.sum(jutils.texture_mapping(
+        u, jnp.asarray(TEX[:1]), "bilinear"))))(jnp.asarray(uv))
+    ut = torch.tensor(uv, requires_grad=True)
+    tutils.texture_mapping(ut, torch.from_numpy(TEX[:1]),
+                           "bilinear").sum().backward()
+    close(ut.grad, g_j, atol=GRAD_TOL)
+    assert np.all(ut.grad.numpy()[0, :4][[0, 1, 2, 3], [0, 0, 1, 1]] == 0)
+    assert np.all(ut.grad.numpy()[0, 4:] != 0)
+
+
+def test_spherical_harmonic_lighting():
+    n = RNG.randn(2, 4, 5, 3).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    lights = RNG.randn(2, 9).astype(np.float32)
+    close(tutils.spherical_harmonic_lighting(torch.from_numpy(n),
+                                             torch.from_numpy(lights)),
+          jutils.spherical_harmonic_lighting(jnp.asarray(n),
+                                             jnp.asarray(lights)))
+
+
+def _prepare_case():
+    v, f = load_example().uv_sphere(6, 8)
+    verts = (v[None] * np.float32(0.8)
+             + RNG.uniform(-0.05, 0.05, (2,) + v.shape)).astype(np.float32)
+    return verts, f.astype(np.int64)
+
+
+@pytest.mark.parametrize("branch", ["transform", "rot_trans"])
+def test_prepare_vertices(branch):
+    """Both camera branches: the (B, 4, 3) transform of
+    ``generate_transformation_matrix`` and (rot, trans) of
+    ``generate_rotate_translate_matrices``. Values within 5e-5 (the unit
+    normals of the sphere's small polar faces divide rounding of the two
+    packages' other matmul orders by short cross products) and the gradient
+    of a weighted sum of all three outputs with respect to the vertices
+    within 1e-4 of its largest entry."""
+    from kaolin_tpu.render.camera import legacy as jleg
+    from kaolin_tpu_torch.render.camera import legacy as tleg
+
+    verts, faces = _prepare_case()
+    pos = np.array([[0.5, 1.0, 3.0], [-2.5, 0.5, 1.5]], np.float32)
+    look = np.zeros((2, 3), np.float32)
+    up = np.array([[0.0, 1.0, 0.0]], np.float32)
+    proj_j = jleg.generate_perspective_projection(np.pi / 3)
+    proj_t = tleg.generate_perspective_projection(np.pi / 3)
+    if branch == "transform":
+        cj = {"camera_transform": jleg.generate_transformation_matrix(
+            jnp.asarray(pos), jnp.asarray(look), jnp.asarray(up))}
+        ct = {"camera_transform": tleg.generate_transformation_matrix(
+            *(torch.from_numpy(x) for x in (pos, look, up)))}
+    else:
+        r, t = jleg.generate_rotate_translate_matrices(
+            jnp.asarray(pos), jnp.asarray(look), jnp.asarray(up))
+        cj = {"camera_rot": r, "camera_trans": t}
+        r, t = tleg.generate_rotate_translate_matrices(
+            *(torch.from_numpy(x) for x in (pos, look, up)))
+        ct = {"camera_rot": r, "camera_trans": t}
+    ws = [RNG.randn(2, faces.shape[0], 3, 3).astype(np.float32),
+          RNG.randn(2, faces.shape[0], 3, 2).astype(np.float32),
+          RNG.randn(2, faces.shape[0], 3).astype(np.float32)]
+
+    def loss_j(v):
+        outs = jutils.prepare_vertices(v, faces, proj_j, **cj)
+        return sum(jnp.sum(jnp.asarray(w) * o) for w, o in zip(ws, outs))
+
+    want = jax.jit(lambda v: jutils.prepare_vertices(v, faces, proj_j,
+                                                     **cj))(jnp.asarray(verts))
+    vt = torch.tensor(verts, requires_grad=True)
+    got = tutils.prepare_vertices(vt, faces, proj_t, **ct)
+    for g, w in zip(got, want):
+        close(g, w, atol=5e-5)
+    sum((torch.from_numpy(w) * o).sum() for w, o in zip(ws, got)).backward()
+    gj = np.asarray(jax.jit(jax.grad(loss_j))(jnp.asarray(verts)))
+    close(vt.grad, gj, atol=1e-4 * np.abs(gj).max())
+
+
+def _capacity_case():
+    v, f = load_example().uv_sphere(10, 16)
+    img = (v[f][None, ..., :2] * np.float32(0.7)).astype(np.float32)
+    return np.concatenate([img, img * 0.5]), (np.arange(f.shape[0]) % 3
+                                              != 0)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"tile_px": 16, "boxlen": 0.05}, {"headroom": 3.0, "tile_px": 8}])
+def test_suggest_tile_cap_matches_jax(kw):
+    fvi, _ = _capacity_case()
+    assert trast.suggest_tile_cap(torch.from_numpy(fvi), 64, 64, **kw) == \
+        jrast.suggest_tile_cap(jnp.asarray(fvi), 64, 64, **kw)
+    assert tmesh.suggest_tile_cap is trast.suggest_tile_cap
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"tile_cap": 20}, {"tile_cap": 5, "tile_px": 16, "margin_boxlen": 0.02},
+    {"valid": True, "tile_cap": 10}])
+def test_tile_overflow_report_matches_jax(kw):
+    fvi, valid = _capacity_case()
+    kw = dict(kw)
+    if kw.pop("valid", False):
+        kw["valid_faces"] = np.stack([valid, ~valid])
+    jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+    tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+    want = jrast.tile_overflow_report(jnp.asarray(fvi), 64, 64, **jkw)
+    got = trast.tile_overflow_report(torch.from_numpy(fvi), 64, 64, **tkw)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    if "tile_cap" in kw:
+        assert bool(got["any_overflow"].any())
+
+
+def test_exports_match_jax():
+    """The ported modules' names that ``kaolin_tpu.render.mesh`` and
+    ``kaolin_tpu.render.camera`` export, the port's packages export too."""
+    import kaolin_tpu.render.camera as jc
+    import kaolin_tpu.render.mesh as jm
+    import kaolin_tpu_torch.render.camera as tc
+
+    not_ported = {"deftet_sparse_render", "default_nvdiffrast_context",
+                  "nvdiffrast_is_available", "gsplat_inria_camera_to_kaolin",
+                  "gsplat_nerfstudio_camera_to_kaolin",
+                  "kaolin_camera_to_gsplat_inria",
+                  "kaolin_camera_to_gsplat_nerfstudio",
+                  "gsplats_camera_to_kaolin", "kaolin_camera_to_gsplats",
+                  "kaolin_camera_to_polyscope", "polyscope_camera_to_kaolin"}
+    for jmod, tmod in ((jm, tmesh), (jc, tc)):
+        names = {n for n in dir(jmod) if not n.startswith("_")
+                 and not isinstance(getattr(jmod, n), type(os))}
+        missing = sorted(n for n in names - not_ported if not hasattr(tmod, n))
+        assert not missing, missing
+    assert hasattr(tc, "legacy") and tc.legacy.__name__.endswith("legacy")
+
+
+# -- goldens -------------------------------------------------------------
+def _golden(name):
+    from PIL import Image
+    return np.asarray(Image.open(os.path.join(GOLDEN_DIR, f"{name}.png")),
+                      dtype=np.float32) / 255.0
+
+
+def _sphere(n_lat=24, n_lon=32):
+    """``golden_corpus._sphere_mesh`` in numpy (its ring starts 0.15 from
+    each pole)."""
+    lat = np.linspace(0.15, np.pi - 0.15, n_lat)
+    lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    th, ph = np.meshgrid(lat, lon, indexing="ij")
+    v = np.stack([np.sin(th) * np.cos(ph), np.cos(th),
+                  np.sin(th) * np.sin(ph)], -1).reshape(-1, 3)
+    f = []
+    for i in range(n_lat - 1):
+        for j in range(n_lon):
+            a, b = i * n_lon + j, i * n_lon + (j + 1) % n_lon
+            c, d = (i + 1) * n_lon + j, (i + 1) * n_lon + (j + 1) % n_lon
+            f += [[a, b, c], [b, d, c]]
+    return (torch.from_numpy(v.astype(np.float32)),
+            torch.from_numpy(np.asarray(f, np.int64)))
+
+
+def _camera(res=128):
+    return Camera.from_args(eye=torch.tensor([1.6, 1.2, 1.8]),
+                            at=torch.zeros(3),
+                            up=torch.tensor([0.0, 1.0, 0.0]), fov=0.8,
+                            width=res, height=res)
+
+
+def _project(cam, verts, faces):
+    vc = cam.extrinsics.transform(verts[None])
+    vi = cam.intrinsics.transform(vc)[..., :2]
+    return (index_vertices_by_faces(vc, faces)[..., 2],
+            index_vertices_by_faces(vi, faces))
+
+
+def test_golden_rasterize_normals():
+    verts, faces = _sphere()
+    fvz, fvi = _project(_camera(), verts, faces)
+    normals = face_normals(index_vertices_by_faces(verts[None], faces),
+                           unit=True)
+    feat = normals[:, :, None, :].expand(-1, -1, 3, -1) * 0.5 + 0.5
+    img, _ = tmesh.rasterize(128, 128, fvz, fvi, feat, impl="xla")
+    assert_images_close(_golden("rasterize_normals"),
+                        np.clip(img[0].numpy(), 0.0, 1.0),
+                        pixel_disagreement_threshold=0.1,
+                        max_percent_disagreeing_pixels=1.0)
+
+
+def test_golden_dibr_soft_mask():
+    """As the corpus calls it, ``rast_backend="xla"`` included (F17: the
+    port refused that name before)."""
+    verts, faces = _sphere(10, 14)
+    fvz, fvi = _project(_camera(), verts * 0.7, faces)
+    feat = torch.ones(fvi.shape[:2] + (3, 1))
+    nz = torch.ones(fvi.shape[:2])
+    _, soft, _ = tmesh.dibr_rasterization(128, 128, fvz, fvi, feat, nz,
+                                          sigmainv=3000, rast_backend="xla")
+    assert_images_close(_golden("dibr_soft_mask"),
+                        np.clip(soft[0].numpy(), 0.0, 1.0),
+                        pixel_disagreement_threshold=0.1,
+                        max_percent_disagreeing_pixels=1.0)
+
+
+@pytest.mark.parametrize("name", ["torch_tutorial_camera_rasterization",
+                                  "torch_tutorial_bbox_fitting"])
+def test_tutorial_smoke(name):
+    """The two ported tutorials at their smoke sizes on the CPU; each
+    asserts what its JAX counterpart asserts."""
+    load_example(name).main("cpu", smoke=True)

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's seven paths on one NVIDIA GPU and check them:
+"""Run the PyTorch port's eight paths on one NVIDIA GPU and check them:
 the DIB-R inverse-rendering step, the DIB-R pose-and-texture fit (config 2
 as written, ``examples/torch_dibr_texture_fit.py``, with the two ported
-camera and bounding-box tutorials), the SPC first-hit raster, the
-primitive-cost probe with its table-gather kernel, the Simplicits sim
-step (config 1), Simplicits contact (``bench.py``'s ``collision_10k``) and
-Simplicits training, config 1's easy-API path from a closed mesh
-(``examples/torch_simplicits_train.py``; the last three plain PyTorch: the
-JAX package has no kernel there).
+camera and bounding-box tutorials), the SPC first-hit raster, config 3 as
+written (mesh → SPC at level 9, ``unbatched_raytrace`` at 512² and an
+nglod-style fit, ``examples/torch_spc_raytrace.py``), the primitive-cost
+probe with its table-gather kernel, the Simplicits sim step (config 1),
+Simplicits contact (``bench.py``'s ``collision_10k``) and Simplicits
+training, config 1's easy-API path from a closed mesh
+(``examples/torch_simplicits_train.py``; config 3 as written and the last
+three plain PyTorch: the JAX package has no kernel there).
 
     python3 chip_smoke.py
 
@@ -80,7 +82,19 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    overflow), counters set to 0 before and read after; frame 0 held against
    the plain versions and against a brute-force slab test of every leaf on
    4,096 sampled pixels; then a camera inside the shell, whose slot
-   overflow must clear as ``s_max`` grows;
+   overflow must clear as ``s_max`` grows; then config 3 as written:
+   the card against the port's CPU at level 7 and 128² (octree, dual,
+   trinkets and nugget streams equal, depths within 1e-6, every packed op
+   within 1e-6 and its gradient within 1e-5 of max|g|, the nglod render,
+   loss and gradients within 1e-5), the path at full width with every
+   counter set to 0 before and read after (no kernel may launch; the JAX
+   package's 181,068 octree bytes, 519,599 leaves, 700,667 points,
+   1,449,015 dual corners and view 0's 841,737 nuggets over 84,399 rays
+   with its nine level counts; 50 fit steps, the loss over steps 41-50
+   below 0.7 of steps 1-10), and the cross-check: config 3's shell
+   through ``unbatched_raytrace`` against #4's depth map (hit masks
+   equal, depths within rtol 2e-6 / atol 1e-6, ids equal where the depth
+   is bit for bit, at least 75%);
 7. the table gather's two routes (shared memory, L2) held bit for bit
    against ``table_gather_plain``: the probe's shape, 2^14 and 2^20
    tables, 58,112 and 58,113 floats (either side of the route rule),
@@ -115,7 +129,10 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    differentiable step's gradient (graft scene) card vs CPU within 1e-3 of
    max|g|, finite and not zero; the training step's steps/s (steps 100-300
    of one run), ``check_sign``, FPS, ``create_with_rkpm`` and one
-   differentiable config-1 step forward and backward;
+   differentiable config-1 step forward and backward; config 3 as
+   written: ``unbatched_mesh_to_spc``, the dual and the trinkets, a depth
+   frame and a fit step (event ms, device busy, ops, idle share, the
+   largest ops, peak memory);
 9. time each kernel and each path against the plain versions with CUDA
    events, in the order plain, kernel, kernel, plain; the texture fit's
    step event to event over steps 20-80 of one run;
@@ -212,6 +229,28 @@ GRAD_TOL = 1e-3
 TEXFIT_PATH_STEPS = 100
 TEXFIT_TIMED = (20, 80)
 TEXFIT_GRAD_TOL = 1e-4
+SPCRT_PARITY = (7, 128)          # level, resolution of card vs CPU
+SPCRT_LEVEL = 9
+SPCRT_RES = 512
+SPCRT_STEPS = 50
+SPCRT_TIMED = 10
+SPCRT_LOSS_RATIO = 0.7
+# config 3 as written at full width, as the JAX package gives it
+SPCRT_EXPECT = {"octree_bytes": 181_068, "leaves": 519_599,
+                "points": 700_667, "dual_corners": 1_449_015,
+                "nuggets": 841_737, "rays_hit": 84_399,
+                "level_counts": [731_372, 950_135, 933_916, 890_255, 917_359,
+                                 901_514, 893_800, 874_263, 841_737]}
+# a gradient card vs CPU within 1e-5 of max|g|. Two (SPCRT_SUMS) take 1e-5
+# or 0.1 of the CPU float32 gradient's own distance from float64, whichever
+# is larger: the card's expf parts from the CPU's exp by an ulp, which
+# alpha = 1 − exp(−τ) at τ ~ 6e-3 and then the residual I − I* magnify to
+# ~1e-5 there. With the render's exp taken on the CPU every gradient is
+# held to 1e-5; the float64 step from the same nuggets to 1e-10, the
+# replayed sums to 1e-6 (nglod_sources)
+SPCRT_TOL = {"t": 1e-6, "rel": 1e-6, "grad": 1e-5, "own": 0.1, "f64": 1e-10,
+             "replay": 1e-6}
+SPCRT_SUMS = ("features", "w0")
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores
@@ -521,6 +560,10 @@ class Smoke:
         self.train = {}   # the training path's measurements
         self.tex_ex = load_example("torch_dibr_texture_fit")
         self.texfit = {}  # the texture fit's measurements
+        self.rt_ex = load_example("torch_spc_raytrace")
+        from kaolin_tpu_torch.render.spc import raytrace
+        self.rt = raytrace
+        self.spcrt = {}   # config 3 as written: its scene and measurements
         from kaolin_tpu_torch.physics.common import Collision, optimization
         self.opt = optimization
         self.Collision = Collision
@@ -1411,6 +1454,504 @@ class Smoke:
         print(f"config-3 sequence of {SPC_FRAMES} frames at {SPC_RES}²: "
               f"{seq_ms:.4f} ms, {seq_ms / SPC_FRAMES:.4f} ms/frame "
               f"[{self.card}]", flush=True)
+
+    # -- config 3 as written: mesh → SPC → raytrace ------------------------
+    def rel_err(self, a, b):
+        """max|a − b| over max(1, max|b|), in float64 on the host."""
+        a = a.detach().double().cpu()
+        b = b.detach().double().cpu()
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    def grad_err(self, a, b):
+        """max|a − b| over max|b|, in float64 on the host."""
+        a = a.detach().double().cpu()
+        b = b.detach().double().cpu()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def packed_ops_case(self, nuggets, device):
+        """Every packed op on the nuggets' packs, with seeded features and
+        the nuggets' optical thickness, and their gradients under a seeded
+        cotangent → {name: (value, gradient)} on the host."""
+        torch, rt = self.torch, self.rt
+        ridx, _, t = (x.to(device) for x in nuggets)
+        rng = np.random.RandomState(11)
+        feats0 = torch.from_numpy(rng.uniform(
+            0.2, 1.5, (len(ridx), 3)).astype(np.float32)).to(device)
+        tau0 = (t[:, 1:] - t[:, :1]) * 50.0
+        b = rt.mark_pack_boundaries(ridx)
+        ops = {f"{op}{'_excl' if ex else ''}{'_rev' if rev else ''}":
+               (lambda x, op=op, ex=ex, rev=rev: getattr(rt, op)(
+                   x, b, exclusive=ex, reverse=rev))
+               for op in ("cumsum", "cumprod") for ex in (False, True)
+               for rev in (False, True)}
+        ops.update(sum_reduce=lambda x: rt.sum_reduce(x, b),
+                   prod_reduce=lambda x: rt.prod_reduce(x, b),
+                   diff=lambda x: rt.diff(x, b),
+                   exponential_integration=lambda x: torch.cat(
+                       [o.reshape(-1) for o in rt.exponential_integration(
+                           x, tau0, b)]))
+        out = {"boundaries": (b.cpu(), None)}
+        for name, fn in ops.items():
+            x = feats0.clone().requires_grad_(True)
+            y = fn(x)
+            w = torch.from_numpy(np.random.RandomState(12).randn(
+                *y.shape).astype(np.float32)).to(device)
+            (y * w).sum().backward()
+            out[name] = (y.detach().cpu(), x.grad.cpu())
+        return out
+
+    def nglod_case(self, scene, rays, dtype=None, nuggets=None, keep=False):
+        """The fit's first step on one view at full width (32-wide
+        features, a hidden layer of 128): the teacher's target, the
+        student's render, loss and gradients → dict on the host. With
+        ``nuggets`` (``trace``'s output, on any device) both renders take
+        them in place of the scene's own traversal. With ``dtype`` the
+        fields, rays and depths are cast to it after the float32 traversal
+        (the same nuggets). With ``keep`` it also returns, as ``inter``,
+        what enters the backward's two sums over the nuggets: the sample
+        points x, the leaves, the decoder's input f and the gradients at f,
+        at the first layer's output h and at the image, the decoder's
+        output and each nugget's depth t_out − t_in."""
+        torch, ex = self.torch, self.rt_ex
+        st = ex.fit_setup(scene, [rays])
+        device = scene["octree"].device
+        given = nuggets is not None
+        nuggets = (tuple(x.to(device) for x in nuggets) if given
+                   else ex.trace(scene, rays))
+        if dtype is not None:
+            for field in (st["teacher"], st["student"]):
+                field["features"] = field["features"].detach().to(dtype)
+                field["decoder"] = field["decoder"].to(dtype)
+            st["student"]["features"].requires_grad_(True)
+            rays = tuple(x.to(dtype) for x in rays)
+            nuggets = (*nuggets[:2], nuggets[2].to(dtype))
+        if dtype is not None or given:
+            with torch.no_grad():
+                st["targets"] = [ex.nglod_render(scene, st["teacher"], rays,
+                                                 nuggets)]
+        kept = {}
+
+        def hook(module, inputs, output):
+            inputs[0].retain_grad()
+            output.retain_grad()
+            kept.update(f=inputs[0], h=output)
+
+        def keep_out(module, inputs, output):
+            kept.update(out=output)
+
+        decoder = st["student"]["decoder"]
+        handles = ([decoder[0].register_forward_hook(hook),
+                    decoder.register_forward_hook(keep_out)] if keep else [])
+        image = ex.nglod_render(scene, st["student"], rays, nuggets)
+        for handle in handles:
+            handle.remove()
+        if keep:
+            image.retain_grad()
+        loss = ((image - st["targets"][0]) ** 2).mean()
+        loss.backward()
+        lin = [m for m in st["student"]["decoder"]
+               if isinstance(m, torch.nn.Linear)]
+        grads = {"features": st["student"]["features"].grad}
+        for i, m in enumerate(lin):
+            grads[f"w{i}"], grads[f"b{i}"] = m.weight.grad, m.bias.grad
+        out = {"target": st["targets"][0].cpu(), "image": image.detach().cpu(),
+               "loss": float(loss.detach()),
+               "grads": {k: v.cpu() for k, v in grads.items()}}
+        if keep:
+            r, t = nuggets[0].long(), nuggets[2]
+            with torch.no_grad():   # x as nglod_render takes it
+                x = rays[0][r] + (0.5 * (t[:, 0] + t[:, 1]))[:, None] \
+                    * rays[1][r]
+            out["inter"] = {"x": x.cpu(), "pidx": nuggets[1].cpu(),
+                            "out": kept["out"].detach().cpu(),
+                            "dt": (t[:, 1] - t[:, 0]).cpu(),
+                            "f": kept["f"].detach().cpu(),
+                            "g_f": kept["f"].grad.cpu(),
+                            "g_h": kept["h"].grad.cpu(),
+                            "g_image": image.grad.cpu()}
+        return out
+
+    def replay_sums(self, scene, inter, dtype):
+        """The nglod backward's two sums over the nuggets, replayed on the
+        CPU in ``dtype`` from ``inter`` (``nglod_case``'s, from either
+        device): the first layer's weight gradient g_hᵀ f, and the
+        features' gradient, each nugget's trilinear coefficients times g_f
+        added into its 8 corners at each of the three LODs (the backward of
+        ``feats[trinkets[pidx]]``, an ``index_put_`` that accumulates, whose
+        adds collide on the card) → {"w0", "features"}."""
+        torch, ex = self.torch, self.rt_ex
+        from kaolin_tpu_torch.ops.spc import coords_to_trilinear_coeffs
+        g_f = inter["g_f"].to(dtype)
+        x = inter["x"].to(dtype)[:, None]
+        feats = torch.zeros((scene["dual"].shape[0], g_f.shape[1]),
+                            dtype=dtype)
+        p = inter["pidx"].long()
+        for lod in range(scene["level"], scene["level"] - ex.LODS, -1):
+            cell = scene["point_hierarchy"][p].to(dtype)[:, None]
+            coeffs = coords_to_trilinear_coeffs(x, cell, lod)[:, 0]
+            feats.index_put_((scene["trinkets"][p].long(),),
+                             coeffs[:, :, None] * g_f[:, None, :],
+                             accumulate=True)
+            p = scene["parents"][p].long()
+        return {"w0": inter["g_h"].to(dtype).T @ inter["f"].to(dtype),
+                "features": feats}
+
+    def nglod_sources(self, card, cpu, rays_c, rays_h, nug_h, nh):
+        """Where the nglod gradients part between the card and the CPU.
+        The card's step is taken again from the CPU's nuggets (the same
+        inputs, so only the two devices' float32 arithmetic differs) and,
+        in float64, from the same nuggets on both devices (a check that
+        both compute one function). For the two leaves whose gradients are
+        sums over the nuggets, ``features`` and ``w0``, the sum is replayed
+        on the CPU from the card's own inputs to it: ``op`` is the card's
+        sum against the CPU's on the card's inputs, ``upstream`` the CPU's
+        sum on the card's inputs against the CPU's gradient, ``own`` the
+        CPU's float32 sum against float64 on the same inputs; ``replay``
+        checks that the replay on the CPU's inputs gives the CPU's
+        gradient. ``alpha`` reads the render's 1 − exp(−τ) on both
+        devices from the CPU's τ, and how far the residual I − I* magnifies
+        the image's error (max|I| / max|I − I*|). ``pinned`` is the card's
+        float32 step from the same nuggets with every ``torch.exp`` of the
+        render, forward and backward, taken on the CPU → dict of
+        readings."""
+        torch = self.torch
+        f32, f64 = torch.float32, torch.float64
+        ns = self.nglod_case(card, rays_c, nuggets=nug_h, keep=True)
+        exact_h = self.nglod_case(cpu, rays_h, f64, nuggets=nug_h)
+        exact_c = self.nglod_case(card, rays_c, f64, nuggets=nug_h)
+        same = {k: self.grad_err(v, nh["grads"][k])
+                for k, v in ns["grads"].items()}
+        f64_err = {k: self.grad_err(v, exact_h["grads"][k])
+                   for k, v in exact_c["grads"].items()}
+        f64_err["loss"] = (abs(exact_c["loss"] - exact_h["loss"])
+                           / abs(exact_h["loss"]))
+        inputs = {k: self.grad_err(ns["inter"][k], nh["inter"][k])
+                  for k in ("g_image", "g_h", "g_f", "f")}
+        rep_h = self.replay_sums(cpu, nh["inter"], f32)
+        rep_c = self.replay_sums(cpu, ns["inter"], f32)
+        rep_c64 = self.replay_sums(cpu, ns["inter"], f64)
+        sums = {k: {"replay": self.grad_err(rep_h[k], nh["grads"][k]),
+                    "op": self.grad_err(ns["grads"][k], rep_c[k]),
+                    "upstream": self.grad_err(rep_c[k], nh["grads"][k]),
+                    "own": self.grad_err(rep_c[k], rep_c64[k]),
+                    "card_own": self.grad_err(ns["grads"][k], rep_c64[k])}
+                for k in rep_h}
+        # the render's alpha 1 − exp(−τ) from the CPU's τ on both devices:
+        # exp's results in units of their last place, and alpha relative
+        tau = (torch.nn.functional.softplus(nh["inter"]["out"][:, 0])
+               * nh["inter"]["dt"])
+        e_h = torch.exp(-tau)
+        e_c = torch.exp(-tau.to(card["octree"].device)).cpu()
+        ulp = torch.nextafter(e_h, torch.full_like(e_h, 2.0)) - e_h
+        a_h, pos = 1.0 - e_h, tau > 0
+        alpha = {"tau_median": float(tau[pos].median()),
+                 "exp_ulps": float(((e_c - e_h).abs() / ulp).max()),
+                 "exp_differ": float((e_c != e_h).double().mean()),
+                 "rel": float(((1.0 - e_c) - a_h)[pos].abs().div(
+                     a_h[pos]).max())}
+        image = nh["image"]
+        alpha["residual"] = float(image.abs().max()
+                                  / (image - nh["target"]).abs().max())
+        real_exp = torch.exp
+
+        def host_exp(x):   # the CPU's exp, and so its backward's result
+            return real_exp(x.cpu()).to(x.device)
+
+        torch.exp = host_exp
+        try:
+            pinned = self.nglod_case(card, rays_c, nuggets=nug_h)
+        finally:
+            torch.exp = real_exp
+        pinned = {k: self.grad_err(v, nh["grads"][k])
+                  for k, v in pinned["grads"].items()}
+        return {"same_nuggets": same, "float64": f64_err, "inputs": inputs,
+                "sums": sums, "alpha": alpha, "pinned": pinned}
+
+    def phase_spcrt_parity(self):
+        """Config 3 as written on the card against the port on the CPU at
+        level 7 and 128²: the octree, the dual and the trinkets equal; view
+        0's nugget stream equal with depths within 1e-6; the frontier's
+        level counts equal; every packed op within 1e-6 relative and its
+        gradient within 1e-5 of max|g|; the nglod-style render, loss and
+        gradients of the fit's first step within 1e-5 of max|g|, except
+        ``features`` and ``w0``, held to 1e-5 or 0.1 of the CPU float32
+        gradient's own distance from the same step in float64, whichever is
+        larger: ``nglod_sources`` reads where card and CPU part (the exp
+        in alpha = 1 − exp(−τ), not the sums over the nuggets), and with
+        the render's exp taken on the CPU holds all five gradients to
+        1e-5. Both devices' steps in float64 from the same nuggets agree
+        within 1e-10."""
+        torch, ex, rt = self.torch, self.rt_ex, self.rt
+        level, res = SPCRT_PARITY
+        card, cpu = ex.spc_scene(level, "cuda"), ex.spc_scene(level, "cpu")
+        for key in ("octree", "exsum", "pyramid", "point_hierarchy", "dual",
+                    "pyramid_dual", "trinkets", "parents"):
+            a, b = card[key].cpu(), cpu[key]
+            self.check(a.dtype == b.dtype and torch.equal(a, b),
+                       f"spcrt parity L{level}: {key} card = CPU "
+                       f"{tuple(b.shape)}")
+        rays_c, rays_h = (ex.view_rays(0, res, d) for d in ("cuda", "cpu"))
+        nug_c, nug_h = ex.trace(card, rays_c), ex.trace(cpu, rays_h)
+        t_err = float((nug_c[2].cpu() - nug_h[2]).abs().max())
+        self.check(torch.equal(nug_c[0].cpu(), nug_h[0])
+                   and torch.equal(nug_c[1].cpu(), nug_h[1])
+                   and t_err <= SPCRT_TOL["t"],
+                   f"spcrt parity {res}²: {len(nug_h[0])} nuggets, ridx and "
+                   f"pidx card = CPU, t_in/t_out max err {t_err:.3g}")
+        counts = [rt._raytrace_frontier(sc["octree"], sc["exsum"], *r, level,
+                                        4 * res * res)[5].tolist()
+                  for sc, r in ((card, rays_c), (cpu, rays_h))]
+        self.check(counts[0] == counts[1],
+                   f"spcrt parity: frontier level counts card = CPU "
+                   f"{counts[1]}")
+        pc, ph = (self.packed_ops_case(nug_h, d) for d in ("cuda", "cpu"))
+        self.check(torch.equal(pc["boundaries"][0], ph["boundaries"][0]),
+                   "spcrt parity: pack boundaries card = CPU")
+        worst = {}
+        for name in ph:
+            if name == "boundaries":
+                continue
+            v_err = self.rel_err(pc[name][0], ph[name][0])
+            g_err = self.grad_err(pc[name][1], ph[name][1])
+            worst[name] = (v_err, g_err)
+            self.check(v_err <= SPCRT_TOL["rel"]
+                       and g_err <= SPCRT_TOL["grad"],
+                       f"spcrt parity: {name} value err {v_err:.3g}, "
+                       f"gradient err {g_err:.3g} of max|g|")
+        nc = self.nglod_case(card, rays_c)
+        nh = self.nglod_case(cpu, rays_h, keep=True)
+        exact = self.nglod_case(cpu, rays_h, torch.float64)
+        errs = {"target": self.rel_err(nc["target"], nh["target"]),
+                "image": self.rel_err(nc["image"], nh["image"]),
+                "loss": abs(nc["loss"] - nh["loss"]) / abs(nh["loss"])}
+        errs.update({k: self.grad_err(nc["grads"][k], v)
+                     for k, v in nh["grads"].items()})
+        # float32's own error: the CPU's float32 gradients against the same
+        # step in float64
+        own = {k: self.grad_err(v, exact["grads"][k])
+               for k, v in nh["grads"].items()}
+        bound = {k: SPCRT_TOL["grad"] for k in errs}
+        for k in SPCRT_SUMS:
+            bound[k] = max(SPCRT_TOL["grad"], SPCRT_TOL["own"] * own[k])
+        self.check(all(errs[k] <= bound[k] for k in errs),
+                   "spcrt parity: nglod render, loss and gradients card vs "
+                   "CPU " + ", ".join(f"{k} {v:.3g} (bound {bound[k]:.3g})"
+                                      for k, v in errs.items()))
+        print("  float32's own gradient error against float64 on the CPU: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in own.items()))
+        src = self.nglod_sources(card, cpu, rays_c, rays_h, nug_h, nh)
+        self.check(all(v <= bound[k] for k, v in src["same_nuggets"].items()),
+                   "spcrt parity: nglod gradients card vs CPU from the same "
+                   "nuggets " + ", ".join(
+                       f"{k} {v:.3g} (bound {bound[k]:.3g})"
+                       for k, v in src["same_nuggets"].items()))
+        self.check(all(v["op"] <= SPCRT_TOL["grad"]
+                       for v in src["sums"].values()),
+                   "spcrt parity: the sums over the nuggets, card vs CPU on "
+                   "the card's inputs " + ", ".join(
+                       f"{k} {v['op']:.3g}" for k, v in src["sums"].items())
+                   + f" (bound {SPCRT_TOL['grad']:g})")
+        self.check(all(v <= SPCRT_TOL["f64"]
+                       for v in src["float64"].values()),
+                   "spcrt parity: nglod step in float64 card vs CPU from "
+                   "the same nuggets " + ", ".join(
+                       f"{k} {v:.3g}" for k, v in src["float64"].items())
+                   + f" (bound {SPCRT_TOL['f64']:g})")
+        self.check(all(v <= SPCRT_TOL["grad"]
+                       for v in src["pinned"].values()),
+                   "spcrt parity: with the render's exp on the CPU, nglod "
+                   "gradients card vs CPU from the same nuggets " + ", ".join(
+                       f"{k} {v:.3g}" for k, v in src["pinned"].items())
+                   + f" (bound {SPCRT_TOL['grad']:g})")
+        self.check(all(v["replay"] <= SPCRT_TOL["replay"]
+                       for v in src["sums"].values()),
+                   "spcrt parity: the replayed sums give the CPU's "
+                   "gradients " + ", ".join(
+                       f"{k} {v['replay']:.3g}"
+                       for k, v in src["sums"].items())
+                   + f" (bound {SPCRT_TOL['replay']:g})")
+        print("  from the same nuggets, the card's inputs to the sums "
+              "against the CPU's: " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in src["inputs"].items()))
+        for k, v in src["sums"].items():
+            print(f"  {k}'s sum from the same nuggets: card's sum vs the "
+                  f"CPU's on the card's inputs {v['op']:.3g}, the CPU's sum "
+                  f"on the card's inputs vs the CPU's gradient "
+                  f"{v['upstream']:.3g}; against float64 on the card's "
+                  f"inputs: the CPU's float32 sum {v['own']:.3g}, the "
+                  f"card's {v['card_own']:.3g}")
+        a = src["alpha"]
+        print(f"  alpha = 1 - exp(-tau) from the CPU's tau (median "
+              f"{a['tau_median']:.3g}): exp card vs CPU at most "
+              f"{a['exp_ulps']:g} ulp, differing at {a['exp_differ']:.4f} of "
+              f"the nuggets; alpha card vs CPU {a['rel']:.3g} relative; "
+              f"max|I| / max|I - I*| {a['residual']:.4g}")
+        self.spcrt["parity"] = {"packed": worst, "nglod": errs, "own": own,
+                                "t_err": t_err, "sources": src}
+
+    def phase_spcrt_path(self):
+        """Config 3 as written at full width on the card, every launch
+        counter set to 0 just before and read just after: the mesh → SPC at
+        level 9, the dual and trinkets, the 8 views' rays, view 0's depth
+        render, the teacher's targets and 50 fit steps. No kernel may
+        launch; the integers are the JAX package's; the mean loss over steps
+        41-50 is below 0.7 of that over steps 1-10."""
+        torch, ex, rt = self.torch, self.rt_ex, self.rt
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def path():
+            scene = ex.spc_scene(SPCRT_LEVEL, "cuda")
+            views = [ex.view_rays(k, SPCRT_RES, "cuda")
+                     for k in range(ex.VIEWS)]
+            frame = ex.depth_render(scene, views[0])
+            state = ex.fit_setup(scene, views)
+            losses = ex.fit(scene, views, SPCRT_STEPS, state)
+            return scene, views, frame, state, losses
+
+        t0 = time.perf_counter()
+        (scene, views, frame, state, losses), launches = self.drive(
+            list(self.counters()), path)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        self.check(all(n == 0 for n in launches.values()),
+                   f"config 3 as written launched no kernel {launches}")
+        pyr = scene["pyramid"].cpu().numpy()
+        got = {"octree_bytes": len(scene["octree"]),
+               "leaves": int(pyr[0, SPCRT_LEVEL]),
+               "points": int(pyr[1, SPCRT_LEVEL + 1]),
+               "dual_corners": scene["dual"].shape[0],
+               "nuggets": len(frame["ridx"]),
+               "rays_hit": int(torch.isfinite(frame["depth"]).sum())}
+        full = rt._raytrace_frontier(scene["octree"], scene["exsum"],
+                                     *views[0], SPCRT_LEVEL,
+                                     4 * SPCRT_RES * SPCRT_RES)
+        got["level_counts"] = full[5].tolist()
+        self.check(not bool(full[6]), "view 0 fits the starting capacity "
+                   f"{4 * SPCRT_RES * SPCRT_RES}")
+        for k, want in SPCRT_EXPECT.items():
+            self.check(got[k] == want, f"config 3 as written: {k} {got[k]} "
+                       f"(JAX: {want})")
+        depth = frame["depth"]
+        hit = torch.isfinite(depth)
+        others = [len(ex.trace(scene, v)[0]) for v in views[1:]]
+        print(f"config 3 as written, L{SPCRT_LEVEL} {SPCRT_RES}²: view 0 hit "
+              f"fraction {float(hit.float().mean()):.6f}, depth "
+              f"[{float(depth[hit].min()):.6f}, {float(depth[hit].max()):.6f}]"
+              f"; views 1-7 nuggets {others}", flush=True)
+        first, last = losses[:10].mean(), losses[-10:].mean()
+        self.check(bool(np.isfinite(losses).all())
+                   and last < SPCRT_LOSS_RATIO * first,
+                   f"nglod fit, {SPCRT_STEPS} steps: mean loss steps 41-50 "
+                   f"{last:.6e} < {SPCRT_LOSS_RATIO} x steps 1-10 "
+                   f"{first:.6e}")
+        print("nglod fit loss: " + " ".join(f"{x:.6e}" for x in losses))
+        # the loss over its view's target energy, mean(I*²): how far the
+        # student's image is from the target, whatever the images' scale
+        energy = torch.stack([(t ** 2).mean() for t in state["targets"]])
+        rel = losses / energy.cpu().numpy()[np.arange(SPCRT_STEPS)
+                                            % len(state["targets"])]
+        print(f"nglod fit, relative image error mean|I - I*|² / mean|I*|²: "
+              f"step 1 {rel[0]:.6e}, mean steps 1-10 {rel[:10].mean():.6e}, "
+              f"steps 41-50 {rel[-10:].mean():.6e}; target energy "
+              f"{float(energy.min()):.6e} to {float(energy.max()):.6e}",
+              flush=True)
+        print(f"config 3 as written, whole path (scene, 8 views, depth "
+              f"render, targets, {SPCRT_STEPS} steps): {wall:.2f} s host "
+              f"wall, peak {peak / 2 ** 20:.1f} MiB above "
+              f"{base / 2 ** 20:.1f} MiB held [{self.card}]", flush=True)
+        self.spcrt.update(scene=scene, views=views, state=state)
+
+    def phase_spcrt_crosscheck(self):
+        """Config 3's sphere shell (level 9, 512²) through the port's
+        ``unbatched_raytrace``, first hits against kernel #4's depth map, as
+        ``tests/render/test_spc_raster.py`` does in JAX: hit masks equal,
+        depths within rtol 2e-6 / atol 1e-6, ids equal wherever the depth
+        is bit for bit (at least 75% of the hits). #4-5 launch here,
+        outside the counted path."""
+        torch, ex = self.torch, self.spc_ex
+        from kaolin_tpu_torch.render.camera import generate_rays
+        rspc, cam, s = ex.build_scene(ex.config3_inputs(SPC_LEVEL), "cuda",
+                                      SPC_RES)
+        _, (t, nidx, valid, _) = ex.grow_caps(rspc, cam)
+        o, d = generate_rays(cam)
+        ridx, pidx, depth = self.rt.unbatched_raytrace(
+            s["octree"], s["point_hierarchy"], s["pyramid"], s["exsum"], o,
+            d, SPC_LEVEL)
+        r = ridx.long()
+        tin = depth[:, 0]
+        best = torch.full((o.shape[0],), float("inf"), device="cuda")
+        best = best.scatter_reduce(0, r, tin, "amin")
+        tie = tin == best[r]
+        best_id = torch.full((o.shape[0],), 2 ** 31 - 1, dtype=torch.int64,
+                             device="cuda").scatter_reduce(
+            0, r[tie], pidx[tie].long(), "amin")
+        hit = torch.isfinite(best)
+        same_mask = bool((valid == hit).all())
+        close = same_mask and bool(torch.allclose(
+            t[valid], best[valid], rtol=2e-6, atol=1e-6))
+        exact = (t == best) & valid
+        share = float(exact.sum()) / max(int(valid.sum()), 1)
+        ids = bool((nidx[exact] == best_id[exact]).all())
+        self.check(same_mask and close and share >= 0.75 and ids
+                   and bool((nidx[~valid] == -1).all()),
+                   f"cross-check at config 3 ({len(ridx)} nuggets): hit "
+                   f"masks equal {same_mask} ({int(valid.sum())} hits), "
+                   f"depths close {close}, {share:.4f} bit for bit, ids "
+                   f"equal there {ids}")
+
+    def phase_spcrt_timing(self):
+        """Config 3 as written: ``unbatched_mesh_to_spc``, the dual and the
+        trinkets (CUDA events, medians of 3), a depth frame and a fit step
+        (CUDA events, median of 10; ``torch.profiler``: device busy, ops,
+        idle share, the largest ops), and each one's peak memory."""
+        torch, ex = self.torch, self.rt_ex
+        sp = self.spcrt
+        scene, views, state = sp["scene"], sp["views"], sp["state"]
+        from kaolin_tpu_torch.ops.conversions import unbatched_mesh_to_spc
+        from kaolin_tpu_torch.ops.spc import (unbatched_make_dual,
+                                              unbatched_make_trinkets)
+        fv = torch.from_numpy(ex.mesh_faces()).cuda()
+        ph, pyr = scene["point_hierarchy"], scene["pyramid"]
+        ms = {"mesh_to_spc": lambda: unbatched_mesh_to_spc(fv, SPCRT_LEVEL),
+              "dual": lambda: unbatched_make_dual(ph, pyr),
+              "trinkets": lambda: unbatched_make_trinkets(
+                  ph, pyr, scene["dual"], scene["pyramid_dual"])}
+        t = {k: statistics.median(self.time_ms(fn, 3))
+             for k, fn in ms.items()}
+        print(f"config 3 as written, set-up at L{SPCRT_LEVEL}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+              + f" [{self.card}]", flush=True)
+        step = iter(range(SPCRT_STEPS, 10 ** 6))
+
+        def fit_step():
+            s = next(step) % ex.VIEWS
+            return ex.fit_step(scene, state["student"], state["optimizer"],
+                               views[s], state["targets"][s])
+        paths = {"depth frame": lambda: ex.depth_render(scene, views[0]),
+                 "fit step": fit_step}
+        for label, fn in paths.items():
+            event = statistics.median(self.time_ms(fn, SPCRT_TIMED))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            busy = self.profile_path(f"config 3 as written, {label} "
+                                     f"({SPCRT_RES}²)", (), fn)
+            t[label] = {"event_ms": event, "busy_ms": busy,
+                        "peak_mib": peak / 2 ** 20}
+            print(f"config 3 as written, {label} at {SPCRT_RES}²: "
+                  f"{event:.4f} ms (CUDA events, median of {SPCRT_TIMED}), "
+                  f"device busy {busy:.4f} ms, peak {peak / 2 ** 20:.1f} MiB "
+                  f"above {base / 2 ** 20:.1f} MiB held [{self.card}]",
+                  flush=True)
+        sp["timing"] = t
+        for key in ("scene", "views", "state"):   # 2.5 GB the card can use
+            del sp[key]
+        torch.cuda.empty_cache()
 
     # -- the table gather and the probe path ------------------------------
     def gather_case(self, n_tab, shape, lo=0, seed=0):
@@ -3132,14 +3673,17 @@ class Smoke:
                       self.phase_train_parity, self.phase_texfit_parity,
                       self.phase_main_path, self.phase_texfit_path,
                       self.phase_tutorials,
-                      self.phase_spc_main_path, self.phase_probe_path,
+                      self.phase_spc_main_path, self.phase_spcrt_parity,
+                      self.phase_spcrt_path, self.phase_spcrt_crosscheck,
+                      self.phase_probe_path,
                       self.phase_sim_path, self.phase_collision_path,
                       self.phase_train_path, self.phase_grad,
                       self.phase_timing, self.phase_texfit_timing,
                       self.phase_spc_timing,
                       self.phase_gather_timing, self.phase_sim_timing,
                       self.phase_collision_timing, self.phase_train_timing,
-                      self.phase_profile, self.phase_bounds):
+                      self.phase_profile, self.phase_spcrt_timing,
+                      self.phase_bounds):
             print(f"== {phase.__name__}", flush=True)
             t0 = time.perf_counter()
             try:

@@ -12,7 +12,10 @@ sources at first use; a tensor on the CPU takes the kernel's plain PyTorch
 version instead. The third, the Simplicits sim step of
 :class:`kaolin_tpu_torch.physics.simplicits.SimplicitsScene`, has no Pallas
 kernel in the JAX package and is plain PyTorch here (dense products and
-``torch.linalg`` solves), optionally replayed from a CUDA graph.
+``torch.linalg`` solves), optionally replayed from a CUDA graph; so is the
+SPC raytrace of :func:`kaolin_tpu_torch.render.spc.unbatched_raytrace`
+with the mesh → SPC conversion of :mod:`kaolin_tpu_torch.ops.conversions`
+and the ``Spc`` container of :mod:`kaolin_tpu_torch.rep`.
 
 ``kaolin_tpu`` stays the reference. This package imports neither it nor jax.
 """
@@ -24,4 +27,5 @@ from kaolin_tpu_torch import metrics  # noqa: F401
 from kaolin_tpu_torch import ops      # noqa: F401
 from kaolin_tpu_torch import physics  # noqa: F401
 from kaolin_tpu_torch import render   # noqa: F401
+from kaolin_tpu_torch import rep      # noqa: F401
 from kaolin_tpu_torch import utils    # noqa: F401

@@ -1,4 +1,5 @@
 from kaolin_tpu_torch.ops import batch  # noqa: F401
+from kaolin_tpu_torch.ops import conversions  # noqa: F401
 from kaolin_tpu_torch.ops import mesh  # noqa: F401
 from kaolin_tpu_torch.ops import pointcloud  # noqa: F401
 from kaolin_tpu_torch.ops import spc  # noqa: F401

@@ -1,15 +1,20 @@
-"""SPC point utilities: quantization, Morton codes, octree construction and
-cell corners.
+"""SPC point utilities: quantization, Morton codes, octree construction,
+cell corners and trilinear interpolation.
 
 Counterpart of ``kaolin_tpu/ops/spc/points.py``. Morton convention: (x, y,
 z) interleaved with z in the least significant bit of each triplet, so
 [0, 0, 1] → 1, [0, 1, 0] → 2, [1, 0, 0] → 4.
 
-Morton codes and octree construction run on the host in numpy, as in the
-JAX package: the octree has a variable length and is built once per asset.
-Each returns a tensor on ``device``; where it is None, on the device of the
-input when that is a tensor, else on the CPU.
+Morton codes are torch bit operations on the device of their input (the
+CPU for an array). The octree's bytes are packed on the host in numpy, as
+in the JAX package: the octree has a variable length and is built once per
+asset. Each returns a tensor on ``device``; where it is None, on the device
+of the input when that is a tensor, else on the CPU. Interpolation runs on
+the device of its inputs and is differentiable by autograd through its
+gathers.
 """
+
+import warnings
 
 import numpy as np
 import torch
@@ -21,6 +26,10 @@ __all__ = [
     "unbatched_points_to_octree",
     "morton_to_octree",
     "points_to_corners",
+    "coords_to_trilinear_coeffs",
+    "unbatched_interpolate_trilinear",
+    "create_dense_spc",
+    "coords_to_trilinear",
 ]
 
 
@@ -39,9 +48,9 @@ def device_of(x, device):
     return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
 
 
-def _spread_bits_np(x):
+def _spread_bits(x):
     """Spread 16-bit ints so bits occupy every third position (int64)."""
-    x = x.astype(np.int64) & 0xFFFF
+    x = x.to(torch.int64) & 0xFFFF
     x = (x | (x << 16)) & 0x0000FF0000FF
     x = (x | (x << 8)) & 0x00F00F00F00F
     x = (x | (x << 4)) & 0x0C30C30C30C3
@@ -49,8 +58,8 @@ def _spread_bits_np(x):
     return x
 
 
-def _compact_bits_np(x):
-    x = x.astype(np.int64) & 0x249249249249
+def _compact_bits(x):
+    x = x & 0x249249249249
     x = (x | (x >> 2)) & 0x0C30C30C30C3
     x = (x | (x >> 4)) & 0x00F00F00F00F
     x = (x | (x >> 8)) & 0x0000FF0000FF
@@ -58,10 +67,11 @@ def _compact_bits_np(x):
     return x
 
 
-def _morton_np(pts):
-    pts = pts.reshape(-1, 3).astype(np.int64)
-    return (_spread_bits_np(pts[:, 0]) << 2 | _spread_bits_np(pts[:, 1]) << 1
-            | _spread_bits_np(pts[:, 2]))
+def _int64_tensor(x):
+    """A tensor as it is, or an array-like as an int64 CPU tensor."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.array(x, dtype=np.int64))
 
 
 def quantize_points(x, level):
@@ -72,29 +82,36 @@ def quantize_points(x, level):
 
 
 def points_to_morton(points, device=None):
-    """(..., 3) int coords → (...,) int64 Morton codes."""
-    pts = host(points)
-    m = _morton_np(pts).reshape(pts.shape[:-1])
-    return torch.from_numpy(m).to(device_of(points, device))
+    """(..., 3) int coords → (...,) int64 Morton codes, by torch bit
+    operations on the device of ``points`` (the CPU for an array)."""
+    pts = _int64_tensor(points)
+    m = (_spread_bits(pts[..., 0]) << 2 | _spread_bits(pts[..., 1]) << 1
+         | _spread_bits(pts[..., 2]))
+    return m.to(device_of(points, device))
 
 
 def morton_to_points(morton, device=None):
-    """(...,) Morton codes → (..., 3) int16 coords."""
-    m = host(morton).astype(np.int64)
-    flat = m.reshape(-1)
-    pts = np.stack([_compact_bits_np(flat >> 2), _compact_bits_np(flat >> 1),
-                    _compact_bits_np(flat)], axis=-1)
-    return torch.from_numpy(pts.astype(np.int16).reshape(m.shape + (3,))).to(
-        device_of(morton, device))
+    """(...,) Morton codes → (..., 3) int16 coords, by torch bit operations
+    on the device of ``morton`` (the CPU for an array)."""
+    m = _int64_tensor(morton).to(torch.int64)
+    pts = torch.stack([_compact_bits(m >> 2), _compact_bits(m >> 1),
+                       _compact_bits(m)], dim=-1).to(torch.int16)
+    return pts.to(device_of(morton, device))
 
 
 def unbatched_points_to_octree(points, level, sorted=False, device=None):
     """Quantized points (N, 3) at ``level`` → byte-packed octree, uint8.
 
-    ``sorted=True`` says the points are already unique: their codes are
-    sorted but not deduplicated."""
-    m = _morton_np(host(points))
-    m = np.sort(m) if sorted else np.unique(m)
+    ``sorted=True`` says the points are already unique."""
+    m = points_to_morton(points, "cpu").reshape(-1)
+    return morton_to_octree(m if sorted else torch.unique(m), level,
+                            device_of(points, device))
+
+
+def morton_to_octree(morton, level, device=None):
+    """Unique Morton codes at ``level`` → octree bytes, packed level by
+    level from the root on the host."""
+    m = np.sort(host(morton).astype(np.int64))
     octree_levels = []
     for _ in range(level, 0, -1):
         parent = m >> 3
@@ -108,14 +125,7 @@ def unbatched_points_to_octree(points, level, sorted=False, device=None):
         m = uniq_parent
     octree_levels.reverse()
     return torch.from_numpy(np.concatenate(octree_levels)).to(
-        device_of(points, device))
-
-
-def morton_to_octree(morton, level, device=None):
-    """Sorted unique Morton codes at ``level`` → octree bytes."""
-    return unbatched_points_to_octree(
-        morton_to_points(morton, device="cpu"), level, sorted=True,
-        device=device_of(morton, device))
+        device_of(morton, device))
 
 
 def points_to_corners(points):
@@ -124,3 +134,58 @@ def points_to_corners(points):
     offs = torch.stack([(c >> 2) & 1, (c >> 1) & 1, c & 1], dim=-1).to(
         points.dtype)
     return points[..., None, :] + offs
+
+
+def coords_to_trilinear_coeffs(coords, points, level):
+    """Trilinear coefficients of [-1, 1] ``coords`` inside the cells whose
+    quantized origins are ``points`` → (..., 8), corners z fastest."""
+    points = points.to(coords.dtype)
+    x = (coords + 1.0) * (2 ** level / 2.0) - points   # local, in [0, 1]
+    xp = 1.0 - x
+    cx = torch.stack([xp[..., 0]] * 4 + [x[..., 0]] * 4, dim=-1)
+    cy = torch.stack([xp[..., 1], xp[..., 1], x[..., 1], x[..., 1]] * 2,
+                     dim=-1)
+    cz = torch.stack([xp[..., 2], x[..., 2]] * 4, dim=-1)
+    return cx * cy * cz
+
+
+def unbatched_interpolate_trilinear(coords, pidx, point_hierarchy, trinkets,
+                                    feats, level):
+    """Trilinearly interpolate per-corner features at query coords.
+
+    Args:
+        coords: (N, S, 3) in [-1, 1] (S samples per query point).
+        pidx: (N,) indices into ``point_hierarchy`` (as from
+            ``unbatched_query``); -1 for misses, which give zeros.
+        point_hierarchy: (num_points, 3) int16.
+        trinkets: (num_points, 8) corner indices into ``feats``.
+        feats: (num_corners, D).
+        level: the octree level of the query.
+
+    Returns:
+        (N, S, D), differentiable in ``coords`` and ``feats``.
+    """
+    valid = pidx >= 0
+    safe = torch.where(valid, pidx, 0).long()
+    cell = point_hierarchy[safe].to(coords.dtype)             # (N, 3)
+    coeffs = coords_to_trilinear_coeffs(coords, cell[:, None, :], level)
+    corner_feats = feats[trinkets[safe].long()]               # (N, 8, D)
+    out = torch.einsum("nsc,ncd->nsd", coeffs,
+                       corner_feats.to(coords.dtype))
+    return torch.where(valid[:, None, None], out, 0.0)
+
+
+def create_dense_spc(level, device=None):
+    """A fully dense octree of ``level`` → (octree uint8, lengths int32),
+    on ``device`` (the CPU when None)."""
+    num_bytes = sum(8 ** lv for lv in range(level))
+    octree = torch.full((num_bytes,), 255, dtype=torch.uint8, device=device)
+    return octree, torch.tensor([num_bytes], dtype=torch.int32,
+                                device=device)
+
+
+def coords_to_trilinear(coords, points, level):
+    """Deprecated alias of :func:`coords_to_trilinear_coeffs`."""
+    warnings.warn("coords_to_trilinear is deprecated, "
+                  "use coords_to_trilinear_coeffs", DeprecationWarning)
+    return coords_to_trilinear_coeffs(coords, points, level)

@@ -456,22 +456,44 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+def ray_origin(cam_r, cam_t):
+    """A pinhole camera's ray origin −Rᵀt, (3,) float32, as the JAX
+    package's rays start: with fused multiply-adds where XLA's CPU backend
+    contracts its ``r0·(0 − t0) + r1·(0 − t1) + r2·(0 − t2)``. Rays from
+    it start at the same float in both packages, so their traversals agree
+    bit for bit at most pixels."""
+    r = cam_r.reshape(9).to(torch.float32)
+    neg = 0.0 - cam_t.reshape(3).to(torch.float32)
+    return torch.stack([_fma(r[6 + k], neg[2],
+                             _fma(r[k], neg[0], r[3 + k] * neg[1]))
+                        for k in range(3)])
+
+
+def lookat_ray_origin(cam_r, eye):
+    """The ray origin of a look-at camera at ``eye`` with rotation
+    ``cam_r``, (3,) float32, as the JAX package's rays start: XLA's CPU
+    backend contracts both the translation t = −R·eye and the origin
+    −Rᵀ(0 − t) into fused multiply-adds, taken here in its order.
+    ``generate_rays`` rounds each product on its own, as the camera's
+    matrices are written; an origin 1 ulp off moves grazing rays across
+    cell faces, so a traversal held to the JAX package's nuggets starts its
+    rays here."""
+    r = cam_r.reshape(3, 3).to(torch.float32)
+    eye = eye.reshape(3).to(torch.float32)
+    t = -torch.stack([_fma(r[i, 2], eye[2], _fma(r[i, 1], eye[1],
+                                                  r[i, 0] * eye[0]))
+                      for i in range(3)])
+    return ray_origin(r, t)
+
+
 def _camera_vector(cam_r, cam_t, tan_h, tan_v, x0, y0):
     """The (19,) float32 camera vector of the tile kernel: R row-major, t,
-    tan_h, tan_v, x0, y0 and the ray origin −Rᵀt.
-
-    The origin is computed here, once per frame, with fused multiply-adds
-    where XLA's CPU backend contracts the JAX package's
-    ``r0·(0 − t0) + r1·(0 − t1) + r2·(0 − t2)``: the two packages then
-    start every ray at the same float, and their depths agree bit for bit
-    at most pixels."""
-    r = cam_r.reshape(9).to(torch.float32)
-    t = cam_t.reshape(3).to(torch.float32)
-    neg = 0.0 - t
-    origin = [_fma(r[6 + k], neg[2], _fma(r[k], neg[0], r[3 + k] * neg[1]))
-              for k in range(3)]
-    return torch.cat([r, t, torch.stack([tan_h, tan_v, x0, y0, *origin]).to(
-        torch.float32)])
+    tan_h, tan_v, x0, y0 and the ray origin (:func:`ray_origin`), computed
+    once per frame."""
+    return torch.cat([cam_r.reshape(9).to(torch.float32),
+                      cam_t.reshape(3).to(torch.float32),
+                      torch.stack([tan_h, tan_v, x0, y0]).to(torch.float32),
+                      ray_origin(cam_r, cam_t)])
 
 
 def _finish(depth, nidx, overflow):

@@ -1,6 +1,7 @@
 """Hand numpy data to the port, so both packages see identical inputs, and
 carry the JAX package's Simplicits MLP weights, RKPM fields, physics points,
-contact buffers and configured ``Collision`` objects into the port."""
+contact buffers, configured ``Collision`` objects, SPC convolution
+parameters and nglod-style feature fields into the port."""
 
 import numpy as np
 import torch
@@ -128,3 +129,34 @@ def collision_from_jax(collision):
     if collision.grid_origin is not None:
         out.grid_origin = np.array(collision.grid_origin, np.float32)
     return out
+
+
+def spc_conv_params_from_jax(params):
+    """The JAX package's SPC convolution parameters (``Conv3d.init``'s
+    dict: ``weight`` (K, Cin, Cout), optional ``bias``) as a state dict for
+    the port's ``Conv3d``/``ConvTranspose3d``: the same layout, so the
+    arrays are copied as they are."""
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in
+            params.items()}
+
+
+def nglod_params_from_jax(params, device="cpu"):
+    """An nglod-style field's parameters in the JAX layout, ``{"features":
+    (N, F), "decoder": [{"w": (in, out), "b": (out,)}, ...]}`` with ``x @
+    w + b`` layers and a ReLU between them → ``{"features": tensor,
+    "decoder": nn.Sequential}`` on ``device``, each ``nn.Linear`` holding
+    the transposed (out, in) weight."""
+    from torch import nn
+
+    layers = []
+    for i, layer in enumerate(params["decoder"]):
+        w = np.array(layer["w"], np.float32)
+        linear = nn.Linear(w.shape[0], w.shape[1], device=device)
+        with torch.no_grad():
+            linear.weight.copy_(torch.from_numpy(w.T.copy()))
+            linear.bias.copy_(torch.from_numpy(np.array(layer["b"],
+                                                        np.float32)))
+        layers += [nn.ReLU(), linear] if i else [linear]
+    return {"features": torch.from_numpy(np.array(
+                params["features"], np.float32)).to(device),
+            "decoder": nn.Sequential(*layers)}

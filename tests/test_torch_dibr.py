@@ -533,12 +533,18 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "kaolin_tpu_torch.render.camera.coordinates, "
             "kaolin_tpu_torch.render.camera.trajectory, "
             "kaolin_tpu_torch.render.mesh.utils, "
-            "kaolin_tpu_torch.utils.numerics, runpy\n"
+            "kaolin_tpu_torch.utils.numerics, "
+            "kaolin_tpu_torch.ops.spc.exsum_compat, "
+            "kaolin_tpu_torch.ops.spc.convolution, "
+            "kaolin_tpu_torch.ops.spc.raytraced_spc_dataset, "
+            "kaolin_tpu_torch.ops.conversions, kaolin_tpu_torch.rep, "
+            "kaolin_tpu_torch.render.spc.raytrace, runpy\n"
             "for ex in ('torch_simplicits_drop', 'torch_simplicits_train', "
             "'torch_dibr_optimization', 'torch_dibr_texture_fit', "
             "'torch_tutorial_camera_rasterization', "
             "'torch_tutorial_bbox_fitting', 'torch_spc_raster', "
-            "'torch_collision_stack'):\n"
+            "'torch_collision_stack', 'torch_spc_raytrace', "
+            "'torch_tutorial_understanding_spcs'):\n"
             "    runpy.run_path(f'examples/{ex}.py')\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'kaolin_tpu.')) or m == 'kaolin_tpu']\n"

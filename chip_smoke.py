@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's eight paths on one NVIDIA GPU and check them:
+"""Run the PyTorch port's ten paths on one NVIDIA GPU and check them:
 the DIB-R inverse-rendering step, the DIB-R pose-and-texture fit (config 2
 as written, ``examples/torch_dibr_texture_fit.py``, with the two ported
 camera and bounding-box tutorials), the SPC first-hit raster, config 3 as
@@ -8,8 +8,12 @@ nglod-style fit, ``examples/torch_spc_raytrace.py``), the primitive-cost
 probe with its table-gather kernel, the Simplicits sim step (config 1),
 Simplicits contact (``bench.py``'s ``collision_10k``) and Simplicits
 training, config 1's easy-API path from a closed mesh
-(``examples/torch_simplicits_train.py``; config 3 as written and the last
-three plain PyTorch: the JAX package has no kernel there).
+(``examples/torch_simplicits_train.py``), and config 4, the FlexiCubes
+SDF fit at res 64 in its bench and topology forms
+(``examples/torch_flexicubes_sdf.py``), with the DMTet tutorial
+(``examples/torch_tutorial_dmtet.py``; config 3 as written, the three
+Simplicits paths and config 4 are plain PyTorch: the JAX package has no
+kernel there).
 
     python3 chip_smoke.py
 
@@ -94,7 +98,24 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    below 0.7 of steps 1-10), and the cross-check: config 3's shell
    through ``unbatched_raytrace`` against #4's depth map (hit masks
    equal, depths within rtol 2e-6 / atol 1e-6, ids equal where the depth
-   is bit for bit, at least 75%);
+   is bit for bit, at least 75%); then config 4: its modules card vs CPU
+   at res 16 on the ellipsoid and a seeded random field with C16/C19
+   cubes (``phase_flexi_parity``: the grid, the topology, every face, tet,
+   mask and count equal through ``dense_extract``, ``__call__`` with
+   weights and features, ``output_tetmesh`` and ``jit_extract``, marching
+   tets, marching cubes, cube meshes, MISE, ``ops/voxelgrid`` and the
+   metrics, ``sided_distance`` ids among them; floats within 1e-6; the
+   gradients in the field and the three weights within 1e-5 of max|g|,
+   gamma_f's within that or twice the CPU float32 gradient's own distance
+   from float64; the QEF placement within 1e-5 of a float64 solve on the
+   CPU, within that or twice the CPU's distance on the card), then the
+   path at full width with every counter set to 0 before and read after
+   (``phase_flexi_path``: both forms at res 64 for 50 steps, step 1 with
+   the JAX package's 9,240 surface cubes, 9,238 quads, 36,952 faces and
+   1,810,624 / 3,048,192 dense slots, the loss falling;
+   DMTet's 120 steps, the chamfer halved; no kernel may launch; one step
+   of each form card vs CPU from the start field; marching cubes of the
+   fitted field card = CPU);
 7. the table gather's two routes (shared memory, L2) held bit for bit
    against ``table_gather_plain``: the probe's shape, 2^14 and 2^20
    tables, 58,112 and 58,113 floats (either side of the route rule),
@@ -129,7 +150,9 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    differentiable step's gradient (graft scene) card vs CPU within 1e-3 of
    max|g|, finite and not zero; the training step's steps/s (steps 100-300
    of one run), ``check_sign``, FPS, ``create_with_rkpm`` and one
-   differentiable config-1 step forward and backward; config 3 as
+   differentiable config-1 step forward and backward; config 4's bench
+   step, 50-step run, topology step, topology alone and DMTet step (CUDA
+   events, medians of 10, peak memory; their profiles in phase 10); config 3 as
    written: ``unbatched_mesh_to_spc``, the dual and the trinkets, a depth
    frame and a fit step (event ms, device busy, ops, idle share, the
    largest ops, peak memory);
@@ -144,7 +167,9 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    tables of 2^10 to 58,112 floats, to show where the route rule belongs;
    the config-1 sim step and the collision_10k step eager and as a graph
    replay, and one training step: device busy, idle share and the largest
-   ops, and detection's share of the collision_10k step (the texture fit's
+   ops, and detection's share of the collision_10k step; config 4's two
+   steps and the DMTet step: device ops, busy, idle share, largest ops
+   (the texture fit's
    step, with #1-3's device ms at its shapes, is profiled in its timing
    phase);
 11. each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
@@ -251,6 +276,16 @@ SPCRT_EXPECT = {"octree_bytes": 181_068, "leaves": 519_599,
 SPCRT_TOL = {"t": 1e-6, "rel": 1e-6, "grad": 1e-5, "own": 0.1, "f64": 1e-10,
              "replay": 1e-6}
 SPCRT_SUMS = ("features", "w0")
+FLEXI_PARITY_RES = 16           # config 4 card vs CPU
+FLEXI_RES = 64
+FLEXI_STEPS = 50
+FLEXI_TIMED = 10
+# the JAX package's integers at step 1 of config 4 from its start field
+FLEXI_EXPECT = {"surf_cubes": 9240, "dual_vertices": 9240, "quads": 9238,
+                "faces": 36952, "vertex_slots": 1_810_624,
+                "face_slots": 3_048_192}
+FLEXI_TOL = {"float": 1e-6, "grad": 1e-5, "loss": 1e-5, "qef": 1e-5,
+             "own": 2.0, "f64": 1e-10}
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores
@@ -561,6 +596,13 @@ class Smoke:
         self.tex_ex = load_example("torch_dibr_texture_fit")
         self.texfit = {}  # the texture fit's measurements
         self.rt_ex = load_example("torch_spc_raytrace")
+        self.flexi_ex = load_example("torch_flexicubes_sdf")
+        self.dmtet_ex = load_example("torch_tutorial_dmtet")
+        from kaolin_tpu_torch import metrics
+        from kaolin_tpu_torch.ops import conversions, voxelgrid
+        self.FlexiCubes = conversions.FlexiCubes
+        self.conv, self.vgops, self.metrics = conversions, voxelgrid, metrics
+        self.flexi = {}   # config 4: its states and measurements
         from kaolin_tpu_torch.render.spc import raytrace
         self.rt = raytrace
         self.spcrt = {}   # config 3 as written: its scene and measurements
@@ -1953,6 +1995,543 @@ class Smoke:
             del sp[key]
         torch.cuda.empty_cache()
 
+    # -- config 4: FlexiCubes, DMTet, the conversions and the metrics -----
+    def flexi_inputs(self, res=FLEXI_PARITY_RES):
+        """The card-vs-CPU inputs (numpy): the ellipsoid config 4 starts
+        from and a seeded random field (its surface cubes include C16/C19
+        cubes that invert), seeded weights and vertex features; a tet grid
+        (the tutorial's at res 8) with two seeded fields; a noisy ball and
+        a radial field as voxelgrids; two seeded point clouds (5,000
+        points: three tiles of 2,048); jittered regular tets."""
+        rng = np.random.RandomState(7)
+        v, _ = self.FlexiCubes(device="cpu").construct_voxel_grid(res)
+        v = v.numpy()
+        n = res ** 3
+        tet_v, tets = self.dmtet_ex.make_tet_grid(8)
+        ijk = np.stack(np.meshgrid(*[np.arange(10)] * 3, indexing="ij"), -1)
+        r = np.linalg.norm(ijk - 4.5, axis=-1)
+        rest = np.array([[0.0, 0, 0], [1, 0, 0], [0.5, np.sqrt(3) / 2, 0],
+                         [0.5, np.sqrt(3) / 6, np.sqrt(2 / 3)]])
+        f32 = np.float32
+        return {
+            "fields": {
+                "ellipsoid": (np.linalg.norm(v * [1.6, 0.7, 1.0], axis=-1)
+                              - 0.35).astype(f32),
+                "random": (rng.randn(v.shape[0]) * 0.1).astype(f32)},
+            "beta": (rng.randn(n, 12) * 0.5).astype(f32),
+            "alpha": (rng.randn(n, 8) * 0.5).astype(f32),
+            "gamma_f": rng.randn(n).astype(f32),
+            "features": rng.rand(v.shape[0], 4).astype(f32),
+            "tet_v": np.stack([tet_v + rng.uniform(-0.05, 0.05, tet_v.shape)
+                               for _ in range(2)]).astype(f32),
+            "tets": tets,
+            "tet_sdf": np.stack([np.linalg.norm(tet_v, axis=-1) - 0.6
+                                 + 0.2 * rng.randn(tet_v.shape[0])
+                                 for _ in range(2)]).astype(f32),
+            "voxels": np.stack([(r + rng.randn(10, 10, 10)) < 3.5,
+                                np.clip(1 - r / 4.5, 0, None)]).astype(f32),
+            "p1": rng.randn(2, 1000, 3).astype(f32),
+            "p2": rng.randn(2, 5000, 3).astype(f32),
+            "tet_corners": ((rest + rng.uniform(-0.15, 0.15, (2, 50, 4, 3)))
+                            * rng.uniform(0.5, 2.0, (2, 50, 1, 1))
+                            ).astype(f32)}
+
+    def flexi_outputs(self, inp, device, res=FLEXI_PARITY_RES):
+        """Every config-4 module on ``device`` from ``inp`` → (integers,
+        floats, gradients), dicts of tensors on the host: ``dense_extract``,
+        ``__call__`` (split and training; with weights and features; the
+        QEF placement; ``output_tetmesh``), ``jit_extract`` with its
+        counts, the topology, the gradients in the field and the three
+        weights; marching tets (both APIs), marching cubes, cube meshes,
+        MISE, ``ops/voxelgrid`` and the three metrics modules."""
+        torch, conv = self.torch, self.conv
+        ints, floats, grads = {}, {}, {}
+
+        def put(name, x):
+            x = torch.as_tensor(x).detach().cpu()
+            (floats if x.is_floating_point() else ints)[name] = x
+
+        def on(a):
+            return torch.from_numpy(np.array(a)).to(device)
+
+        fc = self.FlexiCubes(device=device)
+        v, c = fc.construct_voxel_grid(res)
+        put("grid vertices", v)
+        put("cube_idx", c)
+        w = {k: on(inp[k]) for k in ("beta", "alpha", "gamma_f")}
+        feats = on(inp["features"])
+        for fname, f in inp["fields"].items():
+            s = on(f)
+            topo = fc.precompute_topology(s, c, res)
+            tet = fc.precompute_tet_topology(s, c, topo)
+            for k, x in (*topo._asdict().items(), *tet._asdict().items()):
+                if x is not None:
+                    put(f"{fname} topology {k}", x)
+            for training in (False, True):
+                tag = f"{fname} {'training' if training else 'split'}"
+                dv, df, dl, aux = conv.dense_extract(s, res, training=training,
+                                                     **w)
+                for k, x in (("vertices", dv), ("faces", df), ("l_dev", dl),
+                             ("face_mask", aux["face_mask"]),
+                             ("vertex_mask", aux["vertex_mask"]),
+                             *aux["counts"].items()):
+                    put(f"{tag} dense {k}", x)
+                for k, x in zip(("vertices", "faces", "l_dev", "features"),
+                                fc(v, s, c, res, training=training,
+                                   voxelgrid_features=feats, **w)):
+                    put(f"{tag} __call__ {k}", x)
+                for k, x in zip(("vertices", "tets", "l_dev"),
+                                fc(v, s, c, res, training=training,
+                                   output_tetmesh=True)):
+                    put(f"{tag} tetmesh {k}", x)
+                jv, jf, jl, jaux = fc.jit_extract(v, s, c, res,
+                                                  training=training, **w)
+                for k, x in (("vertices", jv), ("faces", jf), ("l_dev", jl),
+                             ("face_mask", jaux["face_mask"]),
+                             ("vertex_mask", jaux["vertex_mask"]),
+                             *jaux["counts"].items()):
+                    put(f"{tag} jit_extract {k}", x)
+            names = ("sdf", "beta", "alpha", "gamma_f")
+            for k, g in self.flexi_call_grads(inp, fname, device).items():
+                grads[f"{fname} __call__ d/d{k}"] = g
+            args = [s.clone().requires_grad_(True)] + [
+                w[k].clone().requires_grad_(True) for k in names[1:3]]
+            _, _, reg, aux = conv.dense_extract(
+                args[0], res, training=True, **dict(zip(names[1:], args[1:])))
+            vd, vm = aux["vd_dense"], aux["vd_valid_dense"]
+            nv = vm.sum().clamp(min=1)
+            ((torch.sqrt((vd * vd).sum(1)) - 0.35).abs() * vm).sum() \
+                .div(nv).add(0.01 * reg.sum() / nv).backward()
+            for k, a in zip(names, args):
+                grads[f"{fname} dense d/d{k}"] = a.grad.cpu()
+            sg = s.clone().requires_grad_(True)
+            jv, jf, _, jaux = fc.jit_extract(v, sg, c, res, training=True)
+            torch.where(jaux["face_mask"], (jv[jf].mean(1) ** 2).sum(-1),
+                        0.0).sum().backward()
+            grads[f"{fname} jit_extract d/dsdf"] = sg.grad.cpu()
+
+        tv, tt, ts = on(inp["tet_v"]), on(inp["tets"]), on(inp["tet_sdf"])
+        for b, out in enumerate(zip(*conv.marching_tetrahedra(tv, tt, ts,
+                                                              True))):
+            for k, x in zip(("vertices", "faces", "tet_idx"), out):
+                put(f"marching_tetrahedra {b} {k}", x)
+        for k, x in conv.marching_tetrahedra_fixed(tv[0], tt, ts[0]).items():
+            put(f"marching_tetrahedra_fixed {k}", x)
+        vox = on(inp["voxels"])
+        for iso in (0.5, 0.2):
+            for b, (mv, mf) in enumerate(zip(
+                    *conv.voxelgrids_to_trianglemeshes(vox, iso))):
+                put(f"marching cubes {iso} {b} vertices", mv)
+                put(f"marching cubes {iso} {b} faces", mf)
+        for tri in (True, False):
+            for b, (mv, mf) in enumerate(zip(
+                    *conv.voxelgrids_to_cubic_meshes(vox > 0.5, tri))):
+                put(f"cubic meshes {tri} {b} vertices", mv)
+                put(f"cubic meshes {tri} {b} faces", mf)
+        put("MISE", conv.sdf_to_voxelgrids(
+            [lambda p: (p ** 2).sum(1) ** 0.5 - 0.4,
+             lambda p: torch.sqrt(((p - torch.tensor(
+                 [0.05, 0.0, -0.1], device=p.device)) ** 2).sum(1)) - 0.3],
+            init_res=8, upsampling_steps=2, device=device))
+        vgo = self.vgops
+        binary = vox[:1] > 0.5
+        put("downsample", vgo.downsample(vox, [2, 2, 5]))
+        for mode in ("wide", "thin"):
+            put(f"extract_surface {mode}", vgo.extract_surface(binary, mode))
+        put("fill", vgo.fill(vox > 0.3))
+        odms = vgo.extract_odms(vox > 0.3)
+        put("extract_odms", odms)
+        put("project_odms", vgo.project_odms(odms, votes=2))
+        put("iou", self.metrics.voxelgrid.iou(binary, vox[1:] > 0.3))
+        pcm, tm = self.metrics.pointcloud, self.metrics.tetmesh
+        p1, p2 = on(inp["p1"]), on(inp["p2"])
+        for k, x in zip(("dist", "idx"), pcm.sided_distance(p1, p2)):
+            put(f"sided_distance {k}", x)
+        put("chamfer_distance", pcm.chamfer_distance(p1, p2[:, :1500]))
+        put("f_score", pcm.f_score(p1, p2[:, :1500], 0.1))
+        a = p1.clone().requires_grad_(True)
+        b = p2[:, :1500].clone().requires_grad_(True)
+        pcm.chamfer_distance(a, b).sum().backward()
+        grads["chamfer d/dp1"], grads["chamfer d/dp2"] = a.grad.cpu(), \
+            b.grad.cpu()
+        corners = on(inp["tet_corners"])
+        put("tetrahedron_volume", tm.tetrahedron_volume(corners))
+        put("equivolume", tm.equivolume(corners))
+        put("amips", tm.amips(corners, torch.eye(3, device=device)))
+        return ints, floats, grads
+
+    def flexi_call_grads(self, inp, fname, device, dtype=None,
+                         res=FLEXI_PARITY_RES):
+        """d(sum v² + sum l_dev)/d(sdf, beta, alpha, gamma_f) through
+        ``FlexiCubes.__call__`` (training split, fixed topology) on
+        ``device``, in ``dtype`` (float32 unless named) → {name: gradient
+        on the host}."""
+        torch = self.torch
+        names = ("sdf", "beta", "alpha", "gamma_f")
+        fc = self.FlexiCubes(device=device)
+        v, c = fc.construct_voxel_grid(res)
+        dtype = dtype or v.dtype
+        args = [torch.from_numpy(np.array(x)).to(device, dtype)
+                .requires_grad_(True)
+                for x in (inp["fields"][fname], *(inp[k] for k in names[1:]))]
+        topo = fc.precompute_topology(args[0], c, res)
+        vv, _, ll = fc(v.to(dtype), args[0], c, res, topology=topo,
+                       training=True, **dict(zip(names[1:], args[1:])))
+        ((vv ** 2).sum() + ll.sum()).backward()
+        return {k: a.grad.cpu() for k, a in zip(names, args)}
+
+    def qef_case(self, inp, device, res=FLEXI_PARITY_RES):
+        """The QEF placement of the ellipsoid with its own normal, split
+        and training, on ``device`` → {mode: (vertices, faces, normals' split
+        from the vertices)} on the host and the topology (host)."""
+        torch = self.torch
+        k2 = torch.tensor([1.6, 0.7, 1.0], device=device) ** 2
+
+        def normal(x):
+            return x * k2 / torch.linalg.norm(x * k2, dim=-1, keepdim=True)
+
+        fc = self.FlexiCubes(device=device)
+        v, c = fc.construct_voxel_grid(res)
+        s = torch.from_numpy(inp["fields"]["ellipsoid"]).to(device)
+        topo = fc.precompute_topology(s, c, res)
+        nvd, q = topo.total_num_vd, topo.quad_vd_idx
+        out = {}
+        for training in (False, True):
+            vv, ff, _ = fc(v, s, c, res, grad_func=normal, training=training)
+            n = normal(vv[:nvd])
+            n = n / torch.linalg.norm(n, dim=-1, keepdim=True).clamp(
+                min=1e-12)
+            g02 = (n[q[:, 0]] * n[q[:, 2]]).sum(-1)
+            g13 = (n[q[:, 1]] * n[q[:, 3]]).sum(-1)
+            if training:
+                rule = q[:, [0, 1, 1, 2, 2, 3, 3, 0]]
+                got = ff.reshape(-1, 4, 3)[:, :, :2].reshape(-1, 8)
+            else:
+                rule = torch.where((g02 > g13)[:, None],
+                                   q[:, [0, 1, 2, 0, 2, 3]],
+                                   q[:, [0, 1, 3, 3, 1, 2]]).reshape(-1, 3)
+                got = ff
+            out["training" if training else "split"] = (
+                vv[:nvd].cpu(), bool(torch.equal(got, rule)))
+        return out, {k: (x.cpu().numpy() if torch.is_tensor(x) else x)
+                     for k, x in topo._asdict().items()}, c.cpu().numpy()
+
+    def qef_reference(self, topo, cube_idx, field, res=FLEXI_PARITY_RES,
+                      reg=1e-3):
+        """Each dual vertex's QEF solution in float64 numpy, one
+        ``np.linalg.lstsq`` a vertex, from the host topology: the system
+        ``FlexiCubes._solve_qef`` builds."""
+        v, _ = self.FlexiCubes(device="cpu").construct_voxel_grid(res)
+        v = v.numpy().astype(np.float64)
+        k2 = np.array([1.6, 0.7, 1.0]) ** 2
+        e = topo["surf_edges"]
+        s0 = field[e[:, 0]].astype(np.float64)
+        s1 = field[e[:, 1]].astype(np.float64)
+        zc = (v[e[:, 0]] * s1[:, None] - v[e[:, 1]] * s0[:, None]) \
+            / (s1 - s0)[:, None]
+        nrm = zc * k2 / np.linalg.norm(zc * k2, axis=-1, keepdims=True)
+        idx = topo["idx_map"].reshape(-1)[topo["edge_group_to_cube"] * 12
+                                          + topo["edge_group"]]
+        surf_rows = cube_idx[topo["surf_cubes"]]
+        out = np.zeros((topo["total_num_vd"], 3))
+        for vd in range(topo["total_num_vd"]):
+            sel = topo["edge_group_to_vd"] == vd
+            p, n = zc[idx[sel]], nrm[idx[sel]]
+            v0 = v[surf_rows[topo["edge_group_to_cube"][sel][0], 0]]
+            a = np.concatenate([n, np.eye(3) * reg])
+            b = np.concatenate([((p - v0) * n).sum(-1),
+                                reg * (p.mean(0) - v0)])
+            out[vd] = np.linalg.lstsq(a, b, rcond=None)[0] + v0
+        return out
+
+    def check_qef(self, inp):
+        """The QEF placement on each device against the float64 solve of
+        the same systems: float32 QR solves (``gels``) of systems that the
+        1e-3 regularization rows leave ill-conditioned sit near 1e-5 from
+        it, so the card is held within 1e-5 or twice the CPU's distance,
+        whichever is larger, the CPU within 1e-5 (as the CPU test holds
+        it); each device's faces follow the split rule on its own
+        vertices."""
+        cases = {d: self.qef_case(inp, d) for d in ("cpu", "cuda")}
+        topo, cube_idx = cases["cpu"][1], cases["cpu"][2]
+        want = self.qef_reference(topo, cube_idx,
+                                  inp["fields"]["ellipsoid"])
+        bound = FLEXI_TOL["qef"]
+        for d, (out, _, _) in cases.items():
+            errs = {m: float(np.abs(vv.double().numpy() - want).max())
+                    for m, (vv, _) in out.items()}
+            for mode, (vv, rule_ok) in out.items():
+                self.check(errs[mode] <= bound and rule_ok,
+                           f"flexi QEF ({mode}) on {d}: {len(want)} dual "
+                           f"vertices within {errs[mode]:.3g} of the float64 "
+                           f"solve (bound {bound:.3g}), faces follow the "
+                           f"split rule {rule_ok}")
+            if d == "cpu":
+                bound = max(bound, FLEXI_TOL["own"] * max(errs.values()))
+        gap = max(float((cases["cuda"][0][m][0] - cases["cpu"][0][m][0])
+                        .abs().max()) for m in ("split", "training"))
+        print(f"  QEF vertices card vs CPU: {gap:.3g}")
+
+    def phase_flexi_parity(self):
+        """Config 4's modules on the card against the port on the CPU from
+        the same inputs (``flexi_inputs``, res 16): the grid, every topology
+        array, faces, tets, masks, counts and the other integers equal; the
+        floats within 1e-6 (of max(1, max|x|)); the gradients in the field,
+        beta, alpha and gamma_f (and the chamfer's in its points) within
+        1e-5 of max|g|."""
+        torch = self.torch
+        inp = self.flexi_inputs()
+        card = self.flexi_outputs(inp, "cuda")
+        cpu = self.flexi_outputs(inp, "cpu")
+        for i, kind in enumerate(("integer", "float", "gradient")):
+            self.check(card[i].keys() == cpu[i].keys(),
+                       f"flexi parity: the same {kind} outputs on both "
+                       "devices")
+        ints, floats, grads = cpu
+        # gamma_f's gradient is a difference of nearby dual vertices (the
+        # quad centre's pull): float32 holds it to its own distance from
+        # float64, which the two devices may each take
+        own = {}
+        for fname in inp["fields"]:
+            exact = {d: self.flexi_call_grads(inp, fname, d,
+                                              self.torch.float64)
+                     for d in ("cuda", "cpu")}
+            f64 = max(self.grad_err(exact["cuda"][k], exact["cpu"][k])
+                      for k in exact["cpu"])
+            self.check(f64 <= FLEXI_TOL["f64"],
+                       f"flexi parity: {fname} __call__ gradients in float64 "
+                       f"card vs CPU {f64:.3g} (bound {FLEXI_TOL['f64']:g})")
+            own[fname] = self.grad_err(grads[f"{fname} __call__ d/dgamma_f"],
+                                       exact["cpu"]["gamma_f"])
+            print(f"  {fname}: the CPU's float32 gradient in gamma_f against "
+                  f"float64 {own[fname]:.3g} of max|g|")
+        self.check_qef(inp)
+        bad_ints = [k for k in ints if not torch.equal(card[0][k], ints[k])]
+        self.check(not bad_ints, f"flexi parity: {len(ints)} integer "
+                   f"arrays card = CPU (differ: {bad_ints})")
+        ferr = {k: self.rel_err(card[1][k], x) for k, x in floats.items()}
+        gerr = {k: self.grad_err(card[2][k], x) for k, x in grads.items()}
+        bound = {k: FLEXI_TOL["grad"] for k in gerr}
+        for fname, e in own.items():
+            k = f"{fname} __call__ d/dgamma_f"
+            bound[k] = max(FLEXI_TOL["grad"], FLEXI_TOL["own"] * e)
+        for label, errs, tol in (("float", ferr, {}),
+                                 ("gradient", gerr, bound)):
+            worst = sorted(errs.items(), key=lambda kv: -kv[1])
+            over = [f"{k} {e:.3g}" for k, e in worst
+                    if e > tol.get(k, FLEXI_TOL["float"])]
+            self.check(not over, f"flexi parity: {len(errs)} {label} "
+                       f"arrays card vs CPU within their bounds (over: "
+                       f"{over})")
+            print(f"  largest {label} errors: " + ", ".join(
+                f"{k} {e:.3g}" for k, e in worst[:6]))
+        counts = {k: int(x) for k, x in ints.items()
+                  if x.dim() == 0 and k.endswith(("surf_cubes", "quads"))}
+        print("  counts: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+        self.flexi["parity"] = {"float": max(ferr.values()),
+                                "grad": max(gerr.values())}
+
+    def flexi_step_on(self, form, field, device):
+        """One step of ``form`` from ``field`` (numpy) on ``device`` →
+        (integers, loss, gradient) on the host."""
+        fx = self.flexi_ex
+        state = fx.setup(FLEXI_RES, device, sdf=self.torch.from_numpy(field))
+        if form == "bench":
+            loss, aux = fx.bench_loss(state["sdf"], FLEXI_RES)
+            ints = {k: int(x) for k, x in aux["counts"].items()}
+        else:
+            topo = state["fc"].precompute_topology(
+                state["sdf"], state["cube_idx"], FLEXI_RES)
+            loss, _, faces = fx.topology_loss(state, topo)
+            ints = {k: x.cpu() for k, x in topo._asdict().items()
+                    if self.torch.is_tensor(x)}
+            ints["faces"] = faces.cpu()
+        loss.backward()
+        return ints, float(loss.detach()), state["sdf"].grad.cpu()
+
+    def phase_flexi_path(self):
+        """Config 4 at full width on the card, every launch counter set to
+        0 just before and read just after: both forms of
+        ``examples/torch_flexicubes_sdf.py`` at res 64 for 50 steps (step 1
+        gives the JAX package's 9,240 surface cubes, 9,238 quads, 36,952
+        training faces and 1,810,624 / 3,048,192 dense slots; every loss
+        finite, step 50's below step 1's) and
+        ``examples/torch_tutorial_dmtet.py`` in full (res 24, 120 steps,
+        2,048 targets; it raises unless the chamfer halves). No kernel may
+        launch. Then one step of each form card vs CPU from the start field
+        (integers equal, loss within 1e-5 relative, gradient within 1e-5 of
+        max|g|; at the fitted field vertices sit on the target sphere, where
+        the loss's |·| flips its gradient with the last bit: ``flexi_kink``
+        counts them) and marching cubes of the fitted field card = CPU."""
+        torch, fx, dm = self.torch, self.flexi_ex, self.dmtet_ex
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def path():
+            out = {}
+            for form in ("bench", "topology"):
+                state = fx.setup(FLEXI_RES, "cuda")
+                if form == "bench":
+                    with torch.no_grad():
+                        v, f, _, _ = fx.dense_extract(state["sdf"], FLEXI_RES,
+                                                      training=True)
+                    loss, counts = fx.bench_step(state)
+                    got = {k: int(x) for k, x in counts.items()}
+                    got.update(vertex_slots=v.shape[0], face_slots=f.shape[0],
+                               faces=4 * got["quads"])
+                else:
+                    topo = state["fc"].precompute_topology(
+                        state["sdf"], state["cube_idx"], FLEXI_RES)
+                    with torch.no_grad():
+                        faces = fx.topology_loss(state, topo)[2]
+                    loss, topo = fx.topology_step(state)
+                    got = {"surf_cubes": int(topo.surf_cubes.sum()),
+                           "dual_vertices": topo.total_num_vd,
+                           "quads": topo.quad_vd_idx.shape[0],
+                           "faces": faces.shape[0]}
+                losses = torch.cat([loss[None],
+                                    fx.run(form, state, FLEXI_STEPS - 1)])
+                out[form] = (state, got, losses.cpu().numpy())
+            out["dmtet"] = dm.main("cuda")
+            return out
+
+        t0 = time.perf_counter()
+        out, launches = self.drive(list(self.counters()), path)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        self.check(all(n == 0 for n in launches.values()),
+                   f"config 4 (both forms, DMTet) launched no kernel "
+                   f"{launches}")
+        for form in ("bench", "topology"):
+            state, got, losses = out[form]
+            for k, want in FLEXI_EXPECT.items():
+                if k in got:
+                    self.check(got[k] == want, f"config 4 {form} form step "
+                               f"1: {k} {got[k]} (JAX: {want})")
+            self.check(bool(np.isfinite(losses).all())
+                       and losses[-1] < losses[0],
+                       f"config 4 {form} form, {FLEXI_STEPS} steps at res "
+                       f"{FLEXI_RES}: finite, loss {losses[0]:.6f} → "
+                       f"{losses[-1]:.6f}")
+            print(f"config 4 {form} form loss: " + " ".join(
+                f"{x:.6f}" for x in losses))
+        d = out["dmtet"]
+        self.check(bool(np.isfinite(d["losses"]).all())
+                   and d["last"] < 0.5 * d["first"],
+                   f"DMTet {len(d['losses'])} steps at res {dm.RES}: chamfer "
+                   f"{d['first']:.5f} → {d['last']:.5f}, {d['verts']} "
+                   f"vertices, {d['faces']} faces")
+        print(f"config 4 and DMTet, whole path (2 x {FLEXI_STEPS} steps at "
+              f"res {FLEXI_RES}, DMTet's {len(d['losses'])}): {wall:.2f} s "
+              f"host wall, peak {peak / 2 ** 20:.1f} MiB above "
+              f"{base / 2 ** 20:.1f} MiB held [{self.card}]", flush=True)
+        start = fx.setup(FLEXI_RES, "cuda")["sdf"].detach().cpu().numpy()
+        for form in ("bench", "topology"):
+            (ic, lc, gc), (ih, lh, gh) = (self.flexi_step_on(form, start, d)
+                                         for d in ("cuda", "cpu"))
+            same = ic.keys() == ih.keys() and all(
+                torch.equal(torch.as_tensor(ic[k]).cpu(),
+                            torch.as_tensor(ih[k])) for k in ih)
+            l_err = abs(lc - lh) / abs(lh)
+            g_err = self.grad_err(gc, gh)
+            self.check(same and l_err <= FLEXI_TOL["loss"]
+                       and g_err <= FLEXI_TOL["grad"],
+                       f"config 4 {form} step card vs CPU from the start "
+                       f"field: integers equal {same}, loss {l_err:.3g} "
+                       f"relative, gradient {g_err:.3g} of max|g|")
+        self.flexi_kink(out["topology"][0])
+        state = out["topology"][0]
+        mc_card = fx.marching_cubes(state)
+        cpu_state = {"sdf": state["sdf"].detach().cpu(), "res": FLEXI_RES}
+        mc_cpu = fx.marching_cubes(cpu_state)
+        self.check(all(torch.equal(a.cpu(), b)
+                       for a, b in zip(mc_card, mc_cpu)),
+                   f"marching cubes of the fitted field at res {FLEXI_RES} "
+                   f"card = CPU ({mc_cpu[0].shape[0]} vertices, "
+                   f"{mc_cpu[1].shape[0]} faces)")
+        self.flexi.update(path_wall=wall, path_peak=peak, dmtet=d)
+
+    def flexi_kink(self, state):
+        """At the fitted field the topology form's vertices sit on the
+        target sphere, where |‖v‖ − 0.35|'s gradient flips sign with the
+        last bit: how many vertices take the other sign on the CPU than on
+        the card, and the gradient gap with and without them."""
+        torch, fx = self.torch, self.flexi_ex
+        field = state["sdf"].detach().cpu().numpy()
+        sides = {}
+        for d in ("cuda", "cpu"):
+            st = fx.setup(FLEXI_RES, d, sdf=torch.from_numpy(field))
+            topo = st["fc"].precompute_topology(st["sdf"], st["cube_idx"],
+                                                FLEXI_RES)
+            loss, verts, _ = fx.topology_loss(st, topo)
+            loss.backward()
+            sides[d] = (torch.linalg.norm(verts.detach(), dim=-1).cpu()
+                        - fx.TARGET_R, st["sdf"].grad.cpu())
+        (dc, gc), (dh, gh) = sides["cuda"], sides["cpu"]
+        flips = int((torch.sign(dc) != torch.sign(dh)).sum())
+        near = int((dh.abs() < 1e-6).sum())
+        print(f"  fitted field, topology form: {flips} of {dh.shape[0]} "
+              f"vertices on the other side of radius {fx.TARGET_R} on the "
+              f"card ({near} within 1e-6 of it); gradient card vs CPU "
+              f"{self.grad_err(gc, gh):.3g} of max|g|")
+
+    def phase_flexi_timing(self):
+        """Config 4 and DMTet on the card: the bench form's step (forward,
+        backward, Adam) and its 50-step run, the topology form's step and
+        its topology alone, the DMTet step; CUDA events, medians of 10 (the
+        50-step run: of 3) after a warm-up; each one's peak memory. The
+        states stay for ``phase_profile``."""
+        torch, fx, dm = self.torch, self.flexi_ex, self.dmtet_ex
+        bench = fx.setup(FLEXI_RES, "cuda")
+        topo = fx.setup(FLEXI_RES, "cuda")
+        dmt = dm.setup("cuda")
+        steps = {"bench step": lambda: fx.bench_step(bench),
+                 "topology step": lambda: fx.topology_step(topo),
+                 "topology alone": lambda: topo["fc"].precompute_topology(
+                     topo["sdf"], topo["cube_idx"], FLEXI_RES),
+                 "DMTet step": lambda: dm.step(dmt)}
+        t = {}
+        for label, fn in steps.items():
+            event = statistics.median(self.time_ms(fn, FLEXI_TIMED))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            t[label] = {"event_ms": event, "peak_mib": peak / 2 ** 20}
+            print(f"config 4, {label}: {event:.4f} ms (CUDA events, median "
+                  f"of {FLEXI_TIMED}), peak {peak / 2 ** 20:.1f} MiB above "
+                  f"{base / 2 ** 20:.1f} MiB held [{self.card}]", flush=True)
+        run = statistics.median(self.time_ms(
+            lambda: fx.run("bench", bench, FLEXI_STEPS), 3))
+        t["bench run"] = {"event_ms": run}
+        share = (t["topology alone"]["event_ms"]
+                 / t["topology step"]["event_ms"])
+        print(f"config 4 bench form, {FLEXI_STEPS} steps: {run:.4f} ms "
+              f"({run / FLEXI_STEPS:.4f} ms a step; CUDA events, median of "
+              f"3); the topology's share of a topology step {share:.3f} "
+              f"[{self.card}]", flush=True)
+        self.flexi.update(timing=t, states=(bench, topo, dmt))
+
+    def profile_flexi(self):
+        """Config 4's two steps and the DMTet step under the profiler:
+        device ops a step, busy, idle share and the largest ops."""
+        fx, dm = self.flexi_ex, self.dmtet_ex
+        bench, topo, dmt = self.flexi.pop("states")
+        busy = {
+            "bench": self.profile_path(
+                f"config 4 bench step (res {FLEXI_RES})", (),
+                lambda: fx.bench_step(bench)),
+            "topology": self.profile_path(
+                f"config 4 topology step (res {FLEXI_RES})", (),
+                lambda: fx.topology_step(topo)),
+            "dmtet": self.profile_path(f"DMTet step (res {dm.RES})", (),
+                                       lambda: dm.step(dmt))}
+        self.flexi["busy"] = busy
+        self.torch.cuda.empty_cache()
+
     # -- the table gather and the probe path ------------------------------
     def gather_case(self, n_tab, shape, lo=0, seed=0):
         """A random table of ``n_tab`` floats and int32 indices of ``shape``
@@ -3335,6 +3914,7 @@ class Smoke:
                 self.sim["graph_busy"] = busy
         self.profile_collision()
         self.profile_train()
+        self.profile_flexi()
         for k in (*DIBR_KERNELS, "spc_raster"):
             self.results[k]["library_ms"] = None
         b = self.spc_bins(rspc, cam, (tile_px, s_max, c_cap))
@@ -3675,6 +4255,7 @@ class Smoke:
                       self.phase_tutorials,
                       self.phase_spc_main_path, self.phase_spcrt_parity,
                       self.phase_spcrt_path, self.phase_spcrt_crosscheck,
+                      self.phase_flexi_parity, self.phase_flexi_path,
                       self.phase_probe_path,
                       self.phase_sim_path, self.phase_collision_path,
                       self.phase_train_path, self.phase_grad,
@@ -3682,6 +4263,7 @@ class Smoke:
                       self.phase_spc_timing,
                       self.phase_gather_timing, self.phase_sim_timing,
                       self.phase_collision_timing, self.phase_train_timing,
+                      self.phase_flexi_timing,
                       self.phase_profile, self.phase_spcrt_timing,
                       self.phase_bounds):
             print(f"== {phase.__name__}", flush=True)

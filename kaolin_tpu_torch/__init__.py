@@ -15,7 +15,9 @@ kernel in the JAX package and is plain PyTorch here (dense products and
 ``torch.linalg`` solves), optionally replayed from a CUDA graph; so is the
 SPC raytrace of :func:`kaolin_tpu_torch.render.spc.unbatched_raytrace`
 with the mesh → SPC conversion of :mod:`kaolin_tpu_torch.ops.conversions`
-and the ``Spc`` container of :mod:`kaolin_tpu_torch.rep`.
+and the ``Spc`` container of :mod:`kaolin_tpu_torch.rep`, and the FlexiCubes
+and marching-tetrahedra extraction of :mod:`kaolin_tpu_torch.ops.conversions`
+with the metrics of :mod:`kaolin_tpu_torch.metrics`.
 
 ``kaolin_tpu`` stays the reference. This package imports neither it nor jax.
 """
@@ -24,6 +26,7 @@ __version__ = "0.1.0"
 
 from kaolin_tpu_torch import math     # noqa: F401
 from kaolin_tpu_torch import metrics  # noqa: F401
+from kaolin_tpu_torch import non_commercial  # noqa: F401
 from kaolin_tpu_torch import ops      # noqa: F401
 from kaolin_tpu_torch import physics  # noqa: F401
 from kaolin_tpu_torch import render   # noqa: F401

@@ -73,7 +73,8 @@ def check_sign(verts, faces, points, hash_resolution=512, backend=None):
     if backend == "native":
         raise NotImplementedError(
             "check_sign(backend='native') needs the C++ TriangleHash, which "
-            "is not ported yet (ROADMAP Queue A 9: native/)")
+            "is not ported yet (ROADMAP Queue A: I/O, visualize and "
+            "experimental (native/))")
     if backend is not None:
         raise ValueError(f"unknown backend {backend!r}")
     faces = torch.as_tensor(faces, device=verts.device).long()

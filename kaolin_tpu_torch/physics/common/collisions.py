@@ -40,6 +40,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from kaolin_tpu_torch.utils.numerics import nonzero_static
+
 __all__ = ["Collision", "Contacts"]
 
 NULL = -1
@@ -86,20 +88,6 @@ def _z_mat(zq):
     delta (C, 3) = q (C, 4H) @ Z; DOF z[(h, r, s)] is column 12h + 4r + s."""
     h = zq.shape[-1] // 12
     return zq.reshape(h, 3, 4).transpose(1, 2).reshape(4 * h, 3)
-
-
-def _compact(mask, size):
-    """The indices of ``mask``'s true elements in ascending order, the first
-    ``size`` of them, padded with −1 → (size,) int64: ``jnp.nonzero(mask,
-    size=size, fill_value=-1)`` without a host read. A ``cumsum`` gives each
-    true element its slot; everything past ``size`` and every false element
-    writes into one extra slot, which is dropped."""
-    flat = mask.reshape(-1)
-    pos = torch.cumsum(flat, 0) - 1
-    slot = torch.where(flat & (pos < size), pos, size)
-    out = torch.full((size + 1,), -1, dtype=torch.int64, device=flat.device)
-    out.scatter_(0, slot, torch.arange(flat.shape[0], device=flat.device))
-    return out[:size]
 
 
 def _set_drop(out, idx, values, dim=0):
@@ -565,7 +553,7 @@ class Collision:
             num_pairs = mask.sum()
             diag = {"num_pairs": num_pairs,
                     "contacts_overflow": num_pairs > self.max_contacts}
-        flat_idx = _compact(mask, self.max_contacts)
+        flat_idx = nonzero_static(mask, self.max_contacts)
         valid = flat_idx >= 0
         safe = torch.where(valid, flat_idx, 0)
         return ca[safe], cb[safe], valid, diag

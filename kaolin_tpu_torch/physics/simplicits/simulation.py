@@ -62,20 +62,9 @@ from kaolin_tpu_torch.physics.utils.torch_utilities import (
     hess_reduction,
     standard_transform_to_relative,
 )
+from kaolin_tpu_torch.utils.backend import resolve_device
 
 __all__ = ["SimulatedObject", "SimplicitsScene"]
-
-def _resolve_device(device):
-    """``device``, or the CUDA device when it is None. Without a CUDA device
-    a None raises: a scene never falls back to the CPU unasked."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("SimplicitsScene runs on the CUDA device and none "
-                           "is available; pass device='cpu' to run on the "
-                           "CPU")
-    return torch.device("cuda")
-
 
 class SimulatedObject(SkinnedPhysicsPoints):
     """Per-object simulation state and dense LBS operators, on ``device``
@@ -210,7 +199,7 @@ class SimplicitsScene:
         if use_cuda_graphs and differentiable:
             raise ValueError("differentiable=True needs the eager step: a "
                              "CUDA graph replays under torch.no_grad")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "SimplicitsScene")
         if use_cuda_graphs and self.device.type != "cuda":
             raise ValueError("use_cuda_graphs needs a CUDA device, got "
                              f"{self.device}")
@@ -446,7 +435,8 @@ class SimplicitsScene:
                for o in objs):
             raise NotImplementedError(
                 "collisions of padded objects (phantom points) are not "
-                "ported yet (ROADMAP Queue A 10: scene batching)")
+                "ported yet (ROADMAP Queue A: parallel/ and scene "
+                "batching)")
         auto_broad = broad_phase is None
         if broad_phase is None:
             broad_phase = ("grid" if self.total_qp >=

@@ -1,7 +1,8 @@
 """Hand numpy data to the port, so both packages see identical inputs, and
 carry the JAX package's Simplicits MLP weights, RKPM fields, physics points,
 contact buffers, configured ``Collision`` objects, SPC convolution
-parameters and nglod-style feature fields into the port."""
+parameters, nglod-style feature fields and the DMTet tutorial's MLP into
+the port."""
 
 import numpy as np
 import torch
@@ -160,3 +161,23 @@ def nglod_params_from_jax(params, device="cpu"):
     return {"features": torch.from_numpy(np.array(
                 params["features"], np.float32)).to(device),
             "decoder": nn.Sequential(*layers)}
+
+
+def dmtet_mlp_from_jax(params, device="cpu"):
+    """The DMTet tutorial's MLP (``examples/tutorial_dmtet.py``: a list of
+    ``(w (in, out), b (out,))`` with ``x @ w + b`` layers and a ReLU
+    between them, numpy or anything ``np.asarray`` takes) → the port's
+    ``nn.Sequential`` of ``nn.Linear`` and ``nn.ReLU`` on ``device``
+    (``examples/torch_tutorial_dmtet.py``), each Linear holding the
+    transposed (out, in) weight."""
+    from torch import nn
+
+    layers = []
+    for w, b in params:
+        w = np.array(w, np.float32)
+        linear = nn.Linear(w.shape[0], w.shape[1], device=device)
+        with torch.no_grad():
+            linear.weight.copy_(torch.from_numpy(w.T.copy()))
+            linear.bias.copy_(torch.from_numpy(np.array(b, np.float32)))
+        layers += [linear, nn.ReLU()]
+    return nn.Sequential(*layers[:-1])

@@ -31,6 +31,7 @@ from kaolin_tpu_torch.utils.interop import (
     collision_from_jax,
     contacts_from_jax,
 )
+from kaolin_tpu_torch.utils.numerics import nonzero_static
 from tests.torch_parity import pair_set, random_contact_scene
 
 TERM_TOL = 1e-5
@@ -267,16 +268,19 @@ def test_self_collision_immunity_and_unconfigured_grid():
 
 
 def test_compaction_is_jax_nonzero():
-    """``_compact`` is ``jnp.nonzero(size=…, fill_value=-1)``: ascending,
-    the first ``size``, padded; and ``_set_drop`` drops the indices past
-    the end."""
+    """``nonzero_static`` (the compaction detection uses) is
+    ``jnp.nonzero(size=…, fill_value=…)``: ascending, the first ``size``,
+    padded with -1 or the value given; and ``_set_drop`` drops the indices
+    past the end."""
     rng = np.random.RandomState(4)
     for p, size in ((0.3, 50), (0.05, 50), (0.0, 8), (1.0, 20)):
         mask = rng.rand(40, 7) < p
-        want = np.asarray(jnp.nonzero(jnp.asarray(mask.reshape(-1)),
-                                      size=size, fill_value=-1)[0])
-        np.testing.assert_array_equal(
-            col_mod._compact(t(mask), size).numpy(), want)
+        for fill in (-1, 280):
+            want = np.asarray(jnp.nonzero(jnp.asarray(mask.reshape(-1)),
+                                          size=size, fill_value=fill)[0])
+            kw = {} if fill == -1 else {"fill_value": fill}
+            np.testing.assert_array_equal(
+                nonzero_static(t(mask), size, **kw).numpy(), want)
     idx = np.array([5, 0, 9, 2, 11, 7, 3])
     vals = np.arange(7, dtype=np.float32) + 1
     want = np.asarray(jnp.zeros(8).at[idx].set(vals, unique_indices=True,

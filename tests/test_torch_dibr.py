@@ -538,13 +538,23 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "kaolin_tpu_torch.ops.spc.convolution, "
             "kaolin_tpu_torch.ops.spc.raytraced_spc_dataset, "
             "kaolin_tpu_torch.ops.conversions, kaolin_tpu_torch.rep, "
-            "kaolin_tpu_torch.render.spc.raytrace, runpy\n"
+            "kaolin_tpu_torch.render.spc.raytrace, "
+            "kaolin_tpu_torch.ops.conversions.flexicubes, "
+            "kaolin_tpu_torch.ops.conversions.flexicubes.dense, "
+            "kaolin_tpu_torch.ops.conversions.tetmesh, "
+            "kaolin_tpu_torch.ops.conversions.sdf, "
+            "kaolin_tpu_torch.ops.conversions.voxelgrid, "
+            "kaolin_tpu_torch.ops.voxelgrid, kaolin_tpu_torch.non_commercial, "
+            "kaolin_tpu_torch.metrics.pointcloud, "
+            "kaolin_tpu_torch.metrics.tetmesh, "
+            "kaolin_tpu_torch.metrics.voxelgrid, runpy\n"
             "for ex in ('torch_simplicits_drop', 'torch_simplicits_train', "
             "'torch_dibr_optimization', 'torch_dibr_texture_fit', "
             "'torch_tutorial_camera_rasterization', "
             "'torch_tutorial_bbox_fitting', 'torch_spc_raster', "
             "'torch_collision_stack', 'torch_spc_raytrace', "
-            "'torch_tutorial_understanding_spcs'):\n"
+            "'torch_tutorial_understanding_spcs', 'torch_flexicubes_sdf', "
+            "'torch_tutorial_dmtet'):\n"
             "    runpy.run_path(f'examples/{ex}.py')\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'kaolin_tpu.')) or m == 'kaolin_tpu']\n"

@@ -216,10 +216,21 @@ def test_tile_overflow_report_matches_jax(kw):
 
 
 def test_exports_match_jax():
-    """The ported modules' names that ``kaolin_tpu.render.mesh`` and
-    ``kaolin_tpu.render.camera`` export, the port's packages export too."""
+    """The ported modules' names that ``kaolin_tpu.render.mesh``,
+    ``kaolin_tpu.render.camera``, ``kaolin_tpu.ops.conversions``,
+    ``kaolin_tpu.non_commercial``, ``kaolin_tpu.ops.voxelgrid`` and the
+    modules of ``kaolin_tpu.metrics`` export, the port's packages export
+    too."""
+    import kaolin_tpu.metrics as jmetrics
+    import kaolin_tpu.non_commercial as jnc
+    import kaolin_tpu.ops.conversions as jconv
+    import kaolin_tpu.ops.voxelgrid as jvg
     import kaolin_tpu.render.camera as jc
     import kaolin_tpu.render.mesh as jm
+    import kaolin_tpu_torch.metrics as tmetrics
+    import kaolin_tpu_torch.non_commercial as tnc
+    import kaolin_tpu_torch.ops.conversions as tconv
+    import kaolin_tpu_torch.ops.voxelgrid as tvg
     import kaolin_tpu_torch.render.camera as tc
 
     not_ported = {"deftet_sparse_render", "default_nvdiffrast_context",
@@ -228,8 +239,14 @@ def test_exports_match_jax():
                   "kaolin_camera_to_gsplat_inria",
                   "kaolin_camera_to_gsplat_nerfstudio",
                   "gsplats_camera_to_kaolin", "kaolin_camera_to_gsplats",
-                  "kaolin_camera_to_polyscope", "polyscope_camera_to_kaolin"}
-    for jmod, tmod in ((jm, tmesh), (jc, tc)):
+                  "kaolin_camera_to_polyscope", "polyscope_camera_to_kaolin",
+                  "gs_to_voxelgrid"}
+    metric_modules = [(getattr(jmetrics, n), getattr(tmetrics, n))
+                      for n in dir(jmetrics) if not n.startswith("_")
+                      and isinstance(getattr(jmetrics, n), type(os))]
+    assert len(metric_modules) == 5
+    for jmod, tmod in ((jm, tmesh), (jc, tc), (jconv, tconv), (jnc, tnc),
+                       (jvg, tvg), *metric_modules):
         names = {n for n in dir(jmod) if not n.startswith("_")
                  and not isinstance(getattr(jmod, n), type(os))}
         missing = sorted(n for n in names - not_ported if not hasattr(tmod, n))

@@ -314,7 +314,8 @@ def test_scene_needs_a_device(monkeypatch):
 def test_collisions_are_not_ported(graft):
     """Contact is ported (``tests/test_torch_collision_scene.py``) but for
     padded objects, whose phantom points wait for scene batching (ROADMAP
-    Queue A 10); a scene without forces does not step."""
+    Queue A: parallel/ and scene batching); a scene without forces does not
+    step."""
     points = graft["points"]
     padded = simulation.SkinnedPhysicsPoints(
         pts=points["pts"], yms=1e4, prs=0.45, rhos=500.0, appx_vol=1.0,
@@ -322,7 +323,8 @@ def test_collisions_are_not_ported(graft):
     scene = SimplicitsScene(device="cpu")
     scene.add_object(padded)
     scene.set_scene_gravity()
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue A: parallel/ and scene batching"):
         scene.enable_collisions()
     with pytest.raises(RuntimeError, match="Forces"):
         SimplicitsScene(device="cpu").run_sim_step()

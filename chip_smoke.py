@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's ten paths on one NVIDIA GPU and check them:
+"""Run the PyTorch port's eleven paths on one NVIDIA GPU and check them:
 the DIB-R inverse-rendering step, the DIB-R pose-and-texture fit (config 2
 as written, ``examples/torch_dibr_texture_fit.py``, with the two ported
 camera and bounding-box tutorials), the SPC first-hit raster, config 3 as
@@ -11,9 +11,13 @@ training, config 1's easy-API path from a closed mesh
 (``examples/torch_simplicits_train.py``), and config 4, the FlexiCubes
 SDF fit at res 64 in its bench and topology forms
 (``examples/torch_flexicubes_sdf.py``), with the DMTet tutorial
-(``examples/torch_tutorial_dmtet.py``; config 3 as written, the three
-Simplicits paths and config 4 are plain PyTorch: the JAX package has no
-kernel there).
+(``examples/torch_tutorial_dmtet.py``), and config 5, the simulatable 3D
+gaussian splats of ``bench.py``'s ``bench_gaussians_sim``
+(``examples/torch_simulatable_gaussians.py``: 2,000 gaussians densified
+into a 2,048-point Simplicits body with contact, 100 steps moving the
+gaussians by LBS, and the densifier's level-8 carving). Config 3 as
+written, the three Simplicits paths and configs 4 and 5 are plain PyTorch:
+the JAX package has no kernel there.
 
     python3 chip_smoke.py
 
@@ -115,7 +119,22 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    1,810,624 / 3,048,192 dense slots, the loss falling;
    DMTet's 120 steps, the chamfer halved; no kernel may launch; one step
    of each form card vs CPU from the start field; marching cubes of the
-   fitted field card = CPU);
+   fitted field card = CPU); then config 5 (``phase_gauss_parity``: the
+   card against the port's CPU, ``transform_gaussians`` with SH degree 3
+   on 2,000 gaussians within 1e-6 of max|x|, ``gs_to_voxelgrid`` coords
+   equal and opacities within 1e-9 relative, ``bf_recon`` on
+   tests/ops/test_bf_recon.py's fixture bytes and colors equal, the
+   densifier with ``jitter=False`` by flood fill and by carving from one
+   set of frames, points within 1e-6, the bench scene's step from the
+   CPU's states, B z within 1e-4 of max|B z|; ``phase_gauss_path``: the
+   bench form at full size, 100 steps eager and from the graph from one
+   start with every counter set to 0 before and read after (no kernel may
+   launch; finite, flags 0, no resize, the broad phase the auto rule's,
+   the renderable mean height falling and staying above the floor, graph
+   = eager within 1e-4 of max|z|), one step with the grid forced against
+   the auto choice, and the densifier at its defaults (level 8, 86 views
+   at 256²): no fallback, the interior filled, every sample inside the
+   box; ``phase_gauss_timing`` after phase_flexi_timing);
 7. the table gather's two routes (shared memory, L2) held bit for bit
    against ``table_gather_plain``: the probe's shape, 2^14 and 2^20
    tables, 58,112 and 58,113 floats (either side of the route rule),
@@ -155,7 +174,12 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    events, medians of 10, peak memory; their profiles in phase 10); config 3 as
    written: ``unbatched_mesh_to_spc``, the dual and the trinkets, a depth
    frame and a fit step (event ms, device busy, ops, idle share, the
-   largest ops, peak memory);
+   largest ops, peak memory); config 5's 100-step window eager and from
+   the graph (ms/step), its step's and the LBS move's profile and bound,
+   the flood-fill densifier at level 6 with gs_to_voxelgrid's share, each
+   with its peak memory, and the parts of the level-8 carve that
+   phase_gauss_path timed (voxelization, the 86 views, bf_recon, the
+   query);
 9. time each kernel and each path against the plain versions with CUDA
    events, in the order plain, kernel, kernel, plain; the texture fit's
    step event to event over steps 20-80 of one run;
@@ -286,6 +310,15 @@ FLEXI_EXPECT = {"surf_cubes": 9240, "dual_vertices": 9240, "quads": 9238,
                 "face_slots": 3_048_192}
 FLEXI_TOL = {"float": 1e-6, "grad": 1e-5, "loss": 1e-5, "qef": 1e-5,
              "own": 2.0, "f64": 1e-10}
+GAUSS_PARITY_STEPS = 3         # config 5 card vs CPU
+GAUSS_TOL = {"transform": 1e-6, "opacity": 1e-9, "points": 1e-6, "z": 1e-4}
+GAUSS_BF_VIEWS = np.array([      # tests/ops/test_bf_recon.py's
+    [6.0, 0.0, 0.9], [-6.0, 0.0, 0.9], [0.0, 6.0, 0.9],
+    [0.0, -6.0, 0.9], [0.9, 0.9, 6.0], [0.9, 0.9, -6.0]], dtype=np.float32)
+GAUSS_CARVE_VIEWS = np.array([   # tests/ops/test_gaussians.py's
+    [4.0, 0, 0.3], [-4.0, 0, 0.3], [0, 4.0, 0.3], [0, -4.0, 0.3],
+    [0.3, 0.3, 4.0], [0.3, 0.3, -4.0],
+    [2.3, 2.3, 2.3], [-2.3, -2.3, -2.3]], dtype=np.float32)
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores
@@ -475,6 +508,20 @@ def dense_tile_faces():
     return with_depth(fvi[None].astype(np.float32), 6), 64, 64
 
 
+def dense_step_ops(d, n, m):
+    """A Newton iteration's float32 operations in a one-object sim step of
+    D dofs, N points and m line-search steps (``Smoke.sim_bound``'s count)
+    → (gradient, Hessian, solves, line search)."""
+    k = 2 * m + 2
+    grad = 4 * 2 * 12 * n * d + 2 * d * d
+    hess = 2 * 2 * 12 * n * d + 2 * n * d * (9 + 81) \
+        + 2 * d * d * 12 * n + 3 * d * d
+    solve = d ** 3 / 3 + 2 * d ** 3 / 3 + 4 * 2 * d * d
+    search = 2 * d * d + 2 * (k - 1) * d * d + k * (2 * 12 * n * d
+                                                   + 2 * d * d)
+    return grad, hess, solve, search
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -603,6 +650,8 @@ class Smoke:
         self.FlexiCubes = conversions.FlexiCubes
         self.conv, self.vgops, self.metrics = conversions, voxelgrid, metrics
         self.flexi = {}   # config 4: its states and measurements
+        self.gauss_ex = load_example("torch_simulatable_gaussians")
+        self.gauss = {}   # config 5: its scene and measurements
         from kaolin_tpu_torch.render.spc import raytrace
         self.rt = raytrace
         self.spcrt = {}   # config 3 as written: its scene and measurements
@@ -2532,6 +2581,501 @@ class Smoke:
         self.flexi["busy"] = busy
         self.torch.cuda.empty_cache()
 
+    # -- config 5: the simulatable-3DGS scene -------------------------------
+    def gauss_shells(self):
+        """The CPU tests' small shell (300 gaussians of scale 0.04) and the
+        bench's (2,000 of scale 0.05), numpy (xyz, scales, rots, opac)."""
+        ex = self.gauss_ex
+        return {"small": ex.shell_gaussians(300, 0.04)[0],
+                "bench": ex.shell_gaussians(2000, 0.05)[0]}
+
+    def gauss_normalized(self, shell):
+        """The densifier's normalization of a shell into [-1, 1] (float64)
+        → (xyz, scales, rots, opacities, center, dmax)."""
+        xyz, scales, rots, opac = (np.asarray(a, np.float64) for a in shell)
+        lo, hi = xyz.min(0), xyz.max(0)
+        dmax = 0.5 * (hi - lo).max() + 0.05
+        center = 0.5 * (lo + hi)
+        return (xyz - center) / dmax, scales / dmax, rots, opac, center, dmax
+
+    @contextlib.contextmanager
+    def gauss_frames(self, res=None):
+        """Carving from the CPU's frames: ``RayTracedSPCDataset`` made on
+        the host (at views of 2^res pixels, the default 2^8 when None) and
+        each tensor moved to the octree's device, so that the card's and
+        the CPU's carving read one set of depth maps (the raytrace's own
+        card vs CPU check is phase_spcrt_parity's)."""
+        import kaolin_tpu_torch.ops.spc as spc
+        orig = spc.RayTracedSPCDataset
+
+        def frames(viewpoints, gs_octree, res_=8):
+            ds = orig(viewpoints, gs_octree.cpu(),
+                      res=res_ if res is None else res)
+            dev = gs_octree.device
+            return [tuple(x.to(dev) if isinstance(x, self.torch.Tensor)
+                          else x for x in ds[i]) for i in range(len(ds))]
+
+        spc.RayTracedSPCDataset = frames
+        try:
+            yield
+        finally:
+            spc.RayTracedSPCDataset = orig
+
+    @contextlib.contextmanager
+    def densifier_warnings(self):
+        """The densifier's log records at WARNING and above (its carve →
+        flood-fill fallback), while inside."""
+        records = []
+        handler = logging.Handler(logging.WARNING)
+        handler.emit = records.append
+        log = logging.getLogger("kaolin_tpu_torch.ops.gaussians.densifier")
+        log.addHandler(handler)
+        try:
+            yield records
+        finally:
+            log.removeHandler(handler)
+
+    def bf_fixture(self, device):
+        """tests/ops/test_bf_recon.py's sphere shell at level 6 (six views
+        at 128², sigma 0.05) carved from the CPU's frames on ``device`` →
+        bf_recon's (octree, empty, colors, normals)."""
+        torch = self.torch
+        from kaolin_tpu_torch.ops import spc
+        level, res = 6, 64
+        g = (np.arange(res) + 0.5) / res * 2.0 - 1.0
+        x, y, z = np.meshgrid(g, g, g, indexing="ij")
+        r = np.sqrt(x * x + y * y + z * z)
+        pts = np.stack(np.nonzero(np.abs(r - 0.6) < (2.5 / res)),
+                       axis=-1).astype(np.int16)
+        octree = spc.unbatched_points_to_octree(torch.from_numpy(pts), level)
+        ds = spc.RayTracedSPCDataset(GAUSS_BF_VIEWS, octree, res=7)
+        frames = [tuple(x.to(device) if isinstance(x, torch.Tensor) else x
+                        for x in ds[i]) for i in range(len(ds))]
+        return spc.bf_recon(frames, level, 0.05)
+
+    def gauss_step_errs(self, card, cpu, n):
+        """The card's step from the CPU scene's states over ``n`` CPU steps
+        → max |d(B z)| / max|B z| per step (crossing the QR basis in
+        float64 where the pivots differ, as phase_sim_parity does)."""
+        torch, f64 = self.torch, self.torch.float64
+        states = [(cpu.sim_z, cpu.sim_z_prev, cpu.sim_z_dot)]
+        for _ in range(n):
+            cpu.run_sim_step()
+            states.append((cpu.sim_z, cpu.sim_z_prev, cpu.sim_z_dot))
+        oc, og = cpu.get_object(0), card.get_object(0)
+        same = torch.equal(og.qr_tfm.cpu(), oc.qr_tfm)
+        conv = og.qr_tfm_inv.cpu().to(f64) @ oc.qr_tfm.to(f64)
+        fn, consts = card.build_functional_step(with_diag=True)
+        errs, flags = [], []
+        for k in range(n):
+            z_in = [(x if same else (conv @ x.to(f64)).float()).cuda()
+                    for x in states[k]]
+            with torch.no_grad():
+                out = fn(consts, *z_in)
+            got = card.sim_B.cpu().to(f64) @ out[0].cpu().to(f64)
+            want = cpu.sim_B.to(f64) @ states[k + 1][0].to(f64)
+            errs.append(float((got - want).abs().max() / want.abs().max()))
+            flags.append(int(out[3]))
+        return errs, flags, same
+
+    def phase_gauss_parity(self):
+        """Config 5's modules on the card against the port's CPU: the
+        transforms (2,000 gaussians, SH degree 3) within 1e-6 of max|x|;
+        ``gs_to_voxelgrid`` coords equal and opacities within 1e-9
+        relative (the small shell at level 6, the bench's at 5);
+        ``bf_recon`` on tests/ops/test_bf_recon.py's fixture, bytes and
+        colors equal; the densifier with ``jitter=False`` by flood fill and
+        by carving (the CPU tests' eight views at 64², from one set of
+        frames), points within 1e-6; the bench scene's step from the CPU's
+        states, B z within 1e-4 of max|B z|."""
+        torch, ex = self.torch, self.gauss_ex
+        from kaolin_tpu_torch.ops.conversions import gs_to_voxelgrid
+        from kaolin_tpu_torch.ops.gaussians import (
+            sample_points_in_volume,
+            transform_gaussians,
+        )
+        self.check_precision("phase_gauss_parity")
+        rng = np.random.RandomState(0)
+        n = 2000
+        q = rng.randn(n, 4)
+        arrays = [rng.randn(n, 3), q / np.linalg.norm(q, axis=1)[:, None],
+                  rng.rand(n, 3) + 0.1]
+        sh = rng.randn(n, 16, 3).astype(np.float32)
+        c, s = np.cos(0.9), np.sin(0.9)
+        t = np.array([[1.5 * c, -1.5 * s, 0, 0.3], [1.5 * s, 1.5 * c, 0, -0.2],
+                      [0, 0, 1.5, 0.1], [0, 0, 0, 1]], np.float32)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            args = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                    for a in arrays]
+            outs[dev] = transform_gaussians(
+                *args, torch.from_numpy(t).to(dev),
+                sh_coeff=torch.from_numpy(sh).to(dev))
+        errs = [float((g.cpu() - h).abs().max() / h.abs().max())
+                for g, h in zip(outs["cuda"], outs["cpu"])]
+        self.check(max(errs) <= GAUSS_TOL["transform"],
+                   f"transform_gaussians card vs CPU ({n} gaussians, SH "
+                   f"degree 3, rotation, scale 1.5 and translation): max "
+                   f"|d| / max|x| positions {errs[0]:.2e}, orientations "
+                   f"{errs[1]:.2e}, scales {errs[2]:.2e}, SH {errs[3]:.2e}")
+
+        shells = self.gauss_shells()
+        for label, level in (("small", 6), ("bench", 5)):
+            nrm = self.gauss_normalized(shells[label])[:4]
+            got = {dev: gs_to_voxelgrid(*nrm, level=level, device=dev)
+                   for dev in ("cpu", "cuda")}
+            same = torch.equal(got["cuda"][0].cpu(), got["cpu"][0])
+            rel = float(((got["cuda"][1].cpu() - got["cpu"][1]).abs()
+                         / got["cpu"][1].abs()).max()) if same \
+                else float("inf")
+            self.check(same and rel <= GAUSS_TOL["opacity"],
+                       f"gs_to_voxelgrid card vs CPU, the {label} shell at "
+                       f"level {level}: {got['cpu'][0].shape[0]} voxels, "
+                       f"coords equal {same}, opacities within {rel:.2e} "
+                       f"relative")
+
+        rec = {dev: self.bf_fixture(dev) for dev in ("cpu", "cuda")}
+        eq = [torch.equal(a.cpu(), b) for a, b in zip(rec["cuda"][:3],
+                                                      rec["cpu"][:3])]
+        na, nb = rec["cuda"][3].cpu(), rec["cpu"][3]
+        fin = torch.isfinite(nb)
+        # a missed ray's depth step (inf − inf) leaves NaN and inf normals
+        n_err = float((na - nb)[fin].abs().max()) if torch.equal(
+            torch.isfinite(na), fin) and torch.equal(
+                na[~fin].nan_to_num(0.0), nb[~fin].nan_to_num(0.0)) \
+            else float("inf")
+        self.check(all(eq) and n_err <= GAUSS_TOL["points"],
+                   f"bf_recon card vs CPU at level 6 (six views at 128², "
+                   f"{rec['cpu'][0].shape[0]} octree bytes): octree, empty, "
+                   f"colors equal {eq}; normals within {n_err:.2e} where "
+                   f"finite, NaN and inf where the CPU's are")
+
+        kw = dict(octree_level=6, jitter=False, num_samples=None,
+                  viewpoints=GAUSS_CARVE_VIEWS)
+        for method in ("floodfill", "carve"):
+            with self.gauss_frames(6), self.densifier_warnings() as warned:
+                got = {dev: sample_points_in_volume(
+                    *shells["small"], method=method, device=dev, **kw)
+                    for dev in ("cpu", "cuda")}
+            same_shape = got["cuda"].shape == got["cpu"].shape
+            err = float((got["cuda"].cpu() - got["cpu"]).abs().max()) \
+                if same_shape else float("inf")
+            self.check(same_shape and err <= GAUSS_TOL["points"]
+                       and not warned,
+                       f"densifier card vs CPU, {method}, the small shell "
+                       f"at level 6: {got['cpu'].shape[0]} points, max |d| "
+                       f"{err:.2e}, {len(warned)} fallback warnings")
+
+        card, _, _, vol = ex.bench_scene("cuda")
+        cpu, *_ = ex.build(ex.BENCH, "cpu", vol_pts=vol.cpu())
+        errs, flags, same = self.gauss_step_errs(card, cpu,
+                                                 GAUSS_PARITY_STEPS)
+        self.check(max(errs) <= GAUSS_TOL["z"] and not any(flags),
+                   f"config-5 bench scene step card vs CPU [D "
+                   f"{card.total_dofs}, {card.total_qp} points, broad phase "
+                   f"{card.force_dict['collision']['object'].broad_phase}],"
+                   f" {GAUSS_PARITY_STEPS} steps from the CPU's states: max "
+                   f"|d(B z)| / max|B z| {max(errs):.3e} (per step "
+                   + ", ".join(f"{e:.1e}" for e in errs)
+                   + f"), flags {flags}, the same QR pivots {same} "
+                   f"[{self.card}]")
+
+    def phase_gauss_path(self):
+        """Config 5 in full (bench.py's bench_gaussians_sim): the 2,000
+        gaussians densified at level 6 by flood fill into 2,048 points, the
+        scene, then 100 steps LBS-moving the renderable gaussians each step,
+        eager and from the CUDA graph from one start, every launch counter
+        set to 0 before each and read after. Then one step of the same
+        scene with the grid broad phase forced, against the auto choice;
+        and the densifier at its defaults (level 8, carving from the 86
+        default views at 256²) on the same gaussians, set-up once."""
+        torch, ex = self.torch, self.gauss_ex
+        from kaolin_tpu_torch.ops.gaussians import sample_points_in_volume
+        self.check_precision("phase_gauss_path")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scene, idx, xyz, vol = ex.bench_scene("cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        col = scene.force_dict["collision"]["object"]
+        grid_tests = (col.max_occupied_cells * 14 * col.cell_capacity ** 2
+                      if col.max_occupied_cells else None)
+        print(f"config 5: {vol.shape[0]} interior points, {xyz.shape[0]} "
+              f"renderable gaussians, D {scene.total_dofs}, broad phase "
+              f"{col.broad_phase} (the grid's M·14·K² = {grid_tests} tests "
+              f"against N² = {scene.total_qp ** 2}), {col.max_contacts} "
+              f"contacts; set-up {build_s:.3f} s host (densifier, bake, "
+              f"QR) [{self.card}]", flush=True)
+        start = [x.clone() for x in (scene.sim_z, scene.sim_z_prev,
+                                     scene.sim_z_dot)]
+        steps = ex.BENCH["steps"]
+        runs = {}
+        for label, graphs in (("eager", False), ("graph", True)):
+            scene.sim_z, scene.sim_z_prev, scene.sim_z_dot = (
+                x.clone() for x in start)
+            scene.use_cuda_graphs = graphs
+            resizes = scene.collision_resizes
+
+            def path():
+                moved = ex.rollout(scene, idx, steps)
+                return moved, scene.check_collision_capacity()
+
+            t0 = time.perf_counter()
+            (moved, flags), launches = self.drive(tuple(KERNELS), path)
+            wall = time.perf_counter() - t0
+            heights = moved[:, :, 1].mean(dim=1).cpu()
+            runs[label] = dict(
+                z=scene.sim_z.clone(), flags=flags, heights=heights,
+                low=float(moved[:, :, 1].min()), launches=launches,
+                resizes=scene.collision_resizes - resizes,
+                finite=bool(torch.isfinite(moved).all()) and all(
+                    bool(torch.isfinite(x).all())
+                    for x in (scene.sim_z, scene.sim_z_dot)),
+                state=[x.clone() for x in (scene.sim_z, scene.sim_z_prev,
+                                           scene.sim_z_dot)])
+            print(f"config 5, {steps} steps {label}: {wall:.3f} s host wall"
+                  f" (the graph's capture included), flags {flags}, "
+                  f"{runs[label]['resizes']} resizes, renderable mean "
+                  f"heights every 20 steps "
+                  + ", ".join(f"{float(h):.4f}" for h in heights[::20])
+                  + f", last {float(heights[-1]):.4f}, lowest renderable "
+                  f"point {runs[label]['low']:.4f}, "
+                  f"{scene.graph_steps_rerun} graph steps run again eagerly,"
+                  f" {scene.graph_steps_lu} took the LU, kernel launches "
+                  f"{launches} [{self.card}]", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        za, zb = runs["eager"]["z"], runs["graph"]["z"]
+        z_err = float((za - zb).abs().max() / za.abs().max())
+        B = scene.sim_B.to(torch.float64)
+        be, bg = B @ za.to(torch.float64), B @ zb.to(torch.float64)
+        bz_err = float((be - bg).abs().max() / be.abs().max())
+        auto = ("grid" if scene.total_qp >= scene.GRID_BROAD_PHASE_THRESHOLD
+                and (grid_tests is None or scene.total_qp ** 2 >= grid_tests)
+                else "dense")
+        self.check(all(r["finite"] and r["flags"] == 0 and r["resizes"] == 0
+                       and not any(r["launches"].values())
+                       and float(r["heights"][-1])
+                       < float(r["heights"][0]) - 0.1
+                       and float(r["heights"].min()) > 0.0
+                       for r in runs.values())
+                   and scene.graph_steps_rerun == 0
+                   and z_err <= GAUSS_TOL["z"] and col.broad_phase == auto
+                   and scene.total_qp == 2048 and xyz.shape[0] == 2000,
+                   f"config-5 path: eager and graph finite, flags 0, no "
+                   f"resize, no kernel launched, the renderable mean height "
+                   f"fell and stayed above the floor at 0 (lowest means "
+                   f"{[round(float(r['heights'].min()), 4) for r in runs.values()]}); "
+                   f"broad phase {col.broad_phase} = the auto rule's "
+                   f"{auto}; graph vs eager after {steps} steps: max |dz| / "
+                   f"max|z| {z_err:.3e}, max |d(B z)| / max|B z| "
+                   f"{bz_err:.3e}; peak {peak / 2 ** 20:.1f} MiB")
+
+        grid, *_ = ex.build(ex.BENCH, "cuda", vol_pts=vol,
+                            collisions={"broad_phase": "grid"})
+        gcol = grid.force_dict["collision"]["object"]
+        out = {}
+        for label, s in (("auto", scene), ("grid", grid)):
+            fn, consts = s.build_functional_step(with_diag=True)
+            with torch.no_grad():
+                z1, _, _, fl = fn(consts, *runs["eager"]["state"])
+            out[label] = (B @ z1.to(torch.float64), int(fl))
+        g_err = float((out["auto"][0] - out["grid"][0]).abs().max()
+                      / out["auto"][0].abs().max())
+        self.check(gcol.broad_phase == "grid" and g_err <= GAUSS_TOL["z"]
+                   and out["grid"][1] == 0,
+                   f"config-5 step with the grid broad phase (dims "
+                   f"{gcol.grid_dims}, K {gcol.cell_capacity}, M "
+                   f"{gcol.max_occupied_cells}) against {col.broad_phase} "
+                   f"from the eager path's last state: max |d(B z)| / "
+                   f"max|B z| {g_err:.3e}, flags {out['grid'][1]}")
+        del grid
+
+        shell = self.gauss_shells()["bench"]
+        *_, center, dmax = self.gauss_normalized(shell)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with self.densifier_warnings() as warned, \
+                self.carve_split() as split:
+            pts = sample_points_in_volume(*shell)
+        torch.cuda.synchronize()
+        carve_s = time.perf_counter() - t0
+        carve_peak = torch.cuda.max_memory_allocated() - base
+        p = pts.cpu().numpy().astype(np.float64)
+        r = np.linalg.norm(p - center, axis=1)
+        share = float((r < 0.25 * dmax).mean())
+        # a fill of uniform density puts (0.25 dmax / r_max)³ of the
+        # samples there; a shell alone, none
+        uniform = (0.25 * dmax / r.max()) ** 3
+        inside = bool(((p > shell[0].min(0)) & (p < shell[0].max(0))).all())
+        print(f"config 5, the densifier at its defaults (level 8, carving "
+              f"from 86 views at 256², jitter, no subsample): "
+              f"{pts.shape[0]} points in {carve_s:.3f} s host wall, peak "
+              f"{carve_peak / 2 ** 20:.1f} MiB above {base / 2 ** 20:.1f} "
+              f"MiB held; of it " + "; ".join(
+                  f"{k} {v:.3f} s" for k, v in split.items())
+              + f" [{self.card}]", flush=True)
+        self.check(not warned and share > 0.5 * uniform and inside
+                   and pts.device.type == "cuda" and split["views"] > 0,
+                   f"config-5 level-8 carve: {len(warned)} fallback "
+                   f"warnings, interior share (r < 0.25 dmax) {share:.4f} "
+                   f"above half of a uniform fill's {uniform:.4f}, every "
+                   f"sample inside the gaussians' box {inside}")
+        self.gauss.update(scene=scene, idx=idx, start=start, xyz=xyz,
+                          carve_s=carve_s, carve_peak=carve_peak,
+                          path_peak=peak, split=split)
+
+    @contextlib.contextmanager
+    def carve_split(self):
+        """The densifier's carve timed in its parts while inside: the
+        voxelization, the raytraced views (each frame of the dataset),
+        bf_recon without them and the query, host seconds with the card
+        synced around each → {part: s}."""
+        torch = self.torch
+        from kaolin_tpu_torch.ops.gaussians import densifier
+        from kaolin_tpu_torch.ops.spc import raytraced_spc_dataset as rds
+        bfr = sys.modules["kaolin_tpu_torch.ops.spc.bf_recon"]
+        split = dict(voxelization=0.0, views=0.0, bf_recon=0.0, query=0.0)
+        patched = [(densifier, "gs_to_voxelgrid", "voxelization"),
+                   (rds.RayTracedSPCDataset, "__getitem__", "views"),
+                   (bfr, "bf_recon", "bf_recon"),
+                   (bfr, "unbatched_query", "query")]
+        originals = [getattr(obj, name) for obj, name, _ in patched]
+
+        def timed(fn, part):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                split[part] += time.perf_counter() - t0
+                return out
+            return run
+
+        for (obj, name, part), fn in zip(patched, originals):
+            setattr(obj, name, timed(fn, part))
+        try:
+            yield split
+        finally:
+            for (obj, name, _), fn in zip(patched, originals):
+                setattr(obj, name, fn)
+            split["bf_recon"] -= split["views"]   # the frames are made in it
+
+    def gauss_window_ms(self, graphs, reps=3):
+        """ms/step of a 100-step rollout window from the path's start,
+        CUDA events, median of ``reps`` after a warm window; and the Newton
+        iterations a step."""
+        torch, ex, g = self.torch, self.gauss_ex, self.gauss
+        scene, steps = g["scene"], ex.BENCH["steps"]
+        times = []
+        before = self.newton.iterations
+        for rep in range(reps + 1):
+            scene.sim_z, scene.sim_z_prev, scene.sim_z_dot = (
+                x.clone() for x in g["start"])
+            scene.use_cuda_graphs = graphs
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            ex.rollout(scene, g["idx"], steps)
+            b.record()
+            b.synchronize()
+            if rep:
+                times.append(a.elapsed_time(b) / steps)
+        iters = (self.newton.iterations - before) / ((reps + 1) * steps)
+        return statistics.median(times), iters
+
+    def phase_gauss_timing(self):
+        """Config 5 on the card: the 100-step window eager and from the
+        graph (ms/step, CUDA events, median of 3 windows from the path's
+        start); a step's profile eager and as a replay (device busy, idle
+        share, largest ops) and the LBS move; the step's bound; the flood
+        fill densifier at level 6 with gs_to_voxelgrid's share, each with
+        its peak memory; the shares of phase_gauss_path's level-8 carve
+        (voxelization, the 86 raytraced views, bf_recon, the query)."""
+        torch, ex, g = self.torch, self.gauss_ex, self.gauss
+        from kaolin_tpu_torch.ops.conversions import gs_to_voxelgrid
+        self.check_precision("phase_gauss_timing")
+        if "scene" not in g:
+            raise RuntimeError("phase_gauss_path did not run")
+        scene, idx = g["scene"], g["idx"]
+        e_ms, e_iters = self.gauss_window_ms(False)
+        g_ms, _ = self.gauss_window_ms(True)
+        g.update(eager_ms=e_ms, graph_ms=g_ms, iterations=e_iters)
+        print(f"config-5 step in the 100-step window (LBS move included), "
+              f"medians of 3 windows: eager {e_ms:.4f} ms "
+              f"({e_iters:.2f} Newton iterations a step), graph "
+              f"{g_ms:.4f} ms [{self.card}]", flush=True)
+        scene.use_cuda_graphs = False
+        g["eager_busy"] = self.profile_path(
+            "config-5 step, eager", (), scene.run_sim_step)
+        scene.use_cuda_graphs = True
+        g["graph_busy"] = self.profile_path(
+            "config-5 step, graph replay", (), scene.run_sim_step)
+        self.profile_path("config-5 LBS move of 2,000 gaussians", (),
+                          lambda: scene.get_object_deformed_pts(
+                              idx, points="rendered"))
+        self.gauss_bound()
+
+        shell = self.gauss_shells()["bench"]
+        nrm = self.gauss_normalized(shell)[:4]
+        parts = {}
+        for label, fn in (
+                ("the flood-fill densifier", lambda: ex.densify(
+                    shell, ex.BENCH["num_samples"], "cuda")),
+                ("its gs_to_voxelgrid", lambda: gs_to_voxelgrid(
+                    *nrm, level=6, device="cuda"))):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            parts[label] = statistics.median(times)
+            print(f"config 5, {label} at level 6: {1e3 * parts[label]:.3f} "
+                  f"ms host wall (synced, median of 3), peak "
+                  f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 20:.1f}"
+                  f" MiB above what was held [{self.card}]", flush=True)
+        split = g["split"]
+        print(f"config 5: gs_to_voxelgrid's share of the level-6 flood fill "
+              f"{parts['its gs_to_voxelgrid'] / parts['the flood-fill densifier']:.3f}"
+              f"; the level-8 carve {g['carve_s']:.3f} s (peak "
+              f"{g['carve_peak'] / 2 ** 20:.1f} MiB): " + ", ".join(
+                  f"{k} {v / g['carve_s']:.3f}" for k, v in split.items())
+              + f" of it [{self.card}]", flush=True)
+
+    def gauss_bound(self):
+        """The config-5 step's bound, reckoned as config 1's is
+        (``sim_bound``: the dense products and factorizations per Newton
+        iteration over 67 TFLOP/s; bytes: B, dF/dz and BMB read once), plus
+        the dense broad phase's N(N-1)/2 pair tests at 19 operations each
+        once a step; the contact terms are not counted."""
+        g, scene = self.gauss, self.gauss["scene"]
+        d, n, m = scene.total_dofs, scene.total_qp, scene.max_ls_steps
+        per_iter = sum(dense_step_ops(d, n, m))
+        detect = 19 * n * (n - 1) // 2
+        nbytes = 4 * (12 * n * d + d * d)
+        for label, iters, ms in (
+                ("graph (fixed trip)", scene.max_newton_steps,
+                 g.get("graph_busy")),
+                ("eager (stops early)", g["iterations"], g.get("eager_busy"))):
+            ops = per_iter * iters + detect
+            t_ops = ops / FP32_OPS_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            bound = max(t_ops, t_bytes)
+            busy = "not measured" if ms is None else \
+                f"{ms:.4f} ms, share {bound / ms:.4f}"
+            print(f"config-5 sim step, {label}: {iters:g} Newton iterations "
+                  f"x {per_iter / 1e9:.4f} GFLOP + {detect / 1e6:.1f} M "
+                  f"detection = {ops / 1e9:.4f} GFLOP -> {t_ops:.6f} ms; "
+                  f"{nbytes} bytes -> {t_bytes:.6f} ms; bound {bound:.6f} ms "
+                  f"by {'operations' if t_ops >= t_bytes else 'bytes'}; "
+                  f"device busy {busy} [{self.card}]")
+
     # -- the table gather and the probe path ------------------------------
     def gather_case(self, n_tab, shape, lo=0, seed=0):
         """A random table of ``n_tab`` floats and int32 indices of ``shape``
@@ -4032,13 +4576,7 @@ class Smoke:
         if "dofs" not in r:
             raise RuntimeError("phase_sim_timing did not run")
         d, n, m = r["dofs"], r["points"], r["ls"]
-        k = 2 * m + 2
-        grad = 4 * 2 * 12 * n * d + 2 * d * d
-        hess = 2 * 2 * 12 * n * d + 2 * n * d * (9 + 81) \
-            + 2 * d * d * 12 * n + 3 * d * d
-        solve = d ** 3 / 3 + 2 * d ** 3 / 3 + 4 * 2 * d * d
-        search = 2 * d * d + 2 * (k - 1) * d * d + k * (2 * 12 * n * d
-                                                       + 2 * d * d)
+        grad, hess, solve, search = dense_step_ops(d, n, m)
         per_iter = grad + hess + solve + search
         nbytes = 4 * (12 * n * d + d * d)
         for label, iters, ms in (
@@ -4256,6 +4794,7 @@ class Smoke:
                       self.phase_spc_main_path, self.phase_spcrt_parity,
                       self.phase_spcrt_path, self.phase_spcrt_crosscheck,
                       self.phase_flexi_parity, self.phase_flexi_path,
+                      self.phase_gauss_parity, self.phase_gauss_path,
                       self.phase_probe_path,
                       self.phase_sim_path, self.phase_collision_path,
                       self.phase_train_path, self.phase_grad,
@@ -4263,7 +4802,7 @@ class Smoke:
                       self.phase_spc_timing,
                       self.phase_gather_timing, self.phase_sim_timing,
                       self.phase_collision_timing, self.phase_train_timing,
-                      self.phase_flexi_timing,
+                      self.phase_flexi_timing, self.phase_gauss_timing,
                       self.phase_profile, self.phase_spcrt_timing,
                       self.phase_bounds):
             print(f"== {phase.__name__}", flush=True)

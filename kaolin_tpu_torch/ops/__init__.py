@@ -1,5 +1,6 @@
 from kaolin_tpu_torch.ops import batch  # noqa: F401
 from kaolin_tpu_torch.ops import conversions  # noqa: F401
+from kaolin_tpu_torch.ops import gaussians  # noqa: F401
 from kaolin_tpu_torch.ops import mesh  # noqa: F401
 from kaolin_tpu_torch.ops import pointcloud  # noqa: F401
 from kaolin_tpu_torch.ops import spc  # noqa: F401

@@ -2,6 +2,9 @@ from kaolin_tpu_torch.ops.conversions.flexicubes import (  # noqa: F401
     FlexiCubes,
     dense_extract,
 )
+from kaolin_tpu_torch.ops.conversions.gaussians import (  # noqa: F401
+    gs_to_voxelgrid,
+)
 from kaolin_tpu_torch.ops.conversions.pointcloud import (  # noqa: F401
     pointclouds_to_voxelgrids,
     unbatched_pointcloud_to_spc,

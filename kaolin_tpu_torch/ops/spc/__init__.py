@@ -32,6 +32,13 @@ from kaolin_tpu_torch.ops.spc.convolution import (  # noqa: F401
     conv3d,
     conv_transpose3d,
 )
+from kaolin_tpu_torch.ops.spc.bf_recon import (  # noqa: F401
+    bf_recon,
+    build_mip2d,
+    extract_bq,
+    fuse_bf,
+    process_frame,
+)
 from kaolin_tpu_torch.ops.spc.raytraced_spc_dataset import (  # noqa: F401
     RayTracedSPCDataset,
 )

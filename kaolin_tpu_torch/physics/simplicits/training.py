@@ -159,18 +159,21 @@ class SimplicitsObject(PhysicsPoints):
     def create_rigid(cls, physics_points: PhysicsPoints):
         """The constant handle alone: rigid and affine motion only."""
         skin = SkinningModule.from_function(
-            lambda x: x.new_zeros((x.shape[0], 0)))
+            lambda x: x.new_zeros((x.shape[0], 0))).to(
+                physics_points.pts.device)
         return cls(physics_points.pts, physics_points.yms,
                    physics_points.prs, physics_points.rhos,
                    physics_points.appx_vol, skin)
 
     @classmethod
     def create_from_function(cls, physics_points: PhysicsPoints, fcn):
-        """An analytic weight function of normalized points."""
+        """An analytic weight function of normalized points; its box on the
+        points' device."""
         return cls(physics_points.pts, physics_points.yms,
                    physics_points.prs, physics_points.rhos,
                    physics_points.appx_vol,
-                   SkinningModule.from_function(fcn))
+                   SkinningModule.from_function(fcn).to(
+                       physics_points.pts.device))
 
     @classmethod
     def create_with_mlp(cls,

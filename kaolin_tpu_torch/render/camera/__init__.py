@@ -25,6 +25,14 @@ from kaolin_tpu_torch.render.camera.raygen import (  # noqa: F401
     generate_pinhole_rays,
     generate_rays,
 )
+from kaolin_tpu_torch.render.camera.gsplats import (  # noqa: F401
+    gsplat_inria_camera_to_kaolin,
+    gsplat_nerfstudio_camera_to_kaolin,
+    gsplats_camera_to_kaolin,
+    kaolin_camera_to_gsplat_inria,
+    kaolin_camera_to_gsplat_nerfstudio,
+    kaolin_camera_to_gsplats,
+)
 from kaolin_tpu_torch.render.camera import legacy  # noqa: F401
 from kaolin_tpu_torch.render.camera.legacy import (  # noqa: F401
     generate_perspective_projection,
@@ -32,6 +40,10 @@ from kaolin_tpu_torch.render.camera.legacy import (  # noqa: F401
     generate_transformation_matrix,
     perspective_camera,
     rotate_translate_points,
+)
+from kaolin_tpu_torch.render.camera.polyscope import (  # noqa: F401
+    kaolin_camera_to_polyscope,
+    polyscope_camera_to_kaolin,
 )
 from kaolin_tpu_torch.render.camera.trajectory import (  # noqa: F401
     camera_path_generator,

@@ -50,6 +50,9 @@ __all__ = [
 ]
 
 _I32 = torch.int32
+# a node record ``prev_exsum << 8 | byte`` fits int32 while 8 x the octree's
+# bytes stays below this
+_NODE_TABLE_LIMIT = 1 << 23
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +208,7 @@ def _raytrace_frontier(octree, exsum, origin, direction, level, capacity):
     c = int(capacity)
     if level > 10:
         raise NotImplementedError("packed coords support level <= 10")
-    if 8 * octree.shape[0] >= (1 << 23) or c >= (1 << 26):
+    if 8 * octree.shape[0] >= _NODE_TABLE_LIMIT or c >= (1 << 26):
         raise NotImplementedError("octree/capacity too large for packed "
                                   "int32 records")
     if c < num_rays:
@@ -307,7 +310,7 @@ def _raytrace_perray(octree, exsum, origin, direction, level, slots,
     neg_mask = _neg_mask(direction)
     octant = torch.arange(8, dtype=_I32, device=device)
     popc = popcount_table(device)
-    combine_nodes = 8 * octree.shape[0] < (1 << 23)
+    combine_nodes = 8 * octree.shape[0] < _NODE_TABLE_LIMIT
     node_tab = _node_table(octree, exsum) if combine_nodes else None
     exsum = exsum.to(_I32)
     packed_ok = level <= 10
@@ -333,8 +336,9 @@ def _raytrace_perray(octree, exsum, origin, direction, level, slots,
             byte, base = rec & 0xFF, rec >> 8
         else:
             byte = octree[safe_n].to(_I32)
-            base = torch.where(nidx > 0,
-                               exsum[torch.clamp(nidx - 1, min=0).long()], 0)
+            # dead slots hold stale indices: read node 0 there (F27)
+            base = torch.where(safe_n > 0,
+                               exsum[torch.clamp(safe_n - 1, min=0)], 0)
         child_oct = octant[None, None, :] ^ neg_mask[:, None, None]
         has_child = ((byte[..., None] >> child_oct) & 1) == 1
         if packed_ok:
@@ -425,7 +429,8 @@ def unbatched_raytrace(octree, point_hierarchy, pyramid, exsum, origin,
     exsum = exsum.to(origin.device)
 
     if max_nuggets is None:
-        use_frontier = (level <= 10 and 8 * octree.shape[0] < (1 << 23)
+        use_frontier = (level <= 10
+                        and 8 * octree.shape[0] < _NODE_TABLE_LIMIT
                         and num_rays < (1 << 26))
         if use_frontier:
             ceiling = min(_capacity_ceiling(num_rays, num_leaf, level),

@@ -27,3 +27,12 @@ def resolve_device(device, what):
         raise RuntimeError(f"{what} runs on the CUDA device and none is "
                            "available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def input_device(x, device, what):
+    """``device`` if given, else the device of ``x`` when it is a tensor,
+    else the CUDA device (:func:`resolve_device`): an entry point given
+    arrays runs on the card unless the CPU is named."""
+    if device is None and isinstance(x, torch.Tensor):
+        return x.device
+    return resolve_device(device, what)

@@ -1,8 +1,8 @@
 """Hand numpy data to the port, so both packages see identical inputs, and
 carry the JAX package's Simplicits MLP weights, RKPM fields, physics points,
 contact buffers, configured ``Collision`` objects, SPC convolution
-parameters, nglod-style feature fields and the DMTet tutorial's MLP into
-the port."""
+parameters, nglod-style feature fields, the DMTet tutorial's MLP, gaussian
+splat models and Bayesian-fusion 3-state SPCs into the port."""
 
 import numpy as np
 import torch
@@ -181,3 +181,33 @@ def dmtet_mlp_from_jax(params, device="cpu"):
             linear.bias.copy_(torch.from_numpy(np.array(b, np.float32)))
         layers += [linear, nn.ReLU()]
     return nn.Sequential(*layers[:-1])
+
+
+def gaussian_splat_model_from_jax(model, device="cpu"):
+    """The port's :class:`~kaolin_tpu_torch.rep.GaussianSplatModel` holding
+    a JAX ``GaussianSplatModel``'s arrays (through numpy) on ``device``:
+    the same point attributes, transform and SH degree."""
+    from kaolin_tpu_torch.rep.gaussians import GaussianSplatModel
+
+    def conv(name):
+        value = getattr(model, name, None)
+        return None if value is None else torch.from_numpy(
+            np.array(value, copy=True)).to(device)
+
+    return GaussianSplatModel(
+        positions=conv("positions"), orientations=conv("orientations"),
+        scales=conv("scales"), opacities=conv("opacities"),
+        sh_coeff=conv("sh_coeff"), features=conv("features"),
+        transform=conv("transform"), sh_degree=model.sh_degree,
+        strict_checks=False)
+
+
+def bf_spc_from_jax(spc, device="cpu"):
+    """A JAX 3-state SPC dict (what ``process_frame`` and ``fuse_bf``
+    return: octree, empty, exsum, pyramid, probabilities, colors, normals
+    and the int ``level``) as the port's: each array a tensor on
+    ``device``, ``level`` an int."""
+    out = {k: torch.from_numpy(np.array(v, copy=True)).to(device)
+           for k, v in spc.items() if k != "level"}
+    out["level"] = int(spc["level"])
+    return out

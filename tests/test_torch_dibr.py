@@ -547,14 +547,24 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "kaolin_tpu_torch.ops.voxelgrid, kaolin_tpu_torch.non_commercial, "
             "kaolin_tpu_torch.metrics.pointcloud, "
             "kaolin_tpu_torch.metrics.tetmesh, "
-            "kaolin_tpu_torch.metrics.voxelgrid, runpy\n"
+            "kaolin_tpu_torch.metrics.voxelgrid, "
+            "kaolin_tpu_torch.rep.gaussians, "
+            "kaolin_tpu_torch.rep.tensor_container, "
+            "kaolin_tpu_torch.ops.gaussians, "
+            "kaolin_tpu_torch.ops.gaussians.densifier, "
+            "kaolin_tpu_torch.ops.gaussians.transforms, "
+            "kaolin_tpu_torch.ops.conversions.gaussians, "
+            "kaolin_tpu_torch.ops.spc.bf_recon, "
+            "kaolin_tpu_torch.render.camera.gsplats, "
+            "kaolin_tpu_torch.render.camera.polyscope, runpy\n"
             "for ex in ('torch_simplicits_drop', 'torch_simplicits_train', "
             "'torch_dibr_optimization', 'torch_dibr_texture_fit', "
             "'torch_tutorial_camera_rasterization', "
             "'torch_tutorial_bbox_fitting', 'torch_spc_raster', "
             "'torch_collision_stack', 'torch_spc_raytrace', "
             "'torch_tutorial_understanding_spcs', 'torch_flexicubes_sdf', "
-            "'torch_tutorial_dmtet'):\n"
+            "'torch_tutorial_dmtet', 'torch_simulatable_gaussians', "
+            "'torch_tutorial_working_with_gaussians'):\n"
             "    runpy.run_path(f'examples/{ex}.py')\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'kaolin_tpu.')) or m == 'kaolin_tpu']\n"

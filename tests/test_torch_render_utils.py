@@ -234,13 +234,7 @@ def test_exports_match_jax():
     import kaolin_tpu_torch.render.camera as tc
 
     not_ported = {"deftet_sparse_render", "default_nvdiffrast_context",
-                  "nvdiffrast_is_available", "gsplat_inria_camera_to_kaolin",
-                  "gsplat_nerfstudio_camera_to_kaolin",
-                  "kaolin_camera_to_gsplat_inria",
-                  "kaolin_camera_to_gsplat_nerfstudio",
-                  "gsplats_camera_to_kaolin", "kaolin_camera_to_gsplats",
-                  "kaolin_camera_to_polyscope", "polyscope_camera_to_kaolin",
-                  "gs_to_voxelgrid"}
+                  "nvdiffrast_is_available"}
     metric_modules = [(getattr(jmetrics, n), getattr(tmetrics, n))
                       for n in dir(jmetrics) if not n.startswith("_")
                       and isinstance(getattr(jmetrics, n), type(os))]

@@ -1,5 +1,6 @@
 """Shared pieces of the kaolin_tpu_torch parity tests (``test_torch_*.py``)."""
 
+import contextlib
 import importlib.util
 import os
 
@@ -8,6 +9,21 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads_per_worker():
+    """torch's threads shared out among the pytest workers for a module
+    (``PYTEST_XDIST_WORKER_COUNT``; all of them in a single process),
+    restored after. With every worker on every core's threads, a module of
+    long float64 and traversal work oversubscribes the cores: the
+    densifier's carve ran 40 times longer under six workers. Import this
+    fixture into a test module to apply it there."""
+    threads = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, threads // workers))
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -96,3 +112,98 @@ def z_converter(port_scene, jax_scene):
 def displacement(scene, z):
     """B z in float64: the points' displacement, whatever the basis."""
     return np.asarray(scene.sim_B, np.float64) @ np.asarray(z, np.float64)
+
+
+# -- gaussians and Bayesian-fusion carving ---------------------------------
+_JAX_VOXELS = {}
+
+
+@contextlib.contextmanager
+def jax_voxels_memoized():
+    """kaolin_tpu's ``gs_to_voxelgrid``, as its densifier calls it,
+    memoized on its inputs' bytes for the duration: the JAX float64
+    voxelization of a 300-gaussian shell at level 6 takes seconds, and the
+    densifier's floodfill, carve and scene tests voxelize the same shell."""
+    import kaolin_tpu.ops.gaussians.densifier as jd
+
+    orig = jd.gs_to_voxelgrid
+
+    def memo(xyz, scales, rots, opacities, level, **kw):
+        key = (tuple(np.asarray(a).tobytes() for a in
+                     (xyz, scales, rots, opacities)), level,
+               tuple(sorted(kw.items())))
+        if key not in _JAX_VOXELS:
+            _JAX_VOXELS[key] = orig(xyz, scales, rots, opacities, level,
+                                    **kw)
+        return _JAX_VOXELS[key]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jd, "gs_to_voxelgrid", memo)
+        yield
+
+
+@contextlib.contextmanager
+def jax_without_contraction():
+    """The JAX package's arithmetic without its two roundings that the port
+    does not make (ROADMAP Queue C, F24): XLA's optimizations off, which
+    contract the Bayesian-fusion profile's Bezier into fused multiply-adds,
+    and ``jax.lax.rsqrt`` as ``1 / sqrt``, where XLA's CPU rsqrt is within
+    an ulp of it but not correctly rounded."""
+    import jax
+    import jax.numpy as jnp
+
+    optimized = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax.lax, "rsqrt", lambda x: 1.0 / jnp.sqrt(x))
+            yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", optimized)
+
+
+def frame_tuple(frame, to_numpy):
+    """A ``RayTracedSPCDataset`` frame with its tensors as numpy arrays
+    (``to_numpy``) or as they are."""
+    return tuple(x.numpy() if to_numpy and isinstance(x, torch.Tensor)
+                 else x for x in frame)
+
+
+_FRAMES = {}
+
+
+@contextlib.contextmanager
+def shared_carving_views(res):
+    """Both packages' densifiers carve from the same frames: the port's
+    ``RayTracedSPCDataset`` of the shell at ``res`` (views of 2^res pixels a
+    side), handed to the JAX package as numpy. The dataset itself is held
+    against the JAX package's in ``tests/test_torch_spc_more.py``; sharing
+    its frames keeps the JAX raytrace, seconds a view on the CPU, out of
+    the densifier's test."""
+    import kaolin_tpu.ops.spc as jspc
+
+    import kaolin_tpu_torch.ops.spc as tspc
+
+    port_dataset = tspc.RayTracedSPCDataset
+
+    def views(to_numpy):
+        def make(viewpoints, gs_octree, res_=None):
+            octree = np.array(gs_octree)
+            key = (octree.tobytes(), np.asarray(viewpoints).tobytes(), res)
+            if key not in _FRAMES:
+                ds = port_dataset(viewpoints, torch.from_numpy(octree),
+                                  res=res)
+                _FRAMES[key] = [ds[i] for i in range(len(ds))]
+            return [frame_tuple(f, to_numpy) for f in _FRAMES[key]]
+        return make
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jspc, "RayTracedSPCDataset", views(True))
+        mp.setattr(tspc, "RayTracedSPCDataset", views(False))
+        yield
+
+
+CARVE_VIEWS = np.array([      # tests/ops/test_gaussians.py's eight views
+    [4.0, 0, 0.3], [-4.0, 0, 0.3], [0, 4.0, 0.3], [0, -4.0, 0.3],
+    [0.3, 0.3, 4.0], [0.3, 0.3, -4.0],
+    [2.3, 2.3, 2.3], [-2.3, -2.3, -2.3]], dtype=np.float32)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's eleven paths on one NVIDIA GPU and check them:
+"""Run the PyTorch port's twelve paths on one NVIDIA GPU and check them:
 the DIB-R inverse-rendering step, the DIB-R pose-and-texture fit (config 2
 as written, ``examples/torch_dibr_texture_fit.py``, with the two ported
 camera and bounding-box tutorials), the SPC first-hit raster, config 3 as
@@ -15,7 +15,12 @@ SDF fit at res 64 in its bench and topology forms
 gaussian splats of ``bench.py``'s ``bench_gaussians_sim``
 (``examples/torch_simulatable_gaussians.py``: 2,000 gaussians densified
 into a 2,048-point Simplicits body with contact, 100 steps moving the
-gaussians by LBS, and the densifier's level-8 carving). Config 3 as
+gaussians by LBS, and the densifier's level-8 carving), and the full
+mesh render (``examples/torch_easy_render.py``: a two-material
+``SurfaceMesh`` through ``render_mesh`` at 512² under one SG light and
+under 32 lobes fitted to an environment map, a 100-step fit through the
+render, DefTet at its defaults, and the three lighting and render
+tutorials), which launches the winner search once a render. Config 3 as
 written, the three Simplicits paths and configs 4 and 5 are plain PyTorch:
 the JAX package has no kernel there.
 
@@ -134,7 +139,19 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    = eager within 1e-4 of max|z|), one step with the grid forced against
    the auto choice, and the densifier at its defaults (level 8, 86 views
    at 256²): no fallback, the interior filled, every sample inside the
-   box; ``phase_gauss_timing`` after phase_flexi_timing);
+   box; ``phase_gauss_timing`` after phase_flexi_timing); then the full
+   render (``phase_render_parity``: the card against the port's CPU, the
+   two-material scene at 512² with face_idx equal and every pass within
+   1e-5 of its max|x|, one fit step at 256² with its gradients within 1e-4
+   of max|g|, DefTet at 128² with knum 300 from one set of inputs with
+   face_idx equal and features within 1e-6, the 32-lobe environment fit's
+   amplitudes within 1e-4 of the largest, and a mesh whose vertices are
+   re-set equal to a fresh mesh within 1e-6 (fault F28);
+   ``phase_render_path``: the render and the environment-lit render each
+   launch #1 once and #2-6 never, the fit's 100 steps launch #1 on every
+   step and its loss halves, DefTet at its defaults at 512² gives depths
+   non-increasing along knum, and the three tutorials pass their checks at
+   full size; ``phase_render_timing`` after phase_gauss_timing);
 7. the table gather's two routes (shared memory, L2) held bit for bit
    against ``table_gather_plain``: the probe's shape, 2^14 and 2^20
    tables, 58,112 and 58,113 floats (either side of the route rule),
@@ -179,7 +196,11 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    the flood-fill densifier at level 6 with gs_to_voxelgrid's share, each
    with its peak memory, and the parts of the level-8 carve that
    phase_gauss_path timed (voxelization, the 86 views, bf_recon, the
-   query);
+   query); the full render at 512² at 4,992 and 81,408 faces, under 32
+   environment lobes, the fit step and DefTet at its defaults (CUDA
+   events, device busy, idle share, the largest ops and #1's share, peak
+   memory, the render's and the step's bounds), and the 81,408-face
+   set-up once;
 9. time each kernel and each path against the plain versions with CUDA
    events, in the order plain, kernel, kernel, plain; the texture fit's
    step event to event over steps 20-80 of one run;
@@ -319,6 +340,21 @@ GAUSS_CARVE_VIEWS = np.array([   # tests/ops/test_gaussians.py's
     [4.0, 0, 0.3], [-4.0, 0, 0.3], [0, 4.0, 0.3], [0, -4.0, 0.3],
     [0.3, 0.3, 4.0], [0.3, 0.3, -4.0],
     [2.3, 2.3, 2.3], [-2.3, -2.3, -2.3]], dtype=np.float32)
+RENDER_RES = 512                 # the full render (examples/torch_easy_render.py)
+RENDER_STEPS = 100
+RENDER_TIMED = 10
+RENDER_GRAD_RES = 256            # one fit step card vs CPU
+RENDER_DEFTET_PARITY = 128       # DefTet card vs CPU, knum 300
+RENDER_TOL = {"pass": 1e-5, "grad": 1e-4, "feature": 1e-6, "env": 1e-4}
+# float32 operations a covered pixel of the render does, counted from its
+# formulas for one SG light: the re-gather's barycentrics and 8 feature
+# channels (60), the UVs' remainder and the normals' sign (5), both
+# materials' bilinear samples of 7 texture channels (114), the bitangent
+# and the normal map (43), the material blends (24), the normalization and
+# view ray (23), the diffuse inner product (35) and the specular term (125)
+RENDER_PIXEL_OPS = 430
+ENV_LOBE_OPS = 70                # each further lobe: its two inner products
+ADAM_OPS = 12                    # a parameter's Adam update
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores
@@ -652,6 +688,8 @@ class Smoke:
         self.flexi = {}   # config 4: its states and measurements
         self.gauss_ex = load_example("torch_simulatable_gaussians")
         self.gauss = {}   # config 5: its scene and measurements
+        self.render_ex = load_example("torch_easy_render")
+        self.render = {}  # the full render: its measurements
         from kaolin_tpu_torch.render.spc import raytrace
         self.rt = raytrace
         self.spcrt = {}   # config 3 as written: its scene and measurements
@@ -3076,6 +3114,321 @@ class Smoke:
                   f"by {'operations' if t_ops >= t_bytes else 'bytes'}; "
                   f"device busy {busy} [{self.card}]")
 
+    # -- the full render (examples/torch_easy_render.py) ------------------
+    def render_errs(self, card, cpu):
+        """(face_idx equal, {pass: max|card − cpu| / max(max|cpu|, 1)})."""
+        torch = self.torch
+        same = torch.equal(card["face_idx"].cpu(), cpu["face_idx"])
+        errs = {k: float((card[k].detach().cpu() - v.detach()).abs().max())
+                / max(float(v.detach().abs().max()), 1.0)
+                for k, v in cpu.items() if k != "face_idx"}
+        return same, errs
+
+    def phase_render_parity(self):
+        """The full render on the card against the port's CPU: the
+        two-material scene at 512² (face_idx equal, every pass within 1e-5
+        of its max|x|); one fit step at 256² (its loss within 1e-5 relative,
+        its gradients within 1e-4 of max|g|); DefTet at 128² with knum 300
+        from the CPU's inputs (face_idx equal, features within 1e-6); the
+        32-lobe environment fit (amplitudes within 1e-4 of the largest,
+        lobes within 1e-6); and F28: the card's mesh re-set to new vertices
+        equal to a fresh mesh, every derived attribute."""
+        torch, ex = self.torch, self.render_ex
+        from kaolin_tpu_torch.rep import SurfaceMesh
+        self.check_precision("phase_render_parity")
+        tol = RENDER_TOL
+        devices = {"card": self.device, "cpu": "cpu"}
+        meshes = {k: ex.scene(d) for k, d in devices.items()}
+        with torch.no_grad():
+            same, errs = self.render_errs(ex.render(meshes["card"]),
+                                          ex.render(meshes["cpu"]))
+        self.check(same and max(errs.values()) <= tol["pass"],
+                   f"render at {RENDER_RES}x{RENDER_RES} card vs CPU: "
+                   f"face_idx {'equal' if same else 'DIFFERS'}; passes "
+                   + ", ".join(f"{k} {v:.2e}" for k, v in sorted(errs.items()))
+                   + f" of max|x| (<= {tol['pass']:g})")
+        grads, losses = {}, {}
+        for k, d in devices.items():
+            state = ex.fit_setup(d, RENDER_GRAD_RES)
+            loss, _ = ex.fit_loss(state)
+            loss.backward()
+            losses[k] = float(loss.detach())
+            grads[k] = {n: p.grad.cpu() for n, p in state["params"].items()}
+        gerr = {n: float((grads["card"][n] - g).abs().max())
+                / float(g.abs().max()) for n, g in grads["cpu"].items()}
+        lerr = abs(losses["card"] - losses["cpu"]) / losses["cpu"]
+        self.check(lerr <= tol["pass"] and max(gerr.values()) <= tol["grad"],
+                   f"fit step at {RENDER_GRAD_RES}x{RENDER_GRAD_RES} card vs "
+                   f"CPU: loss {losses['card']:.6f} vs {losses['cpu']:.6f} "
+                   f"(rel {lerr:.2e}); gradients "
+                   + ", ".join(f"{n} {v:.2e}" for n, v in gerr.items())
+                   + f" of max|g| (<= {tol['grad']:g})")
+        inputs = ex.deftet_inputs(meshes["cpu"], RENDER_DEFTET_PARITY)
+        on_card = {k: ([x.to(self.device) for x in v] if isinstance(v, list)
+                       else v.to(self.device)) for k, v in inputs.items()}
+        with torch.no_grad():
+            (uv_h, z_h), idx_h = ex.deftet_render(inputs)
+            (uv_c, z_c), idx_c = ex.deftet_render(on_card)
+        same = torch.equal(idx_c.cpu(), idx_h)
+        ferr = max(float((uv_c.cpu() - uv_h).abs().max()),
+                   float((z_c.cpu() - z_h).abs().max()))
+        self.check(same and ferr <= tol["feature"],
+                   f"DefTet at {RENDER_DEFTET_PARITY}x{RENDER_DEFTET_PARITY}, "
+                   f"knum {ex.KNUM}, card vs CPU from one set of inputs: "
+                   f"face_idx {'equal' if same else 'DIFFERS'} "
+                   f"({int((idx_h >= 0).sum())} hits), features within "
+                   f"{ferr:.2e} (<= {tol['feature']:g})")
+        env = {k: ex.environment_lighting(d) for k, d in devices.items()}
+        amp = env["cpu"].amplitude
+        aerr = float((env["card"].amplitude.cpu() - amp).abs().max()) \
+            / float(amp.abs().max())
+        lerr = max(float((getattr(env["card"], k).cpu()
+                          - getattr(env["cpu"], k)).abs().max())
+                   for k in ("direction", "sharpness"))
+        self.check(aerr <= tol["env"] and lerr <= tol["feature"],
+                   f"from_environment_map ({ex.NUM_SG} lobes, "
+                   f"{ex.ENV[0]}x{ex.ENV[1]} map) card vs CPU: amplitudes "
+                   f"within {aerr:.2e} of the largest (<= {tol['env']:g}), "
+                   f"lobes within {lerr:.2e}")
+        # vertex normals and tangents sum faces by index_add, whose atomics
+        # add in any order on the card: held within 1e-6, where a stale
+        # attribute (the old geometry's) is off by more than 1e-2
+        mesh = meshes["card"]
+        derived = ("face_vertices", "face_normals", "vertex_normals",
+                   "vertex_tangents", "face_tangents", "face_features")
+        old = {a: getattr(mesh, a) for a in derived}
+        v2 = mesh.vertices * mesh.vertices.new_tensor([1.1, 0.9, 1.05]) \
+            + 0.02
+        mesh.vertices = v2
+        fresh = SurfaceMesh(vertices=v2, faces=mesh.faces,
+                            face_uvs=mesh.face_uvs,
+                            vertex_features=mesh.vertex_features)
+        err = {a: float((getattr(mesh, a) - getattr(fresh, a)).abs().max())
+               for a in derived}
+        stale = {a: float((old[a] - getattr(fresh, a)).abs().max())
+                 for a in derived if a != "face_features"}
+        self.check(max(err.values()) <= tol["feature"]
+                   and min(stale.values()) > 1e-2,
+                   "F28: the card's mesh with its vertices re-set against a "
+                   "fresh mesh: " + ", ".join(f"{a} {v:.2e}"
+                                              for a, v in err.items())
+                   + f" (<= {tol['feature']:g}); the old geometry's "
+                   "attributes off by " + ", ".join(
+                       f"{a} {v:.2e}" for a, v in stale.items()))
+
+    def phase_render_path(self):
+        """The full render on the card, each piece driven with every launch
+        counter set to 0 just before and read just after: the render at
+        512² (ten passes, finite) and under 32 environment lobes launch #1
+        once and #2-6 never; the fit's 100 steps (each sets the vertices,
+        renders, backward, Adam) launch #1 on every step and #2-6 never,
+        every loss finite and the last below half the first; DefTet at its
+        defaults at 512² (knum 300, face_chunk 1,024, pixel_chunk 8,192)
+        with depths non-increasing along knum wherever face_idx ≥ 0 and
+        hits packed first; the three tutorials at full size, each with its
+        own checks, launching #1 and nothing else."""
+        torch, ex, r = self.torch, self.render_ex, self.render
+        names = list(self.counters())
+        others = [k for k in names if k != "winner"]
+
+        def only_winner(n, times=1):
+            return n["winner"] == times and not any(n[k] for k in others)
+
+        mesh = ex.scene("cuda")
+        with torch.no_grad():
+            passes, n = self.drive(names, lambda: ex.render(mesh))
+            env, n_env = self.drive(names, lambda: ex.env_render(mesh))
+        finite = all(bool(torch.isfinite(v.float()).all())
+                     for v in (*passes.values(), *env.values()))
+        covered = int((passes["face_idx"] >= 0).sum())
+        self.check(len(passes) == 10 and finite and covered > 0
+                   and only_winner(n) and only_winner(n_env),
+                   f"render at {RENDER_RES}x{RENDER_RES}: {len(passes)} "
+                   f"passes, {covered} covered pixels, finite; launches "
+                   f"{n}; under {ex.NUM_SG} lobes {n_env}")
+        state = ex.fit_setup("cuda", RENDER_RES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, counts = [], []
+        for _ in range(RENDER_STEPS):
+            loss, n = self.drive(names, lambda: ex.fit_step(state))
+            losses.append(float(loss))
+            counts.append(n)
+        r["fit_s"] = time.perf_counter() - t0
+        r["losses"] = losses
+        self.check(all(only_winner(c) for c in counts),
+                   f"fit: every one of {RENDER_STEPS} steps launched #1 once "
+                   "and #2-6 never (totals " + ", ".join(
+                       f"{k} {sum(c[k] for c in counts)}" for k in names)
+                   + ")")
+        self.check(bool(np.isfinite(losses).all())
+                   and losses[-1] < 0.5 * losses[0],
+                   f"fit: L1 {losses[0]:.5f} -> {losses[-1]:.5f} in "
+                   f"{RENDER_STEPS} steps (below half the start), "
+                   f"{r['fit_s']:.2f} s host with a sync a step")
+        inputs = ex.deftet_inputs(mesh)
+        with torch.no_grad():
+            ((uv, z), idx), n = self.drive(names,
+                                           lambda: ex.deftet_render(inputs))
+        z = z[..., 0]
+        hit = idx >= 0
+        ordered = bool(((z[..., :-1] >= z[..., 1:]) | ~hit[..., 1:]).all())
+        packed = bool((hit[..., :-1] | ~hit[..., 1:]).all())
+        r["deftet_hits"] = int(hit.sum())
+        self.check(ordered and packed and not any(n.values())
+                   and r["deftet_hits"] > 0,
+                   f"DefTet at its defaults at {RENDER_RES}x{RENDER_RES} "
+                   f"(knum {ex.KNUM}): {r['deftet_hits']} hits, up to "
+                   f"{int(hit.sum(-1).max())} a pixel, depths non-increasing "
+                   f"along knum {ordered}, hits first {packed}; launches {n}")
+        for name in ("torch_tutorial_easy_mesh_render",
+                     "torch_tutorial_diffuse_lighting",
+                     "torch_tutorial_sg_specular_lighting"):
+            mod = load_example(name)
+            t0 = time.perf_counter()
+            _, n = self.drive(names, lambda: mod.main("cuda"))
+            self.check(n["winner"] > 0 and not any(n[k] for k in others),
+                       f"{name} at full size passed its checks in "
+                       f"{time.perf_counter() - t0:.2f} s; launches {n}")
+
+    def peak_mib(self, fn):
+        """MiB that ``fn`` allocates above what was held before it."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    def render_bound(self, label, tensors, ops, busy=None):
+        """The least time for ``ops`` float32 operations and for moving
+        ``tensors`` (each read or written once) → (bound ms, by what)."""
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = ops / FP32_OPS_S * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        share = "" if busy is None else \
+            f"; device busy {busy:.4f} ms, share {bound / busy:.5f}"
+        print(f"{label} bound: {nbytes} bytes -> {t_bytes:.6f} ms, "
+              f"{ops / 1e6:.1f} M operations -> {t_ops:.6f} ms; "
+              f"{bound:.6f} ms by {by}{share} [{self.card}]", flush=True)
+        return bound, by
+
+    def mesh_tensors(self, mesh):
+        """The render's inputs: the mesh's given tensors and its
+        materials' textures and values."""
+        out = [mesh.get_attribute(a) for a in ("vertices", "faces",
+                                               "vertex_features", "face_uvs",
+                                               "material_assignments")]
+        for m in mesh.materials:
+            out += [t for a in m.get_attributes(only_tensors=True)
+                    for t in [getattr(m, a)]]
+        return out
+
+    def phase_render_timing(self):
+        """The full render's times on the card: the render at 512² at 4,992
+        and at 81,408 faces (CUDA events, median of 10; device busy, idle
+        share, the largest ops and #1's share; peak memory; bound), the
+        81,408-face set-up once (scene, render, environment fit and render,
+        host wall, synced), the render under 32 environment lobes (ms,
+        peak), the fit step (forward, backward, Adam: ms, profile, peak,
+        bound) and DefTet at its defaults (ms, median of 3; peak)."""
+        torch, ex, r = self.torch, self.render_ex, self.render
+        self.check_precision("phase_render_timing")
+        res = RENDER_RES
+        pixels = res * res
+        light = ex.default_lighting("cuda")
+        for label, size in (("4,992 faces", (ex.N_LAT, ex.N_LON)),
+                            ("81,408 faces", ex.ASSET)):
+            if size == ex.ASSET:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mesh = ex.scene("cuda", *size)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with torch.no_grad():
+                    ex.render(mesh)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    env = ex.environment_lighting("cuda")
+                    torch.cuda.synchronize()
+                    t3 = time.perf_counter()
+                    ex.env_render(mesh, env)
+                    torch.cuda.synchronize()
+                    t4 = time.perf_counter()
+                print(f"set-up at {label}, once, host wall synced: scene "
+                      f"{t1 - t0:.4f} s, first render {t2 - t1:.4f} s, "
+                      f"environment fit {t3 - t2:.4f} s, first environment "
+                      f"render {t4 - t3:.4f} s [{self.card}]", flush=True)
+            else:
+                mesh = ex.scene("cuda", *size)
+            with torch.no_grad():
+                fn = lambda: ex.render(mesh, light)  # noqa: E731
+                ms = statistics.median(self.time_ms(fn, RENDER_TIMED))
+                peak = self.peak_mib(fn)
+                busy, kms = self.profile_path(
+                    f"render at {res}x{res}, {label}", ("winner",), fn,
+                    record=False)
+                out = fn()
+            r[label] = dict(ms=ms, peak=peak, busy=busy,
+                            winner=kms["winner"])
+            print(f"render at {res}x{res}, {label}: {ms:.4f} ms (CUDA "
+                  f"events, median of {RENDER_TIMED}); #1 "
+                  f"{kms['winner']:.4f} device ms, {kms['winner'] / busy:.4f}"
+                  f" of busy; peak {peak:.1f} MiB [{self.card}]", flush=True)
+            self.render_bound(
+                f"render at {res}x{res}, {label}",
+                self.mesh_tensors(mesh) + list(out.values()),
+                pixels * RENDER_PIXEL_OPS, busy)
+
+        mesh = ex.scene("cuda")
+        env = ex.environment_lighting("cuda")
+        with torch.no_grad():
+            fn = lambda: ex.env_render(mesh, env)  # noqa: E731
+            ms = statistics.median(self.time_ms(fn, RENDER_TIMED))
+            peak = self.peak_mib(fn)
+        r["env"] = dict(ms=ms, peak=peak)
+        print(f"render at {res}x{res} under {ex.NUM_SG} environment lobes: "
+              f"{ms:.4f} ms (CUDA events, median of {RENDER_TIMED}); peak "
+              f"{peak:.1f} MiB [{self.card}]", flush=True)
+
+        state = ex.fit_setup("cuda", res)
+        for _ in range(5):
+            ex.fit_step(state)
+        fn = lambda: ex.fit_step(state)  # noqa: E731
+        ms = statistics.median(self.time_ms(fn, RENDER_TIMED))
+        peak = self.peak_mib(fn)
+        busy, _ = self.profile_path(f"fit step at {res}x{res}", ("winner",),
+                                    fn, record=False)
+        r["step"] = dict(ms=ms, peak=peak, busy=busy)
+        print(f"fit step at {res}x{res} (render, L1, backward, Adam): "
+              f"{ms:.4f} ms (CUDA events, median of {RENDER_TIMED}); peak "
+              f"{peak:.1f} MiB [{self.card}]", flush=True)
+        params = list(state["params"].values())
+        n_params = sum(p.numel() for p in params)
+        with torch.no_grad():
+            out = ex.render(state["mesh"])
+        # Adam reads a parameter, its gradient and both moments and writes
+        # the parameter and the moments
+        self.render_bound(
+            f"fit step at {res}x{res}",
+            self.mesh_tensors(state["mesh"]) + list(out.values())
+            + [state["target"]] + params * 7,
+            3 * pixels * RENDER_PIXEL_OPS + ADAM_OPS * n_params, busy)
+
+        inputs = ex.deftet_inputs(mesh)
+        with torch.no_grad():
+            fn = lambda: ex.deftet_render(inputs)  # noqa: E731
+            ms = statistics.median(self.time_ms(fn, 3))
+            peak = self.peak_mib(fn)
+        r["deftet"] = dict(ms=ms, peak=peak)
+        print(f"DefTet at its defaults at {res}x{res} (knum {ex.KNUM}, "
+              f"4,992 faces streamed in chunks of 1,024, 8,192 pixels a "
+              f"block): {ms:.4f} ms (CUDA events, median of 3); peak "
+              f"{peak:.1f} MiB [{self.card}]", flush=True)
+
     # -- the table gather and the probe path ------------------------------
     def gather_case(self, n_tab, shape, lo=0, seed=0):
         """A random table of ``n_tab`` floats and int32 indices of ``shape``
@@ -4795,6 +5148,7 @@ class Smoke:
                       self.phase_spcrt_path, self.phase_spcrt_crosscheck,
                       self.phase_flexi_parity, self.phase_flexi_path,
                       self.phase_gauss_parity, self.phase_gauss_path,
+                      self.phase_render_parity, self.phase_render_path,
                       self.phase_probe_path,
                       self.phase_sim_path, self.phase_collision_path,
                       self.phase_train_path, self.phase_grad,
@@ -4803,6 +5157,7 @@ class Smoke:
                       self.phase_gather_timing, self.phase_sim_timing,
                       self.phase_collision_timing, self.phase_train_timing,
                       self.phase_flexi_timing, self.phase_gauss_timing,
+                      self.phase_render_timing,
                       self.phase_profile, self.phase_spcrt_timing,
                       self.phase_bounds):
             print(f"== {phase.__name__}", flush=True)

@@ -17,7 +17,11 @@ SPC raytrace of :func:`kaolin_tpu_torch.render.spc.unbatched_raytrace`
 with the mesh → SPC conversion of :mod:`kaolin_tpu_torch.ops.conversions`
 and the ``Spc`` container of :mod:`kaolin_tpu_torch.rep`, and the FlexiCubes
 and marching-tetrahedra extraction of :mod:`kaolin_tpu_torch.ops.conversions`
-with the metrics of :mod:`kaolin_tpu_torch.metrics`.
+with the metrics of :mod:`kaolin_tpu_torch.metrics`. The full mesh render,
+:func:`kaolin_tpu_torch.render.easy_render.render_mesh` of a
+:class:`kaolin_tpu_torch.rep.SurfaceMesh` with the materials and SG lights
+of :mod:`kaolin_tpu_torch.render`, is plain PyTorch around the winner
+search.
 
 ``kaolin_tpu`` stays the reference. This package imports neither it nor jax.
 """

@@ -81,11 +81,10 @@ def uniform_laplacian(num_vertices, faces, device=None):
 def average_face_vertex_features(faces, face_features, num_vertices=None):
     """Average per-face-vertex features (B, F, FSz, D) into per-vertex
     features (B, V, D)."""
-    faces_np = host(faces)
+    seg = faces_on(faces, face_features.device).reshape(-1)
     if num_vertices is None:
-        num_vertices = int(faces_np.max()) + 1
+        num_vertices = int(seg.max()) + 1
     b, d = face_features.shape[0], face_features.shape[-1]
-    seg = faces_on(faces_np.reshape(-1), face_features.device)
     flat = face_features.reshape(b, -1, d)
     sums = flat.new_zeros(b, num_vertices, d).index_add(1, seg, flat)
     counts = flat.new_zeros(num_vertices).index_add(

@@ -1,3 +1,8 @@
+from kaolin_tpu_torch.render.mesh.deftet import deftet_sparse_render  # noqa: F401
+from kaolin_tpu_torch.render.mesh.nvdiffrast_context import (  # noqa: F401
+    default_nvdiffrast_context,
+    nvdiffrast_is_available,
+)
 from kaolin_tpu_torch.render.mesh.dibr import (  # noqa: F401
     dibr_rasterization,
     dibr_soft_mask,

@@ -8,6 +8,9 @@ from kaolin_tpu_torch.utils.interop import (  # noqa: F401
     collision_from_jax,
     contacts_from_jax,
     from_numpy_tree,
+    pbr_material_from_jax,
+    sg_lighting_from_jax,
+    surface_mesh_from_jax,
 )
 from kaolin_tpu_torch.utils.profiling import (  # noqa: F401
     Timing,

@@ -2,7 +2,8 @@
 carry the JAX package's Simplicits MLP weights, RKPM fields, physics points,
 contact buffers, configured ``Collision`` objects, SPC convolution
 parameters, nglod-style feature fields, the DMTet tutorial's MLP, gaussian
-splat models and Bayesian-fusion 3-state SPCs into the port."""
+splat models, Bayesian-fusion 3-state SPCs, surface meshes, PBR materials
+and SG lights into the port."""
 
 import numpy as np
 import torch
@@ -210,4 +211,67 @@ def bf_spc_from_jax(spc, device="cpu"):
     out = {k: torch.from_numpy(np.array(v, copy=True)).to(device)
            for k, v in spc.items() if k != "level"}
     out["level"] = int(spc["level"])
+    return out
+
+
+def _tensor_from(value, device):
+    return torch.from_numpy(np.array(value, copy=True)).to(device)
+
+
+def pbr_material_from_jax(material, device="cpu"):
+    """The port's :class:`~kaolin_tpu_torch.render.materials.PBRMaterial`
+    holding a JAX ``PBRMaterial``'s values and textures (through numpy) on
+    ``device``, with its name, shader, workflow and colorspaces."""
+    from kaolin_tpu_torch.render import materials as tm
+
+    out = tm.PBRMaterial(material_name=material.material_name,
+                         shader_name=material.shader_name,
+                         is_specular_workflow=material.is_specular_workflow)
+    for a in tm._VALUE_ATTRS + tm._TEXTURE_ATTRS:
+        value = getattr(material, a)
+        setattr(out, a, None if value is None else _tensor_from(value,
+                                                                device))
+    for a in tm._COLORSPACE_ATTRS:
+        setattr(out, a, getattr(material, a))
+    return out
+
+
+def _materials_from_jax(materials, device):
+    if materials is None:
+        return None
+    return [_materials_from_jax(m, device) if isinstance(m, (list, tuple))
+            else pbr_material_from_jax(m, device) for m in materials]
+
+
+def surface_mesh_from_jax(mesh, device="cpu"):
+    """The port's :class:`~kaolin_tpu_torch.rep.SurfaceMesh` holding every
+    tensor attribute a JAX ``SurfaceMesh`` has set (computed ones
+    included), through numpy, on ``device``, with its batching, settings
+    and materials."""
+    from kaolin_tpu_torch.rep import SurfaceMesh
+
+    attrs = {}
+    for name in mesh.get_attributes(only_tensors=True):
+        value = mesh.get_attribute(name)
+        attrs[name] = ([_tensor_from(x, device) for x in value]
+                       if isinstance(value, list)
+                       else _tensor_from(value, device))
+    return SurfaceMesh(
+        batching=mesh.batching.value,
+        allow_auto_compute=mesh.allow_auto_compute,
+        unset_attributes_return_none=mesh.unset_attributes_return_none,
+        strict_checks=False,
+        materials=_materials_from_jax(mesh.materials, device), **attrs)
+
+
+def sg_lighting_from_jax(lighting, device="cpu"):
+    """The port's :class:`~kaolin_tpu_torch.render.lighting.
+    SgLightingParameters` holding a JAX one's amplitude, direction and
+    sharpness as they are (no renormalization) on ``device``."""
+    from kaolin_tpu_torch.render.lighting import SgLightingParameters
+
+    out = SgLightingParameters.__new__(SgLightingParameters)
+    out.amplitude = _tensor_from(lighting.amplitude, device)
+    out.direction = _tensor_from(lighting.direction, device)
+    out.sharpness = _tensor_from(lighting.sharpness, device)
     return out

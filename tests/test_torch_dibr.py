@@ -556,7 +556,17 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "kaolin_tpu_torch.ops.conversions.gaussians, "
             "kaolin_tpu_torch.ops.spc.bf_recon, "
             "kaolin_tpu_torch.render.camera.gsplats, "
-            "kaolin_tpu_torch.render.camera.polyscope, runpy\n"
+            "kaolin_tpu_torch.render.camera.polyscope, "
+            "kaolin_tpu_torch.rep.surface_mesh, kaolin_tpu_torch.utils.log, "
+            "kaolin_tpu_torch.render.materials, "
+            "kaolin_tpu_torch.render.lighting, "
+            "kaolin_tpu_torch.render.lighting.sg, "
+            "kaolin_tpu_torch.render.lighting.sh, "
+            "kaolin_tpu_torch.render.easy_render, "
+            "kaolin_tpu_torch.render.easy_render.common, "
+            "kaolin_tpu_torch.render.easy_render.mesh, "
+            "kaolin_tpu_torch.render.mesh.deftet, "
+            "kaolin_tpu_torch.render.mesh.nvdiffrast_context, runpy\n"
             "for ex in ('torch_simplicits_drop', 'torch_simplicits_train', "
             "'torch_dibr_optimization', 'torch_dibr_texture_fit', "
             "'torch_tutorial_camera_rasterization', "
@@ -564,7 +574,10 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "'torch_collision_stack', 'torch_spc_raytrace', "
             "'torch_tutorial_understanding_spcs', 'torch_flexicubes_sdf', "
             "'torch_tutorial_dmtet', 'torch_simulatable_gaussians', "
-            "'torch_tutorial_working_with_gaussians'):\n"
+            "'torch_tutorial_working_with_gaussians', 'torch_easy_render', "
+            "'torch_tutorial_easy_mesh_render', "
+            "'torch_tutorial_diffuse_lighting', "
+            "'torch_tutorial_sg_specular_lighting'):\n"
             "    runpy.run_path(f'examples/{ex}.py')\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'kaolin_tpu.')) or m == 'kaolin_tpu']\n"

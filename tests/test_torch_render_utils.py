@@ -217,7 +217,9 @@ def test_tile_overflow_report_matches_jax(kw):
 
 def test_exports_match_jax():
     """The ported modules' names that ``kaolin_tpu.render.mesh``,
-    ``kaolin_tpu.render.camera``, ``kaolin_tpu.ops.conversions``,
+    ``kaolin_tpu.render.camera``, ``kaolin_tpu.render.lighting``,
+    ``kaolin_tpu.render.easy_render``, ``kaolin_tpu.render.materials``,
+    ``kaolin_tpu.rep``, ``kaolin_tpu.ops.conversions``,
     ``kaolin_tpu.non_commercial``, ``kaolin_tpu.ops.voxelgrid`` and the
     modules of ``kaolin_tpu.metrics`` export, the port's packages export
     too."""
@@ -226,21 +228,29 @@ def test_exports_match_jax():
     import kaolin_tpu.ops.conversions as jconv
     import kaolin_tpu.ops.voxelgrid as jvg
     import kaolin_tpu.render.camera as jc
+    import kaolin_tpu.render.easy_render as jer
+    import kaolin_tpu.render.lighting as jl
+    import kaolin_tpu.render.materials as jmat
     import kaolin_tpu.render.mesh as jm
+    import kaolin_tpu.rep as jrep
     import kaolin_tpu_torch.metrics as tmetrics
     import kaolin_tpu_torch.non_commercial as tnc
     import kaolin_tpu_torch.ops.conversions as tconv
     import kaolin_tpu_torch.ops.voxelgrid as tvg
     import kaolin_tpu_torch.render.camera as tc
+    import kaolin_tpu_torch.render.easy_render as ter
+    import kaolin_tpu_torch.render.lighting as tl
+    import kaolin_tpu_torch.render.materials as tmat
+    import kaolin_tpu_torch.rep as trep
 
-    not_ported = {"deftet_sparse_render", "default_nvdiffrast_context",
-                  "nvdiffrast_is_available"}
+    not_ported = set()
     metric_modules = [(getattr(jmetrics, n), getattr(tmetrics, n))
                       for n in dir(jmetrics) if not n.startswith("_")
                       and isinstance(getattr(jmetrics, n), type(os))]
     assert len(metric_modules) == 5
     for jmod, tmod in ((jm, tmesh), (jc, tc), (jconv, tconv), (jnc, tnc),
-                       (jvg, tvg), *metric_modules):
+                       (jvg, tvg), (jl, tl), (jer, ter), (jmat, tmat),
+                       (jrep, trep), *metric_modules):
         names = {n for n in dir(jmod) if not n.startswith("_")
                  and not isinstance(getattr(jmod, n), type(os))}
         missing = sorted(n for n in names - not_ported if not hasattr(tmod, n))

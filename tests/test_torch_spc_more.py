@@ -71,8 +71,7 @@ def test_exports_match_jax():
     """Every name ``kaolin_tpu.ops.spc`` and ``kaolin_tpu.render.spc``
     export, the port's packages export too, ``bf_recon``'s five with them;
     the conversions export the names of the two modules ported; ``rep``
-    exports the JAX package's names but ``SurfaceMesh`` (ROADMAP Queue A
-    3)."""
+    exports the JAX package's names, ``SurfaceMesh`` among them."""
     import kaolin_tpu.render.spc as render_jax
     import kaolin_tpu_torch.render.spc as render_port
 
@@ -92,7 +91,7 @@ def test_exports_match_jax():
     def exported(mod):
         return {n for n in dir(mod) if not n.startswith("_")
                 and not isinstance(getattr(mod, n), type(os))}
-    assert exported(rep) == exported(rep_jax) - {"SurfaceMesh"}
+    assert exported(rep) == exported(rep_jax)
     assert "Spc" in exported(rep)
 
 

@@ -38,6 +38,21 @@ def warm_torch_exp():
     torch.exp(torch.zeros(8))
 
 
+@pytest.fixture(scope="module")
+def jax_unoptimized():
+    """XLA's optimizations off for a module's JAX references, restored
+    after. An eager JAX call compiles each op on first use; without the
+    optimizations each compiles faster, and one op has nothing to fuse, so
+    its result is the same. Import this fixture into a test module and
+    name it in ``pytestmark`` to apply it there."""
+    import jax
+
+    optimized = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+
+
 def grid_faces(n=4, step=0.125):
     """A grid of n x n square cells, each split along a diagonal →
     (1, 2n², 3, 2) float32. At 32² every pixel centre on a diagonal sits on

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's twelve paths on one NVIDIA GPU and check them:
+"""Run the PyTorch port's thirteen paths on one NVIDIA GPU and check them:
 the DIB-R inverse-rendering step, the DIB-R pose-and-texture fit (config 2
 as written, ``examples/torch_dibr_texture_fit.py``, with the two ported
 camera and bounding-box tutorials), the SPC first-hit raster, config 3 as
@@ -20,9 +20,14 @@ mesh render (``examples/torch_easy_render.py``: a two-material
 ``SurfaceMesh`` through ``render_mesh`` at 512² under one SG light and
 under 32 lobes fitted to an environment map, a 100-step fit through the
 render, DefTet at its defaults, and the three lighting and render
-tutorials), which launches the winner search once a render. Config 3 as
-written, the three Simplicits paths and configs 4 and 5 are plain PyTorch:
-the JAX package has no kernel there.
+tutorials), which launches the winner search once a render, and the
+asset from disk (``examples/torch_asset_render.py``: the 81,408-face
+asset written as OBJ/MTL/PNG, GLB, PLY and OFF and imported, its OBJ and
+GLB imports rendered at 512² through the winner search, 2^20 gaussians
+through the 3DGS PLY, a ShapeNetV2 tree through ``CachedDataset`` on
+spawned workers, ``GraphConv`` at width, and the meshes tutorial). Config
+3 as written, the three Simplicits paths, configs 4 and 5 and the I/O
+around the asset are plain PyTorch: the JAX package has no kernel there.
 
     python3 chip_smoke.py
 
@@ -151,7 +156,24 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    launch #1 once and #2-6 never, the fit's 100 steps launch #1 on every
    step and its loss halves, DefTet at its defaults at 512² gives depths
    non-increasing along knum, and the three tutorials pass their checks at
-   full size; ``phase_render_timing`` after phase_gauss_timing);
+   full size; ``phase_render_timing`` after phase_gauss_timing); then the
+   asset from disk (``phase_io_parity``: on a small copy of the asset,
+   card vs CPU, its OBJ and GLB imports rendered at 64² with face_idx
+   equal and every pass within 1e-5 of its max|x|, the OBJ import against
+   the same mesh built in memory, GraphConv's forward within 1e-5 and its
+   gradients within 1e-4 of max|g|, the 3DGS transform within 1e-6;
+   ``phase_io_path``: at full size, the four imports equal what was
+   written (the GLB's within 1e-6), both 512² renders launch #1 once and
+   #2-6 never, #1's winner ids at each render's shape equal to its plain
+   version's on the same CUDA tensors, the OBJ's 512² render against the
+   CPU's render of the same file (face_idx equal, passes within 1e-5),
+   GraphConv and the seeded generators made on the card by default, the
+   2^20-gaussian round
+   trip (positions and SH bit for bit, quaternions as the import
+   normalizes them, opacities and scales within 1e-6 relative), the
+   dataset's 4 spawned workers equal to its serial loop, GraphConv, the
+   meshes tutorial; ``phase_io_timing`` after
+   phase_render_timing);
 7. the table gather's two routes (shared memory, L2) held bit for bit
    against ``table_gather_plain``: the probe's shape, 2^14 and 2^20
    tables, 58,112 and 58,113 floats (either side of the route rule),
@@ -200,7 +222,13 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    environment lobes, the fit step and DefTet at its defaults (CUDA
    events, device busy, idle share, the largest ops and #1's share, peak
    memory, the render's and the step's bounds), and the 81,408-face
-   set-up once;
+   set-up once with #1's winner ids at its shape against the plain
+   version; the asset from disk: each format's import on the host
+   clock, the 512² renders of the OBJ and GLB
+   imports (CUDA events, device busy, idle share, the largest ops and
+   #1's share, peak memory), the 2^20-gaussian export, import and
+   transform, GraphConv's forward and backward with its bound, and the
+   dataset's spawned pool against its serial loop;
 9. time each kernel and each path against the plain versions with CUDA
    events, in the order plain, kernel, kernel, plain; the texture fit's
    step event to event over steps 20-80 of one run;
@@ -355,6 +383,12 @@ RENDER_TOL = {"pass": 1e-5, "grad": 1e-4, "feature": 1e-6, "env": 1e-4}
 RENDER_PIXEL_OPS = 430
 ENV_LOBE_OPS = 70                # each further lobe: its two inner products
 ADAM_OPS = 12                    # a parameter's Adam update
+# the asset from disk (examples/torch_asset_render.py); card vs CPU on a
+# small copy of it
+IO_PARITY = dict(asset=(40, 64), tex=128, res=64, gaussians=4096)
+IO_TOL = {"pass": 1e-5, "gcn": 1e-5, "gcn_grad": 1e-4, "glb": 1e-6,
+          "gauss": 1e-6, "act": 1e-6}
+IO_TIMED = 10
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores
@@ -690,6 +724,13 @@ class Smoke:
         self.gauss = {}   # config 5: its scene and measurements
         self.render_ex = load_example("torch_easy_render")
         self.render = {}  # the full render: its measurements
+        # imported by name: the dataset's spawned workers unpickle its
+        # preprocessing transform from it
+        sys.path.insert(0, os.path.join(ROOT, "examples"))
+        self.asset_ex = importlib.import_module("torch_asset_render")
+        from kaolin_tpu_torch import io as kio
+        self.kio = kio
+        self.io = {}      # the asset from disk: its measurements
         from kaolin_tpu_torch.render.spc import raytrace
         self.rt = raytrace
         self.spcrt = {}   # config 3 as written: its scene and measurements
@@ -3124,6 +3165,44 @@ class Smoke:
                 for k, v in cpu.items() if k != "face_idx"}
         return same, errs
 
+    @contextlib.contextmanager
+    def winner_inputs(self):
+        """Inside, the rasterizer's dispatch to #1 keeps its arguments →
+        the list of them, one a search."""
+        rast, search, seen = self.rast, self.rast._rasterize_search, []
+
+        def keep(*args):
+            seen.append(args)
+            return search(*args)
+
+        rast._rasterize_search = keep
+        try:
+            yield seen
+        finally:
+            rast._rasterize_search = search
+
+    def check_winner_at(self, label, render):
+        """``render`` once keeping #1's inputs, then #1 on them against
+        ``rasterize_search_plain`` on the same CUDA tensors: the winner ids
+        equal, at the shape the path gives the kernel."""
+        torch = self.torch
+        with torch.no_grad(), self.winner_inputs() as seen:
+            render()
+        bad = hits = 0
+        for fvz, fvi, valid, *rest in seen:
+            ids_k = self.cr.rasterize_search_cuda(
+                fvz.contiguous(), fvi.contiguous(), valid.contiguous(), *rest)
+            ids_p = self.rast.rasterize_search_plain(fvz, fvi, valid, *rest)
+            bad += int((ids_k != ids_p).sum())
+            hits += int((ids_p >= 0).sum())
+            self.record_err("winner", float((ids_k - ids_p).abs().max()))
+        faces = seen[0][1].shape[1] if seen else 0
+        self.check(len(seen) == 1 and bad == 0 and hits > 0,
+                   f"winner ids exact at {label} ({faces} faces, "
+                   f"{len(seen)} search), the kernel against "
+                   f"rasterize_search_plain on the same CUDA tensors: {bad} "
+                   f"differ ({hits} covered)")
+
     def phase_render_parity(self):
         """The full render on the card against the port's CPU: the
         two-material scene at 512² (face_idx equal, every pass within 1e-5
@@ -3332,7 +3411,8 @@ class Smoke:
         and at 81,408 faces (CUDA events, median of 10; device busy, idle
         share, the largest ops and #1's share; peak memory; bound), the
         81,408-face set-up once (scene, render, environment fit and render,
-        host wall, synced), the render under 32 environment lobes (ms,
+        host wall, synced) and #1's winner ids at that shape against its
+        plain version on the same CUDA tensors, the render under 32 environment lobes (ms,
         peak), the fit step (forward, backward, Adam: ms, profile, peak,
         bound) and DefTet at its defaults (ms, median of 3; peak)."""
         torch, ex, r = self.torch, self.render_ex, self.render
@@ -3362,6 +3442,8 @@ class Smoke:
                       f"{t1 - t0:.4f} s, first render {t2 - t1:.4f} s, "
                       f"environment fit {t3 - t2:.4f} s, first environment "
                       f"render {t4 - t3:.4f} s [{self.card}]", flush=True)
+                self.check_winner_at(f"{label} at {res}²",
+                                     lambda: ex.render(mesh))
             else:
                 mesh = ex.scene("cuda", *size)
             with torch.no_grad():
@@ -3428,6 +3510,425 @@ class Smoke:
               f"4,992 faces streamed in chunks of 1,024, 8,192 pixels a "
               f"block): {ms:.4f} ms (CUDA events, median of 3); peak "
               f"{peak:.1f} MiB [{self.card}]", flush=True)
+
+    # -- the asset from disk (examples/torch_asset_render.py) -------------
+    def asset_errs(self, meshes, a):
+        """How far the imports are from the arrays written: the OBJ's
+        geometry and materials, the PLY's and OFF's exactly (0 or 1 for
+        equal or not), the GLB's face vertices, face UVs and normal
+        directions as max|x − y| / max|y|, its faces' materials exactly."""
+        ex, torch = self.asset_ex, self.torch
+
+        def diff(x, want, exact=True):
+            x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+                else np.asarray(x)
+            want = np.asarray(want)
+            if x.shape != want.shape:
+                return float("inf")
+            if exact:
+                return float(not np.array_equal(x, want))
+            return float(np.abs(x - want).max()) / float(np.abs(want).max())
+
+        obj, ref = meshes["obj"], ex.obj_reference(a, "cpu")
+        errs = {f"obj.{k}": diff(obj.get_attribute(k), ref.get_attribute(k))
+                for k in ("vertices", "faces", "uvs", "face_uvs_idx",
+                          "material_assignments")}
+        for i, (got, want) in enumerate(zip(obj.materials, ref.materials)):
+            errs[f"obj.material{i}"] = float(
+                got.get_attributes() != want.get_attributes()) + sum(
+                diff(getattr(got, k), getattr(want, k))
+                for k in want.get_attributes(only_tensors=True))
+        for fmt in ("ply", "off"):
+            errs[f"{fmt}.vertices"] = diff(meshes[fmt].vertices,
+                                           a["vertices"])
+            errs[f"{fmt}.faces"] = diff(meshes[fmt].faces, a["faces"])
+        errs["ply.colors"] = diff(meshes["ply"].vertex_colors,
+                                  (a["normals"] + 1.0) / 2.0)
+        glb = meshes["glb"]
+        n = glb.face_normals
+        n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+        errs.update({
+            "glb.face_vertices": diff(glb.face_vertices,
+                                      a["vertices"][a["faces"]], False),
+            "glb.face_uvs": diff(glb.face_uvs, a["uvs"][a["face_uvs_idx"]],
+                                 False),
+            "glb.normals": diff(n, a["normals"][a["faces"]], False),
+            "glb.material_assignments": diff(glb.material_assignments,
+                                             a["material_assignments"])})
+        return errs
+
+    def asset_ok(self, errs):
+        return all(v <= (IO_TOL["glb"] if k.startswith("glb.")
+                         and k != "glb.material_assignments" else 0.0)
+                   for k, v in errs.items())
+
+    def gcn_pair(self, mesh_card, mesh_cpu):
+        """``graph_conv`` of the example on the card and on the CPU from
+        one set of weights (made on the CPU, copied) → ((loss, grads) of
+        the card, of the CPU)."""
+        ex = self.asset_ex
+        out = []
+        step_h, layers_h, _, _ = ex.graph_conv(mesh_cpu)
+        step_c, layers_c, _, _ = ex.graph_conv(mesh_card)
+        layers_c.load_state_dict(layers_h.state_dict())
+        for step, layers in ((step_c, layers_c), (step_h, layers_h)):
+            loss = step()
+            out.append((loss.cpu(), {n: p.grad.cpu()
+                                     for n, p in layers.named_parameters()}))
+        return out
+
+    def gcn_forward(self, mesh, layers):
+        """The example's layers' forward on ``mesh`` (B = 4) → out."""
+        ex, torch = self.asset_ex, self.torch
+        _, _, feats, adj = ex.graph_conv(mesh)
+        h = feats
+        with torch.no_grad():
+            for i, layer in enumerate(layers):
+                h = layer(h, adj, normalize_adj=True)
+                if i < len(layers) - 1:
+                    h = torch.relu(h)
+        return h
+
+    def phase_io_parity(self):
+        """The asset path's pieces on the card against the port's CPU, on a
+        small copy of the asset (40 x 64 sphere, 128² maps, 4,096
+        gaussians): the OBJ and GLB imports rendered at 64² (face_idx
+        equal, every pass within 1e-5 of its max|x|); the imported OBJ's
+        render against ``obj_reference`` (the geometry and the MTL's
+        materials built in memory, maps at 8 bits) on the card (face_idx
+        equal, passes within 1e-5); ``GraphConv`` from one set of weights
+        (forward within 1e-5 relative, gradients within 1e-4 of max|g|);
+        the transform of an imported 3DGS cloud within 1e-6 of max|x|."""
+        import tempfile
+
+        torch, ex, p = self.torch, self.asset_ex, IO_PARITY
+        self.check_precision("phase_io_parity")
+        with tempfile.TemporaryDirectory() as d:
+            paths, a = ex.write_asset(d, p["asset"], p["tex"])
+            meshes = {dev: ex.import_asset(paths, dev)
+                      for dev in ("cuda", "cpu")}
+            with torch.no_grad():
+                for fmt in ("obj", "glb"):
+                    same, errs = self.render_errs(
+                        ex.render_asset(meshes["cuda"][fmt], p["res"]),
+                        ex.render_asset(meshes["cpu"][fmt], p["res"]))
+                    self.check(same and max(errs.values()) <= IO_TOL["pass"],
+                               f"{fmt.upper()} import rendered at "
+                               f"{p['res']}² card vs CPU: face_idx "
+                               f"{'equal' if same else 'DIFFERS'}; passes "
+                               + ", ".join(f"{k} {v:.2e}" for k, v in
+                                           sorted(errs.items()))
+                               + f" of max|x| (<= {IO_TOL['pass']:g})")
+                card = ex.render_asset(meshes["cuda"]["obj"], p["res"])
+                ref = ex.render_asset(ex.obj_reference(a, "cuda"), p["res"])
+                same, errs = self.render_errs(
+                    card, {k: v.cpu() for k, v in ref.items()})
+            self.check(same and max(errs.values()) <= IO_TOL["pass"],
+                       f"OBJ import against the same mesh built in memory, "
+                       f"{p['res']}² on the card: face_idx "
+                       f"{'equal' if same else 'DIFFERS'}; passes "
+                       + ", ".join(f"{k} {v:.2e}" for k, v in
+                                   sorted(errs.items()))
+                       + f" (<= {IO_TOL['pass']:g})")
+            (loss_c, g_c), (loss_h, g_h) = self.gcn_pair(
+                meshes["cuda"]["obj"], meshes["cpu"]["obj"])
+            gerr = {n: float((g_c[n] - g).abs().max()) / float(
+                g.abs().max()) for n, g in g_h.items()}
+            _, layers, _, _ = ex.graph_conv(meshes["cpu"]["obj"])
+            out_h = self.gcn_forward(meshes["cpu"]["obj"], layers)
+            out_c = self.gcn_forward(meshes["cuda"]["obj"],
+                                     copy.deepcopy(layers).to("cuda"))
+            ferr = float((out_c.cpu() - out_h).abs().max()) / float(
+                out_h.abs().max())
+            self.check(ferr <= IO_TOL["gcn"]
+                       and max(gerr.values()) <= IO_TOL["gcn_grad"],
+                       f"GraphConv {ex.GCN_WIDTHS} at B = {ex.GCN_BATCH} on "
+                       f"the small asset's graph card vs CPU: forward "
+                       f"{ferr:.2e} of max|x| (<= {IO_TOL['gcn']:g}); loss "
+                       f"{float(loss_c):.6g} vs {float(loss_h):.6g}; "
+                       "gradients " + ", ".join(
+                           f"{n} {v:.2e}" for n, v in gerr.items())
+                       + f" of max|g| (<= {IO_TOL['gcn_grad']:g})")
+            scenes = {}
+            for name, dev in (("card", "cuda"), ("host", "cpu")):
+                os.makedirs(os.path.join(d, name))
+                scenes[name] = ex.gaussian_scene(os.path.join(d, name),
+                                                 p["gaussians"], dev)
+            terr = {k: float((getattr(scenes["card"]["moved"], k).cpu()
+                              - getattr(scenes["host"]["moved"], k))
+                             .abs().max())
+                    / float(getattr(scenes["host"]["moved"], k).abs().max())
+                    for k in ("positions", "orientations", "scales",
+                              "sh_coeff")}
+            self.check(max(terr.values()) <= IO_TOL["gauss"],
+                       f"transform of {p['gaussians']} imported gaussians "
+                       "card vs CPU: " + ", ".join(
+                           f"{k} {v:.2e}" for k, v in terr.items())
+                       + f" of max|x| (<= {IO_TOL['gauss']:g})")
+
+    def phase_io_path(self):
+        """The asset path at full size on the card, each piece with every
+        launch counter set to 0 before and read after: the 81,408-face
+        asset with its 1,024² maps written as OBJ, GLB, PLY and OFF and
+        imported (the imports equal what was written, the GLB's within
+        1e-6); the OBJ and GLB imports rendered at 512², finite, #1 once
+        each and #2-6 never, and #1's winner ids for each against its plain
+        version on the same CUDA tensors; the OBJ's render against the
+        CPU's render of the CPU's import of the same file (face_idx equal,
+        every pass within 1e-5 of its max|x|); 2^20 gaussians exported, imported,
+        transformed, exported and imported again (positions and SH bit for
+        bit, quaternions bit for bit as the import normalizes them and
+        within 1e-6 relative, opacities and scales within 1e-6 relative);
+        the 64-model ShapeNetV2 tree through ``CachedDataset`` on 4
+        spawned workers (no fallback) equal to the serial loop's caches,
+        stacked on the card; GraphConv at width forward and backward,
+        finite, its parameters and the seeded generators of ``ops.random``
+        and ``utils.testing`` made on the card by default; the meshes
+        tutorial at full size."""
+        import tempfile
+        import warnings
+
+        torch, ex, r = self.torch, self.asset_ex, self.io
+        names = list(self.counters())
+        others = [k for k in names if k != "winner"]
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            paths, a = ex.write_asset(d)
+            r["write_s"] = time.perf_counter() - t0
+            r["bytes"] = {fmt: os.path.getsize(p) for fmt, p in paths.items()}
+            meshes, n = self.drive(names, lambda: ex.import_asset(paths))
+            errs = self.asset_errs(meshes, a)
+            self.check(self.asset_ok(errs) and not any(n.values())
+                       and meshes["obj"].vertices.is_cuda,
+                       f"the {a['faces'].shape[0]}-face asset written in "
+                       f"{r['write_s']:.2f} s ({r['bytes']} bytes) and "
+                       "imported on the card: " + ", ".join(
+                           f"{k} {v:.2e}" for k, v in errs.items())
+                       + f" (0, the GLB's <= {IO_TOL['glb']:g}); launches "
+                       f"{n}")
+            with torch.no_grad():
+                for fmt in ("obj", "glb"):
+                    passes, n = self.drive(
+                        names, lambda: ex.render_asset(meshes[fmt]))
+                    finite = all(bool(torch.isfinite(v.float()).all())
+                                 for v in passes.values())
+                    covered = int((passes["face_idx"] >= 0).sum())
+                    self.check(finite and covered > 0 and n["winner"] == 1
+                               and not any(n[k] for k in others),
+                               f"{fmt.upper()} import rendered at "
+                               f"{RENDER_RES}²: {len(passes)} passes, "
+                               f"{covered} covered pixels, finite; launches "
+                               f"{n}")
+                    self.check_winner_at(
+                        f"the {fmt.upper()} import at {RENDER_RES}²",
+                        lambda: ex.render_asset(meshes[fmt]))
+                t0 = time.perf_counter()
+                host = self.kio.import_mesh(paths["obj"], with_materials=True,
+                                            raw_materials=False, device="cpu")
+                same, errs = self.render_errs(ex.render_asset(meshes["obj"]),
+                                              ex.render_asset(host))
+                cpu_s = time.perf_counter() - t0
+                del host
+            self.check(same and max(errs.values()) <= IO_TOL["pass"],
+                       f"OBJ import rendered at {RENDER_RES}² card vs CPU "
+                       f"(the CPU's import and render in {cpu_s:.1f} s): "
+                       f"face_idx {'equal' if same else 'DIFFERS'}; passes "
+                       + ", ".join(f"{k} {v:.2e}" for k, v in
+                                   sorted(errs.items()))
+                       + f" of max|x| (<= {IO_TOL['pass']:g})")
+            t0 = time.perf_counter()
+            gs, n = self.drive(names, lambda: ex.gaussian_scene(d))
+            r["gauss_path_s"] = time.perf_counter() - t0
+            r["gauss_bytes"] = os.path.getsize(gs["paths"][0])
+            moved, back = gs["moved"], gs["reimported"]
+            q = moved.orientations
+            qn = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1,
+                                                          keepdim=True),
+                                 min=1e-12)
+            rel = {k: float(((getattr(back, k) - getattr(moved, k)).abs()
+                             / getattr(moved, k).abs()).max())
+                   for k in ("orientations", "opacities", "scales")}
+            exact = {k: torch.equal(getattr(back, k), getattr(moved, k))
+                     for k in ("positions", "sh_coeff")}
+            exact["orientations normalized"] = torch.equal(back.orientations,
+                                                           qn)
+            self.check(all(exact.values())
+                       and max(rel.values()) <= IO_TOL["act"]
+                       and back.positions.is_cuda and not any(n.values())
+                       and moved.sh_coeff.shape[1] == 16,
+                       f"{moved.positions.shape[0]} gaussians at SH degree 3 "
+                       f"({r['gauss_bytes']} bytes a file) round trip after "
+                       f"the transform in {r['gauss_path_s']:.2f} s: bit for "
+                       f"bit {exact}; relative " + ", ".join(
+                           f"{k} {v:.2e}" for k, v in rel.items())
+                       + f" (<= {IO_TOL['act']:g}); launches {n}")
+            del gs, moved, back, q, qn
+            root = ex.write_shapenet(os.path.join(d, "shapenet"))
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                (ds, pts), n = self.drive(names, lambda: ex.dataset(
+                    root, os.path.join(d, "pool")))
+                r["pool_s"] = time.perf_counter() - t0
+            fallback = [str(w.message) for w in caught
+                        if "falling back" in str(w.message)]
+            t0 = time.perf_counter()
+            serial, pts_s = ex.dataset(root, os.path.join(d, "serial"),
+                                       num_workers=0)
+            r["serial_s"] = time.perf_counter() - t0
+            self.check(not fallback and pts.is_cuda and torch.equal(pts,
+                                                                    pts_s)
+                       and pts.shape == (ex.MODELS, ex.SAMPLES, 3)
+                       and not any(n.values()),
+                       f"CachedDataset over ShapeNetV2 ({ex.MODELS} models): "
+                       f"{ex.WORKERS} spawned workers {r['pool_s']:.2f} s, "
+                       f"fallback {fallback}; the serial loop "
+                       f"{r['serial_s']:.2f} s; points {tuple(pts.shape)} "
+                       f"on {pts.device}, pool = serial "
+                       f"{torch.equal(pts, pts_s)}; launches {n}")
+            step, *_ = ex.graph_conv(meshes["obj"])
+            loss, n = self.drive(names, step)
+            self.check(bool(torch.isfinite(loss)) and not any(n.values()),
+                       f"GraphConv {ex.GCN_WIDTHS} at B = {ex.GCN_BATCH} on "
+                       f"the asset's {meshes['obj'].vertices.shape[0]} "
+                       f"vertices, forward and backward: loss "
+                       f"{float(loss):.6g}; launches {n}")
+        from kaolin_tpu_torch.ops import random as krandom
+        from kaolin_tpu_torch.ops.gcn import GraphConv
+        from kaolin_tpu_torch.utils import testing as ktesting
+        made = {"GraphConv": GraphConv(3, 4).w.device,
+                "ops.random.manual_seed": krandom.manual_seed(0).device,
+                "utils.testing.seed_everything":
+                    ktesting.seed_everything(0).device}
+        self.check(all(v.type == "cuda" for v in made.values()),
+                   f"made on the card by default: {made}")
+        mod = load_example("torch_tutorial_working_with_meshes")
+        _, n = self.drive(names, lambda: mod.main("cuda"))
+        self.check(not any(n.values()), "torch_tutorial_working_with_meshes "
+                   f"at full size passed its checks; launches {n}")
+
+    def gcn_bound(self, mesh, widths, batch, nnz):
+        """GraphConv's forward and backward: per layer the two products
+        (adjacency side and self layer) of 2·B·N·in·out operations each,
+        the sparse product's 2·B·nnz·out forward and again backward, the
+        weight gradients' products and the input gradients' (not the first
+        layer's, whose features need none) → (bytes of the inputs read
+        and the gradients written, operations)."""
+        n = mesh.vertices.shape[0]
+        ops = 0
+        weights = 0
+        for i, (di, do) in enumerate(zip(widths[:-1], widths[1:])):
+            mm = 2 * batch * n * di * do
+            sp = 2 * batch * nnz * do
+            ops += 2 * mm + sp                        # forward
+            ops += 2 * mm + (2 * mm if i else 0) + sp  # backward
+            weights += 2 * (di * do + do)
+        nbytes = 4 * (batch * n * widths[0] + 2 * weights) + 12 * nnz
+        return nbytes, ops
+
+    def phase_io_timing(self):
+        """The asset path's times on the card: each format's import on the
+        host clock, synced (median of 3), file bytes;
+        the 512² render of the OBJ and GLB imports (CUDA events, median of
+        10; device busy, idle share, largest ops, #1's share; peak); the
+        2^20-gaussian export and import (host clock) and transform (CUDA
+        events, median of 10; peak); GraphConv's forward and backward
+        (CUDA events, median of 10; peak; bound); the dataset's pool
+        against its serial loop (measured in phase_io_path)."""
+        import tempfile
+
+        torch, ex, r = self.torch, self.asset_ex, self.io
+        self.check_precision("phase_io_timing")
+        with tempfile.TemporaryDirectory() as d:
+            paths, a = ex.write_asset(d)
+            meshes = {}
+            for fmt, path in paths.items():
+                kw = dict(with_materials=True, raw_materials=False) \
+                    if fmt == "obj" else {}
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    meshes[fmt] = self.kio.import_mesh(path, **kw)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                tex = a["checker"].shape[0]
+                maps = {"obj": f", 2 PNG maps of {tex}²",
+                        "glb": f", 4 embedded PNGs of {tex}²"}
+                print(f"import {fmt.upper()} ({os.path.getsize(path)} bytes"
+                      f"{maps.get(fmt, '')}; {a['faces'].shape[0]} faces): "
+                      f"{statistics.median(times):.4f} s host wall synced "
+                      f"(median of 3) [{self.card}]", flush=True)
+            with torch.no_grad():
+                for fmt in ("obj", "glb"):
+                    mesh = meshes[fmt]
+                    fn = lambda: ex.render_asset(mesh)  # noqa: E731
+                    ms = statistics.median(self.time_ms(fn, IO_TIMED))
+                    peak = self.peak_mib(fn)
+                    busy, kms = self.profile_path(
+                        f"render of the {fmt.upper()} import at "
+                        f"{RENDER_RES}²", ("winner",), fn, record=False)
+                    print(f"render of the {fmt.upper()} import at "
+                          f"{RENDER_RES}²: {ms:.4f} ms (CUDA events, median "
+                          f"of {IO_TIMED}); #1 {kms['winner']:.4f} device ms"
+                          f", {kms['winner'] / busy:.4f} of busy; peak "
+                          f"{peak:.1f} MiB [{self.card}]", flush=True)
+            g = ex._random_gaussians(ex.GAUSSIANS)
+            path = os.path.join(d, "g.ply")
+            t0 = time.perf_counter()
+            self.kio.ply.export_gaussiancloud(
+                path, g["positions"], g["orientations"], g["scales"],
+                g["opacities"], g["sh_coeff"])
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            model = self.kio.import_gaussiancloud(path)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            transform = torch.as_tensor(ex.gs_transform(), device="cuda")
+
+            def fn():
+                return ex.transform_gaussians(
+                    model.positions, model.orientations, model.scales,
+                    transform, sh_coeff=model.sh_coeff)
+
+            ms = statistics.median(self.time_ms(fn, IO_TIMED))
+            peak = self.peak_mib(fn)
+            print(f"{ex.GAUSSIANS} gaussians at SH degree 3 "
+                  f"({os.path.getsize(path)} bytes): export {t1 - t0:.4f} s "
+                  f"(from host arrays), import to the card {t3 - t2:.4f} s "
+                  f"(host wall synced); transform_gaussians with the SH "
+                  f"rotation {ms:.4f} ms (CUDA events, median of "
+                  f"{IO_TIMED}), peak {peak:.1f} MiB [{self.card}]",
+                  flush=True)
+            del model, g
+        mesh = meshes["obj"]
+        step, _, _, adj = ex.graph_conv(mesh)
+        fwd_layers = ex.graph_conv(mesh)[1]
+        fwd = lambda: self.gcn_forward(mesh, fwd_layers)  # noqa: E731
+        f_ms = statistics.median(self.time_ms(fwd, IO_TIMED))
+        s_ms = statistics.median(self.time_ms(step, IO_TIMED))
+        peak = self.peak_mib(step)
+        busy, _ = self.profile_path(
+            f"GraphConv {ex.GCN_WIDTHS} forward and backward", (), step,
+            record=False)
+        nbytes, ops = self.gcn_bound(mesh, ex.GCN_WIDTHS, ex.GCN_BATCH,
+                                     adj[1].shape[0])
+        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+        bound = max(t_bytes, t_ops)
+        print(f"GraphConv {ex.GCN_WIDTHS} at B = {ex.GCN_BATCH} on "
+              f"{mesh.vertices.shape[0]} vertices, {adj[1].shape[0]} edges: "
+              f"forward {f_ms:.4f} ms, forward and backward {s_ms:.4f} ms "
+              f"(CUDA events, median of {IO_TIMED}), device busy "
+              f"{busy:.4f} ms a step, peak {peak:.1f} MiB; bound {nbytes} "
+              f"bytes -> {t_bytes:.6f} ms, {ops / 1e9:.2f} G operations -> "
+              f"{t_ops:.6f} ms; {bound:.6f} ms by "
+              f"{'bytes' if t_bytes >= t_ops else 'operations'}, share "
+              f"{bound / s_ms:.4f} [{self.card}]", flush=True)
+        print(f"CachedDataset preprocessing of {ex.MODELS} models "
+              f"({ex.SAMPLES} samples each): {ex.WORKERS} spawned workers "
+              f"{r['pool_s']:.4f} s, the serial loop {r['serial_s']:.4f} s "
+              f"(host wall, phase_io_path) [{self.card}]", flush=True)
 
     # -- the table gather and the probe path ------------------------------
     def gather_case(self, n_tab, shape, lo=0, seed=0):
@@ -5149,6 +5650,7 @@ class Smoke:
                       self.phase_flexi_parity, self.phase_flexi_path,
                       self.phase_gauss_parity, self.phase_gauss_path,
                       self.phase_render_parity, self.phase_render_path,
+                      self.phase_io_parity, self.phase_io_path,
                       self.phase_probe_path,
                       self.phase_sim_path, self.phase_collision_path,
                       self.phase_train_path, self.phase_grad,
@@ -5157,7 +5659,7 @@ class Smoke:
                       self.phase_gather_timing, self.phase_sim_timing,
                       self.phase_collision_timing, self.phase_train_timing,
                       self.phase_flexi_timing, self.phase_gauss_timing,
-                      self.phase_render_timing,
+                      self.phase_render_timing, self.phase_io_timing,
                       self.phase_profile, self.phase_spcrt_timing,
                       self.phase_bounds):
             print(f"== {phase.__name__}", flush=True)

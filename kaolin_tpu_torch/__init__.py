@@ -21,13 +21,18 @@ with the metrics of :mod:`kaolin_tpu_torch.metrics`. The full mesh render,
 :func:`kaolin_tpu_torch.render.easy_render.render_mesh` of a
 :class:`kaolin_tpu_torch.rep.SurfaceMesh` with the materials and SG lights
 of :mod:`kaolin_tpu_torch.render`, is plain PyTorch around the winner
-search.
+search. :mod:`kaolin_tpu_torch.io` reads and writes OBJ/MTL, glTF/GLB,
+PLY (with INRIA 3DGS) and OFF files, with a PNG codec of its own, and
+caches dataset preprocessing; :mod:`kaolin_tpu_torch.ops` also holds the
+graph convolution of ``ops.gcn`` and the random generators of
+``ops.random``.
 
 ``kaolin_tpu`` stays the reference. This package imports neither it nor jax.
 """
 
 __version__ = "0.1.0"
 
+from kaolin_tpu_torch import io       # noqa: F401
 from kaolin_tpu_torch import math     # noqa: F401
 from kaolin_tpu_torch import metrics  # noqa: F401
 from kaolin_tpu_torch import non_commercial  # noqa: F401

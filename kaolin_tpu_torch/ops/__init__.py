@@ -10,3 +10,7 @@ from kaolin_tpu_torch.ops.pointcloud import (  # noqa: F401
     center_points,
     farthest_point_sampling,
 )
+from kaolin_tpu_torch.ops import coords  # noqa: F401
+from kaolin_tpu_torch.ops import gcn  # noqa: F401
+from kaolin_tpu_torch.ops import random  # noqa: F401
+from kaolin_tpu_torch.ops import reduction  # noqa: F401

@@ -73,8 +73,8 @@ def check_sign(verts, faces, points, hash_resolution=512, backend=None):
     if backend == "native":
         raise NotImplementedError(
             "check_sign(backend='native') needs the C++ TriangleHash, which "
-            "is not ported yet (ROADMAP Queue A: I/O, visualize and "
-            "experimental (native/))")
+            "is not ported yet (ROADMAP Queue A: USD and the native "
+            "library)")
     if backend is not None:
         raise ValueError(f"unknown backend {backend!r}")
     faces = torch.as_tensor(faces, device=verts.device).long()

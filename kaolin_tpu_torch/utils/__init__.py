@@ -1,3 +1,4 @@
+from kaolin_tpu_torch.utils import testing  # noqa: F401
 from kaolin_tpu_torch.utils.backend import is_cuda  # noqa: F401
 from kaolin_tpu_torch.utils.cuda_gather import (  # noqa: F401
     gather_route,
@@ -8,6 +9,7 @@ from kaolin_tpu_torch.utils.interop import (  # noqa: F401
     collision_from_jax,
     contacts_from_jax,
     from_numpy_tree,
+    graph_conv_from_jax,
     pbr_material_from_jax,
     sg_lighting_from_jax,
     surface_mesh_from_jax,

@@ -2,8 +2,8 @@
 carry the JAX package's Simplicits MLP weights, RKPM fields, physics points,
 contact buffers, configured ``Collision`` objects, SPC convolution
 parameters, nglod-style feature fields, the DMTet tutorial's MLP, gaussian
-splat models, Bayesian-fusion 3-state SPCs, surface meshes, PBR materials
-and SG lights into the port."""
+splat models, Bayesian-fusion 3-state SPCs, surface meshes, PBR materials,
+SG lights and graph convolutions into the port."""
 
 import numpy as np
 import torch
@@ -275,3 +275,21 @@ def sg_lighting_from_jax(lighting, device="cpu"):
     out.direction = _tensor_from(lighting.direction, device)
     out.sharpness = _tensor_from(lighting.sharpness, device)
     return out
+
+
+def graph_conv_from_jax(params, device="cpu"):
+    """The port's :class:`~kaolin_tpu_torch.ops.gcn.GraphConv` on
+    ``device`` holding a JAX ``GraphConv``'s parameter dict (``w``, and
+    ``b``, ``w_self``, ``b_self`` where present), through numpy: the self
+    layer and the bias are there when their parameters are."""
+    from kaolin_tpu_torch.ops.gcn import GraphConv
+
+    w = np.array(params["w"], np.float32)
+    conv = GraphConv(w.shape[0], w.shape[1], self_layer="w_self" in params,
+                     bias="b" in params, device=device)
+    with torch.no_grad():
+        for name in ("w", "b", "w_self", "b_self"):
+            if name in params:
+                getattr(conv, name).copy_(torch.from_numpy(
+                    np.array(params[name], np.float32)))
+    return conv

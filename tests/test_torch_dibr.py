@@ -499,13 +499,26 @@ def test_interop_round_trip(dtype):
 def test_import_leaves_out_jax_and_kaolin_tpu():
     """Every module of the port and every torch example imports with
     ``jax`` and ``kaolin_tpu`` blocked (an import of either raises), and
-    neither is loaded afterwards."""
+    neither is loaded afterwards; ``PIL`` is blocked too, so
+    ``kaolin_tpu_torch.io`` and everything else import without Pillow."""
     code = ("import importlib.abc, sys\n"
             "class Block(importlib.abc.MetaPathFinder):\n"
             "    def find_spec(self, name, path=None, target=None):\n"
-            "        if name.split('.')[0] in ('jax', 'kaolin_tpu'):\n"
+            "        if name.split('.')[0] in ('jax', 'kaolin_tpu', 'PIL'):\n"
             "            raise ImportError(f'blocked: {name}')\n"
             "sys.meta_path.insert(0, Block())\n"
+            "import kaolin_tpu_torch.io, kaolin_tpu_torch.io.dataset, "
+            "kaolin_tpu_torch.io.gltf, kaolin_tpu_torch.io.materials, "
+            "kaolin_tpu_torch.io.obj, kaolin_tpu_torch.io.off, "
+            "kaolin_tpu_torch.io.ply, kaolin_tpu_torch.io.utils, "
+            "kaolin_tpu_torch.io.gaussians, "
+            "kaolin_tpu_torch.io.mesh, kaolin_tpu_torch.io.render, "
+            "kaolin_tpu_torch.io.shapenet, kaolin_tpu_torch.io.modelnet, "
+            "kaolin_tpu_torch.io.shrec, kaolin_tpu_torch.ops.gcn, "
+            "kaolin_tpu_torch.ops.random, kaolin_tpu_torch.ops.coords, "
+            "kaolin_tpu_torch.ops.reduction, kaolin_tpu_torch.utils.testing, "
+            "kaolin_tpu_torch.utils.env_vars, "
+            "kaolin_tpu_torch.utils.bundled_data\n"
             "import kaolin_tpu_torch, kaolin_tpu_torch.render.mesh, "
             "kaolin_tpu_torch.metrics.render, kaolin_tpu_torch.ops.spc, "
             "kaolin_tpu_torch.render.camera, kaolin_tpu_torch.render.spc, "
@@ -577,10 +590,11 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "'torch_tutorial_working_with_gaussians', 'torch_easy_render', "
             "'torch_tutorial_easy_mesh_render', "
             "'torch_tutorial_diffuse_lighting', "
-            "'torch_tutorial_sg_specular_lighting'):\n"
+            "'torch_tutorial_sg_specular_lighting', 'torch_asset_render', "
+            "'torch_tutorial_working_with_meshes'):\n"
             "    runpy.run_path(f'examples/{ex}.py')\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'kaolin_tpu.')) or m == 'kaolin_tpu']\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'kaolin_tpu', "
+            "'PIL') or m.startswith(('jax.', 'kaolin_tpu.', 'PIL.'))]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -103,8 +103,8 @@ def test_check_sign_tiles_give_one_answer(monkeypatch):
 
 def test_check_sign_native_backend_is_not_ported():
     verts, faces = train.torus_mesh((8, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"Queue A: I/O, visualize "
-                       r"and experimental \(native/\)"):
+    with pytest.raises(NotImplementedError, match=r"Queue A: USD and the "
+                       r"native library"):
         check_sign(verts[None], faces, verts[None], backend="native")
     with pytest.raises(ValueError, match="backend"):
         check_sign(verts[None], faces, verts[None], backend="warp")

@@ -257,6 +257,26 @@ def test_exports_match_jax():
         assert not missing, missing
     assert hasattr(tc, "legacy") and tc.legacy.__name__.endswith("legacy")
 
+    # io, its modules, ops and utils.testing: their names, and for a
+    # package its own submodules too (USD is not ported yet)
+    import kaolin_tpu.io as jio
+    import kaolin_tpu.ops as jops
+    import kaolin_tpu.utils.testing as jtesting
+    import kaolin_tpu_torch.io as tio
+    import kaolin_tpu_torch.ops as tops
+    import kaolin_tpu_torch.utils.testing as ttesting
+    for jmod, tmod, not_ported in (
+            (jio, tio, {"usd"}), (jops, tops, set()),
+            *((getattr(jio, m), getattr(tio, m), set())
+              for m in ("obj", "gltf", "ply", "utils", "dataset")),
+            (jtesting, ttesting, set())):
+        names = {n for n in dir(jmod) if not n.startswith("_") and (
+            not isinstance(getattr(jmod, n), type(os))
+            or getattr(jmod, n).__name__.startswith(jmod.__name__ + "."))}
+        missing = sorted(n for n in names - not_ported if not hasattr(tmod, n))
+        assert not missing, (jmod.__name__, missing)
+    assert {"gcn", "random", "coords", "reduction"} <= set(dir(tops))
+
 
 # -- goldens -------------------------------------------------------------
 def _golden(name):

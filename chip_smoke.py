@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's thirteen paths on one NVIDIA GPU and check them:
+"""Run the PyTorch port's fourteen paths on one NVIDIA GPU and check them:
 the DIB-R inverse-rendering step, the DIB-R pose-and-texture fit (config 2
 as written, ``examples/torch_dibr_texture_fit.py``, with the two ported
 camera and bounding-box tutorials), the SPC first-hit raster, config 3 as
@@ -25,9 +25,15 @@ asset from disk (``examples/torch_asset_render.py``: the 81,408-face
 asset written as OBJ/MTL/PNG, GLB, PLY and OFF and imported, its OBJ and
 GLB imports rendered at 512² through the winner search, 2^20 gaussians
 through the 3DGS PLY, a ShapeNetV2 tree through ``CachedDataset`` on
-spawned workers, ``GraphConv`` at width, and the meshes tutorial). Config
-3 as written, the three Simplicits paths, configs 4 and 5 and the I/O
-around the asset are plain PyTorch: the JAX package has no kernel there.
+spawned workers, ``GraphConv`` at width, and the meshes tutorial), and
+the asset through USD (``examples/torch_usd_asset.py``: the same asset
+written and read as ``.usda`` and ``.usdc`` and rendered at 512² through
+the winner search, 2^20 gaussians through a ``.usdc``, the full render's
+fit logged by ``Timelapse`` and served as dash3d's wire bytes, the
+Jupyter turntable's 16 renders, and ``check_sign`` through the native host
+library, built by g++). Config 3 as written, the three Simplicits paths,
+configs 4 and 5 and the I/O around the asset are plain PyTorch: the JAX
+package has no kernel there.
 
     python3 chip_smoke.py
 
@@ -173,7 +179,30 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    normalizes them, opacities and scales within 1e-6 relative), the
    dataset's 4 spawned workers equal to its serial loop, GraphConv, the
    meshes tutorial; ``phase_io_timing`` after
-   phase_render_timing);
+   phase_render_timing); then the asset through USD
+   (``examples/torch_usd_asset.py``; ``phase_usd_parity``: the native
+   host library built by g++ from ``kaolin_tpu_torch/native/csrc``, every
+   LZ4 block and every native ``check_sign`` of the USD phases counted in
+   the library; a small copy of the asset written as ``.usda`` and
+   ``.usdc`` from CUDA and from CPU tensors, the files byte-equal, the
+   imports equal and rendered at 64² with face_idx equal and passes within
+   1e-5 of max|x|; the native ``check_sign`` of the training path's torus
+   and 100,000 candidates on the card's tensors against the device's ray
+   parity, equal but within 1e-5 of an edge or face;
+   ``phase_usd_path``: at full size, the 81,408-face asset with its
+   1,024² maps written as ``.usda`` and ``.usdc`` and imported through
+   ``io.import_mesh`` (the ``.usdc`` import bit for bit, the ``.usda``
+   within ``:g``'s 5e-6 relative, the dispatcher's mesh equal to
+   ``io.usd.import_mesh``'s), the ``.usdc`` import's 512² render launching
+   #1 once and #2-6 never, face_idx equal to the OBJ import's render of
+   the same geometry, #1's winner ids against its plain version on the
+   same CUDA tensors; 2^20 gaussians through a ``.usdc`` bit for bit; the
+   100-step fit logged by ``Timelapse`` (11 checkpoints; the last equal to
+   the fit's vertices within 5e-6 relative; the files and dash3d's wire
+   bytes written from the card's tensors equal to those from CPU copies);
+   the turntable's 16 renders (#1 16 times, a frame's winner ids against
+   the plain version, its cameras within 1e-6 of a CPU visualizer's after
+   the same events); ``phase_usd_timing`` after phase_io_timing);
 7. the table gather's two routes (shared memory, L2) held bit for bit
    against ``table_gather_plain``: the probe's shape, 2^14 and 2^20
    tables, 58,112 and 58,113 floats (either side of the route rule),
@@ -389,6 +418,11 @@ IO_PARITY = dict(asset=(40, 64), tex=128, res=64, gaussians=4096)
 IO_TOL = {"pass": 1e-5, "gcn": 1e-5, "gcn_grad": 1e-4, "glb": 1e-6,
           "gauss": 1e-6, "act": 1e-6}
 IO_TIMED = 10
+# the asset through USD (examples/torch_usd_asset.py): card vs CPU on a
+# small copy; :g keeps 6 significant digits
+USD_PARITY = dict(asset=(24, 32), tex=64, res=64)
+USD_TOL = {"usda": 5e-6, "pass": 1e-5, "camera": 1e-6}
+USD_TIMED = 10
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores
@@ -731,6 +765,17 @@ class Smoke:
         from kaolin_tpu_torch import io as kio
         self.kio = kio
         self.io = {}      # the asset from disk: its measurements
+        from kaolin_tpu_torch import native
+        from kaolin_tpu_torch.io import usd
+        from kaolin_tpu_torch.io.usd import core as usd_core
+        from kaolin_tpu_torch.io.usd import crate as usd_crate
+        from kaolin_tpu_torch.native import build as native_build
+        self.native, self.native_build = native, native_build
+        self.usd_io, self.usd_core, self.usd_crate = usd, usd_core, usd_crate
+        self.usd_ex = load_example("torch_usd_asset")
+        from kaolin_tpu_torch import visualize
+        self.visualize = visualize
+        self.usd = {}     # the asset through USD: its measurements
         from kaolin_tpu_torch.render.spc import raytrace
         self.rt = raytrace
         self.spcrt = {}   # config 3 as written: its scene and measurements
@@ -3930,6 +3975,463 @@ class Smoke:
               f"{r['pool_s']:.4f} s, the serial loop {r['serial_s']:.4f} s "
               f"(host wall, phase_io_path) [{self.card}]", flush=True)
 
+    # -- the asset through USD, the native library, the visualizers -------
+    @contextlib.contextmanager
+    def native_calls(self, label):
+        """Inside, the Crate reader's LZ4 blocks are counted as it asks for
+        them; after, every one of them and every ``expect_check_sign``
+        native ``check_sign`` must have reached the library → the dict
+        that the caller sets ``expect_check_sign`` in."""
+        crate, calls = self.usd_crate, self.native.calls
+        before, block, seen = dict(calls), crate._lz4_block, {
+            "blocks": 0, "expect_check_sign": 0}
+
+        def counted(data, size):
+            seen["blocks"] += 1
+            return block(data, size)
+
+        crate._lz4_block = counted
+        try:
+            yield seen
+        finally:
+            crate._lz4_block = block
+        hit = {k: calls[k] - before[k] for k in calls}
+        self.check(seen["blocks"] > 0
+                   and hit["lz4_decompress_block"] == seen["blocks"]
+                   and hit["check_sign_cpu"] == seen["expect_check_sign"],
+                   f"{label}: every native call reached the library built "
+                   f"from the port's source: {seen['blocks']} LZ4 blocks "
+                   f"asked, {hit['lz4_decompress_block']} decoded there; "
+                   f"{seen['expect_check_sign']} native check_sign asked, "
+                   f"{hit['check_sign_cpu']} there")
+
+    def usd_mesh_errs(self, got, a, ext):
+        """How far an imported asset is from the arrays written: the
+        geometry, the assignments and the materials' values and maps (at 8
+        bits, as the PNGs hold them) exactly (0 or 1) for ``.usdc``; the
+        ``.usda``'s floats as max|x − y| / max|y|."""
+        torch, ex = self.torch, self.usd_ex
+        exact = ext == "usdc"
+
+        def diff(x, want, exact=True):
+            x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+                else np.asarray(x)
+            want = np.asarray(want)
+            if x.shape != want.shape:
+                return float("inf")
+            if exact:
+                return float(not np.array_equal(x, want))
+            return float(np.abs(x - want).max()) / float(np.abs(want).max())
+
+        mesh, _ = got
+        errs = {k: diff(mesh.get_attribute(k), a[k], exact or k in (
+            "faces", "face_uvs_idx", "material_assignments"))
+            for k in ("vertices", "faces", "uvs", "face_uvs_idx",
+                      "material_assignments")}
+        for i, want in enumerate(ex.materials(a)):
+            have = mesh.materials[i]
+            for k in want.get_attributes(only_tensors=True):
+                w = getattr(want, k).numpy()
+                if k.endswith("_texture"):   # HWC written, CHW read
+                    w = (self.asset_ex._to8(w).astype(np.float32)
+                         / 255.0).transpose(2, 0, 1)
+                errs[f"material{i}.{k}"] = diff(getattr(have, k), w,
+                                                exact or k.endswith(
+                                                    "_texture"))
+        return errs
+
+    def usd_cameras(self, cam, ref):
+        """How far a camera is from ``ref``: the view matrix's and the
+        intrinsics' max|x − y| / max(max|y|, 1), the larger."""
+        return max(float((x.cpu() - y.cpu()).abs().max())
+                   / max(float(y.abs().max()), 1.0)
+                   for x, y in ((cam.view_matrix(), ref.view_matrix()),
+                                (cam.intrinsics.params,
+                                 ref.intrinsics.params)))
+
+    def cpu_turntable(self, res):
+        """A CPU visualizer whose render draws nothing: its cameras after
+        the example's events are the card's reference."""
+        from kaolin_tpu_torch.render.easy_render import default_camera
+        from kaolin_tpu_torch.visualize import IpyTurntableVisualizer
+        blank = np.zeros((res, res, 3), np.uint8)
+        viz = IpyTurntableVisualizer(res, res, default_camera(res, "cpu"),
+                                     lambda camera: {"img": blank})
+        return self.usd_ex.drive(viz)
+
+    def phase_usd_parity(self):
+        """The native library built from the port's source; the USD path's
+        pieces on the card against the port's CPU on a small copy of the
+        asset (24 x 32 sphere, 64² maps): the ``.usda`` and ``.usdc`` files
+        written from CUDA tensors byte-equal to those from CPU tensors
+        (textures too), their imports equal, rendered at 64² with face_idx
+        equal and every pass within 1e-5 of its max|x|; the native
+        ``check_sign`` on the card's tensors of the training path's torus
+        (4,096 faces, 100,000 candidates) against the device's ray parity
+        (equal but within 1e-5 of an edge or face) and equal to the native
+        answer on the CPU's tensors."""
+        import filecmp
+        import tempfile
+
+        torch, ex, p, nb = self.torch, self.usd_ex, USD_PARITY, \
+            self.native_build
+        so = nb.library_path()
+        print("native library:", " ".join(nb.command(so)), flush=True)
+        t0 = time.perf_counter()
+        ok = self.native.is_available()
+        self.check(ok, f"the native library built by g++ "
+                   f"({nb.compiler_version()}) from "
+                   f"{os.path.relpath(nb.SOURCE, ROOT)} into "
+                   f"{os.path.relpath(so, ROOT)} and loaded in "
+                   f"{time.perf_counter() - t0:.1f} s; "
+                   f"{self.native.load_error()}")
+        with tempfile.TemporaryDirectory() as d, \
+                self.native_calls("phase_usd_parity") as seen:
+            a = ex.asset_arrays(p["asset"], p["tex"])
+            files, meshes = {}, {}
+            for dev in ("cuda", "cpu"):
+                on = {k: torch.as_tensor(v, device=dev) for k, v in a.items()}
+                for ext in ("usda", "usdc"):
+                    files[dev, ext] = ex.write_usd(
+                        os.path.join(d, dev, ext, f"asset.{ext}"), on)
+                    meshes[dev, ext] = ex.import_usd(files[dev, ext], dev)[0]
+            for ext in ("usda", "usdc"):
+                cmp = filecmp.dircmp(os.path.join(d, "cuda", ext, "textures"),
+                                     os.path.join(d, "cpu", ext, "textures"))
+                textures = sorted(cmp.common_files)
+                same = filecmp.cmp(files["cuda", ext], files["cpu", ext],
+                                   shallow=False) and not cmp.diff_files \
+                    and not cmp.left_only and not cmp.right_only
+                card, cpu = meshes["cuda", ext], meshes["cpu", ext]
+                equal = all(torch.equal(card.get_attribute(k).cpu(),
+                                        cpu.get_attribute(k))
+                            for k in ("vertices", "faces", "uvs",
+                                      "face_uvs_idx", "material_assignments"))
+                equal &= all(torch.equal(getattr(mc, k).cpu(), getattr(mh, k))
+                             for mc, mh in zip(card.materials, cpu.materials)
+                             for k in mh.get_attributes(only_tensors=True))
+                with torch.no_grad():
+                    same_ids, errs = self.render_errs(
+                        ex.render(card, p["res"]), ex.render(cpu, p["res"]))
+                self.check(same and equal and same_ids
+                           and max(errs.values()) <= USD_TOL["pass"]
+                           and card.vertices.is_cuda,
+                           f".{ext} of the {p['asset']} asset written from "
+                           f"CUDA and from CPU tensors: the files and "
+                           f"textures {textures} byte-equal {same}; the "
+                           f"imports equal {equal}; rendered at "
+                           f"{p['res']}²: face_idx "
+                           f"{'equal' if same_ids else 'DIFFERS'}; passes "
+                           + ", ".join(f"{k} {v:.2e}" for k, v in
+                                       sorted(errs.items()))
+                           + f" of max|x| (<= {USD_TOL['pass']:g})")
+            verts, faces, cand = self.torus_candidates("cuda")
+            answers = {}
+            for dev in ("cuda", "cpu"):
+                native, plain = ex.native_check_sign(dev)
+                answers[dev] = (native.cpu(), plain.cpu(), native.device)
+                seen["expect_check_sign"] += 1
+            native, plain, where = answers["cuda"]
+            differ = torch.nonzero(native != plain)[:, 0].numpy()
+            margins = check_sign_margin(verts.cpu().numpy(),
+                                        faces.cpu().numpy(),
+                                        cand.cpu().numpy()[differ])
+            self.check(all(m <= CHECK_SIGN_MARGIN for m in margins)
+                       and torch.equal(native, answers["cpu"][0])
+                       and where.type == "cuda",
+                       f"check_sign(backend='native') of the torus "
+                       f"({faces.shape[0]} faces) and {cand.shape[0]} "
+                       f"candidates on the card's tensors (answer on "
+                       f"{where}) against the device's ray parity: "
+                       f"{len(differ)} differ, at margins "
+                       f"{[float(f'{m:.2e}') for m in margins]} (each within "
+                       f"{CHECK_SIGN_MARGIN:g} of an edge or face); equal to "
+                       f"the native answer on the CPU's tensors "
+                       f"{torch.equal(native, answers['cpu'][0])}; "
+                       f"{int(native.sum())} inside")
+
+    def relog(self, logdir, fit, device):
+        """The fit's checkpoints logged again into ``logdir`` from tensors
+        on ``device`` → the seconds the Timelapse took."""
+        ex, vis = self.usd_ex, self.visualize
+        timelapse = vis.Timelapse(logdir)
+        faces = fit["faces"].to(device)
+        t0 = time.perf_counter()
+        for i, (v, pts) in enumerate(zip(fit["vertices"], fit["points"])):
+            timelapse.add_mesh_batch(iteration=i * ex.LOG_EVERY,
+                                     category="fit",
+                                     vertices_list=[v.to(device)],
+                                     faces_list=[faces])
+            timelapse.add_pointcloud_batch(iteration=i * ex.LOG_EVERY,
+                                           category="samples",
+                                           pointcloud_list=[pts.to(device)])
+        return time.perf_counter() - t0
+
+    def phase_usd_path(self):
+        """The USD path at full size on the card, each piece with every
+        launch counter set to 0 before and read after: the 81,408-face
+        asset with its 1,024² maps written as ``.usda`` and ``.usdc`` and
+        imported (no launch; the ``.usdc`` import bit for bit, the
+        ``.usda`` within 5e-6 relative; the dispatcher's mesh equal to
+        ``io.usd.import_mesh``'s); the ``.usdc`` import rendered at 512²
+        (#1 once, #2-6 never; #1's winner ids against its plain version on
+        the same CUDA tensors; face_idx equal to the OBJ import's render of
+        the same geometry); 2^20 gaussians through a ``.usdc`` bit for bit;
+        the 100-step fit logged by ``Timelapse`` every 10 steps (#1 once
+        a render and a step; 11 checkpoints; the last within 5e-6 relative
+        of the fit's vertices; the files and dash3d's wire bytes from the
+        card's tensors equal to those from CPU copies); the turntable's 16
+        renders (#1 16 times; a frame's winner ids against the plain
+        version; its cameras within 1e-6 of a CPU visualizer's after the
+        same events)."""
+        import filecmp
+        import tempfile
+
+        torch, ex, r = self.torch, self.usd_ex, self.usd
+        names = list(self.counters())
+        others = [k for k in names if k != "winner"]
+        with tempfile.TemporaryDirectory() as d, \
+                self.native_calls("phase_usd_path"):
+            a = ex.asset_arrays()
+            t0 = time.perf_counter()
+            paths = {ext: ex.write_usd(os.path.join(d, ext, f"asset.{ext}"),
+                                       a) for ext in ("usda", "usdc")}
+            r["write_s"] = time.perf_counter() - t0
+            r["bytes"] = {ext: os.path.getsize(p) for ext, p in paths.items()}
+            got, n = self.drive(names, lambda: {
+                ext: ex.import_usd(p) for ext, p in paths.items()})
+            errs = {ext: self.usd_mesh_errs(got[ext], a, ext)
+                    for ext in got}
+            want_t = np.asarray(ex.TRANSFORM, np.float32)
+            terr = {ext: float((got[ext][1].cpu() - torch.from_numpy(
+                want_t)).abs().max()) for ext in got}
+            self.check(max(errs["usdc"].values()) == 0.0
+                       and max(errs["usda"].values()) <= USD_TOL["usda"]
+                       and max(terr.values()) <= USD_TOL["usda"]
+                       and got["usdc"][0].vertices.is_cuda
+                       and not any(n.values()),
+                       f"the {a['faces'].shape[0]}-face asset written as "
+                       f".usda and .usdc in {r['write_s']:.2f} s "
+                       f"({r['bytes']} bytes) and imported on the card: "
+                       ".usdc " + ", ".join(f"{k} {v:g}" for k, v in
+                                            errs["usdc"].items())
+                       + " (0: bit for bit); .usda " + ", ".join(
+                           f"{k} {v:.2e}" for k, v in errs["usda"].items())
+                       + f" (<= {USD_TOL['usda']:g}); transforms {terr}; "
+                       f"launches {n}")
+            for ext, path in paths.items():
+                via = self.kio.import_mesh(path)
+                direct = self.usd_io.import_mesh(path)
+                same = all(torch.equal(via.get_attribute(k),
+                                       direct.get_attribute(k))
+                           for k in ("vertices", "faces", "uvs",
+                                     "face_uvs_idx"))
+                self.check(same, f"io.import_mesh of the .{ext} equals "
+                           f"io.usd.import_mesh's: {same}")
+            mesh = got["usdc"][0]
+            with torch.no_grad():
+                passes, n = self.drive(names, lambda: ex.render(mesh))
+                covered = int((passes["face_idx"] >= 0).sum())
+                finite = all(bool(torch.isfinite(v.float()).all())
+                             for v in passes.values())
+                self.check(finite and covered > 0 and n["winner"] == 1
+                           and not any(n[k] for k in others),
+                           f".usdc import rendered at {RENDER_RES}²: "
+                           f"{len(passes)} passes, {covered} covered "
+                           f"pixels, finite; launches {n}")
+                self.check_winner_at(f"the .usdc import at {RENDER_RES}²",
+                                     lambda: ex.render(mesh))
+                obj = self.kio.import_mesh(
+                    self.asset_ex._write_obj(d, a), with_materials=True,
+                    raw_materials=False)
+                same = torch.equal(passes["face_idx"],
+                                   ex.render(obj)["face_idx"])
+                self.check(same, f".usdc import's {RENDER_RES}² render "
+                           "against the OBJ import's of the same geometry: "
+                           f"face_idx {'equal' if same else 'DIFFERS'}")
+                del obj
+            t0 = time.perf_counter()
+            (g, back, gpath), n = self.drive(
+                names, lambda: ex.gaussian_round_trip(d))
+            r["gauss_s"] = time.perf_counter() - t0
+            r["gauss_bytes"] = os.path.getsize(gpath)
+            wxyz = g["orientations"]
+            exact = {k: np.array_equal(getattr(back, k).cpu().numpy(), want)
+                     for k, want in (("positions", g["positions"]),
+                                     ("orientations", wxyz),
+                                     ("scales", g["scales"]),
+                                     ("opacities", g["opacities"]),
+                                     ("sh_coeff", g["sh_coeff"]))}
+            self.check(all(exact.values()) and back.positions.is_cuda
+                       and not any(n.values()),
+                       f"{g['positions'].shape[0]} gaussians at SH degree 3 "
+                       f"through a .usdc ({r['gauss_bytes']} bytes) and "
+                       f"back to the card in {r['gauss_s']:.2f} s: bit for "
+                       f"bit {exact}; launches {n}")
+            del g, back
+        with tempfile.TemporaryDirectory() as d:
+            logdir = os.path.join(d, "card")
+            t0 = time.perf_counter()
+            fit, n = self.drive(names, lambda: ex.log_fit(logdir))
+            r["fit_s"] = time.perf_counter() - t0
+            r["fit"] = fit
+            parser = self.visualize.TimelapseParser(logdir)
+            times = parser.dir_info["mesh"]["fit"][0]["times"]
+            last = self.usd_io.import_mesh(
+                parser.get_file_path("mesh", "fit", 0), time=times[-1],
+                device="cpu").vertices
+            want = fit["vertices"][-1].cpu()
+            lerr = float((last - want).abs().max() / want.abs().max())
+            self.relog(os.path.join(d, "host"), fit, "cpu")
+            files = sorted(os.path.relpath(os.path.join(root, f), logdir)
+                           for root, _, fs in os.walk(logdir) for f in fs)
+            _, mismatch, errors = filecmp.cmpfiles(
+                logdir, os.path.join(d, "host"), files, shallow=False)
+            wire = {k: ex.wire_bytes(os.path.join(d, k))
+                    for k in ("card", "host")}
+            self.check(n["winner"] == ex.FIT_STEPS + 1
+                       and not any(n[k] for k in others)
+                       and times == [float(t) for t in range(
+                           0, ex.FIT_STEPS + 1, ex.LOG_EVERY)]
+                       and parser.num_mesh_items() == 1
+                       and parser.num_pointcloud_items() == 1
+                       and lerr <= USD_TOL["usda"] and not mismatch
+                       and not errors and wire["card"] == wire["host"]
+                       and None not in wire["card"]
+                       and fit["losses"][-1] < fit["losses"][0],
+                       f"the fit's {ex.FIT_STEPS} steps logged by Timelapse "
+                       f"in {r['fit_s']:.2f} s: checkpoints at {times}; the "
+                       f"last {lerr:.2e} from the fit's vertices (<= "
+                       f"{USD_TOL['usda']:g}); loss {fit['losses'][0]:.5f} "
+                       f"-> {fit['losses'][-1]:.5f}; files {files} from the "
+                       f"card's tensors byte-equal to those from CPU copies "
+                       f"{not mismatch and not errors}; dash3d's wire bytes "
+                       f"({len(wire['card'][1])} + {len(wire['card'][2])}) "
+                       f"equal {wire['card'] == wire['host']}; launches {n}")
+        viz = ex.turntable(mesh)
+        _, n = self.drive(names, lambda: ex.drive(viz))
+        cam_err = self.usd_cameras(viz.camera,
+                                   self.cpu_turntable(RENDER_RES).camera)
+        self.check(n["winner"] == ex.RENDERS and not any(n[k] for k in others)
+                   and viz.canvas.last_image.shape == (RENDER_RES,
+                                                       RENDER_RES, 3)
+                   and cam_err <= USD_TOL["camera"],
+                   f"the turntable at {RENDER_RES}² on the .usdc import: "
+                   f"{len(ex.EVENTS)} events, launches {n}; its camera "
+                   f"{cam_err:.2e} of max|x| from a CPU visualizer's after "
+                   f"the same events (<= {USD_TOL['camera']:g})")
+        self.check_winner_at("a turntable frame at "
+                             f"{RENDER_RES}²", lambda: viz.render(viz.camera))
+        r["mesh"], r["viz"] = mesh, viz
+
+    def usd_split(self, fn):
+        """``fn`` (an import) once, its host wall synced, split by wrapping
+        what it calls: the layer read (the file, or the Crate reader and
+        its text), the prim scan, the PNG maps' decode and the moves to
+        tensors on the device (synced) → (seconds, {part: seconds})."""
+        torch, core, kio = self.torch, self.usd_core, self.kio
+        spent = {"read": 0.0, "scan": 0.0, "maps": 0.0, "to tensors": 0.0}
+        where = {"read": (core, "_read_usd_text"),
+                 "scan": (core, "_scan_prims"),
+                 "maps": (kio.utils, "read_image"),
+                 "to tensors": (core, "_on_device")}
+        kept = {k: getattr(mod, name) for k, (mod, name) in where.items()}
+
+        def timed(key, f):
+            def g(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = f(*args, **kwargs)
+                torch.cuda.synchronize()
+                spent[key] += time.perf_counter() - t0
+                return out
+            return g
+
+        for k, (mod, name) in where.items():
+            setattr(mod, name, timed(k, kept[k]))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        finally:
+            for k, (mod, name) in where.items():
+                setattr(mod, name, kept[k])
+        return total, spent
+
+    def phase_usd_timing(self):
+        """The USD path's times on the card: each import (host wall synced,
+        median of 3) split into the layer read, the prim scan, the maps'
+        decode, the moves to tensors and the rest (the attributes' text to
+        arrays); the ``.usdc`` import's 512² render (CUDA events, median of
+        10; device ops, busy, idle share, #1's ms; peak); the 11-checkpoint
+        Timelapse of the fit; a turntable frame (CUDA events, median of
+        10, the copy of its image to the host included); the native
+        ``check_sign`` of the torus's 100,000 candidates against the
+        device's (host wall synced, median of 3)."""
+        import tempfile
+
+        torch, ex, r = self.torch, self.usd_ex, self.usd
+        with tempfile.TemporaryDirectory() as d:
+            a = ex.asset_arrays()
+            for ext in ("usda", "usdc"):
+                path = ex.write_usd(os.path.join(d, ext, f"asset.{ext}"), a)
+                runs = sorted((self.usd_split(lambda: ex.import_usd(path))
+                               for _ in range(3)), key=lambda x: x[0])
+                total, parts = runs[1]
+                rest = total - sum(parts.values())
+                print(f"import .{ext} ({os.path.getsize(path)} bytes, "
+                      f"{a['faces'].shape[0]} faces, 2 PNG maps of "
+                      f"{ex.TEX}²): {total:.4f} s host wall synced (median "
+                      "of 3): " + ", ".join(f"{k} {v:.4f} s" for k, v in
+                                            parts.items())
+                      + f", the rest (text to arrays) {rest:.4f} s "
+                      f"[{self.card}]", flush=True)
+        mesh, viz = r["mesh"], r["viz"]
+        with torch.no_grad():
+            fn = lambda: ex.render(mesh)  # noqa: E731
+            ms = statistics.median(self.time_ms(fn, USD_TIMED))
+            peak = self.peak_mib(fn)
+            busy, kms = self.profile_path(
+                f"render of the .usdc import at {RENDER_RES}²", ("winner",),
+                fn, record=False)
+            print(f"render of the .usdc import at {RENDER_RES}²: {ms:.4f} "
+                  f"ms (CUDA events, median of {USD_TIMED}); #1 "
+                  f"{kms['winner']:.4f} device ms, "
+                  f"{kms['winner'] / busy:.4f} of busy; peak {peak:.1f} MiB "
+                  f"[{self.card}]", flush=True)
+            frame = statistics.median(self.time_ms(viz.render_update,
+                                                   USD_TIMED))
+        with tempfile.TemporaryDirectory() as d:
+            logged = self.relog(d, r["fit"], "cuda")
+        print(f"Timelapse of the fit: {len(r['fit']['vertices'])} checkpoints "
+              f"of {r['fit']['faces'].shape[0]} faces and {ex.CLOUD} points "
+              f"written in {logged:.4f} s from the card's tensors (host "
+              f"wall); the fit with its logging {r['fit_s']:.4f} s "
+              f"(phase_usd_path); a turntable frame at {RENDER_RES}² "
+              f"{frame:.4f} ms (CUDA events, median of {USD_TIMED}, the "
+              f"image's copy to the host included) [{self.card}]",
+              flush=True)
+        from kaolin_tpu_torch.ops.mesh import check_sign
+        verts, faces, cand = self.torus_candidates("cuda")
+        times = {}
+        for key in ("native", None):
+            fn = lambda: check_sign(verts[None], faces, cand[None],  # noqa
+                                    backend=key)
+            times[key] = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[key].append(time.perf_counter() - t0)
+        print(f"check_sign of the torus ({faces.shape[0]} faces) and "
+              f"{cand.shape[0]} candidates on the card's tensors: native "
+              f"(host C++, the copies to and from the host included) "
+              f"{statistics.median(times['native']):.4f} s, the device's "
+              f"ray parity {statistics.median(times[None]):.4f} s (host "
+              f"wall synced, median of 3) [{self.card}]", flush=True)
+
     # -- the table gather and the probe path ------------------------------
     def gather_case(self, n_tab, shape, lo=0, seed=0):
         """A random table of ``n_tab`` floats and int32 indices of ``shape``
@@ -5651,6 +6153,7 @@ class Smoke:
                       self.phase_gauss_parity, self.phase_gauss_path,
                       self.phase_render_parity, self.phase_render_path,
                       self.phase_io_parity, self.phase_io_path,
+                      self.phase_usd_parity, self.phase_usd_path,
                       self.phase_probe_path,
                       self.phase_sim_path, self.phase_collision_path,
                       self.phase_train_path, self.phase_grad,
@@ -5660,7 +6163,7 @@ class Smoke:
                       self.phase_collision_timing, self.phase_train_timing,
                       self.phase_flexi_timing, self.phase_gauss_timing,
                       self.phase_render_timing, self.phase_io_timing,
-                      self.phase_profile, self.phase_spcrt_timing,
+                      self.phase_usd_timing, self.phase_profile, self.phase_spcrt_timing,
                       self.phase_bounds):
             print(f"== {phase.__name__}", flush=True)
             t0 = time.perf_counter()

@@ -22,10 +22,14 @@ with the metrics of :mod:`kaolin_tpu_torch.metrics`. The full mesh render,
 :class:`kaolin_tpu_torch.rep.SurfaceMesh` with the materials and SG lights
 of :mod:`kaolin_tpu_torch.render`, is plain PyTorch around the winner
 search. :mod:`kaolin_tpu_torch.io` reads and writes OBJ/MTL, glTF/GLB,
-PLY (with INRIA 3DGS) and OFF files, with a PNG codec of its own, and
-caches dataset preprocessing; :mod:`kaolin_tpu_torch.ops` also holds the
-graph convolution of ``ops.gcn`` and the random generators of
-``ops.random``.
+PLY (with INRIA 3DGS), OFF and USD (text, Crate binary and ``.usdz``)
+files, images through Pillow, and caches dataset preprocessing;
+:mod:`kaolin_tpu_torch.ops` also holds the graph convolution of
+``ops.gcn`` and the random generators of ``ops.random``.
+:mod:`kaolin_tpu_torch.native` is the host C++ library (``check_sign``'s
+TriangleHash, the Crate reader's LZ4), built by g++ at first use;
+:mod:`kaolin_tpu_torch.visualize` writes Timelapse checkpoints and drives
+the Jupyter viewers, and ``experimental.dash3d`` serves the checkpoints.
 
 ``kaolin_tpu`` stays the reference. This package imports neither it nor jax.
 """
@@ -41,3 +45,4 @@ from kaolin_tpu_torch import physics  # noqa: F401
 from kaolin_tpu_torch import render   # noqa: F401
 from kaolin_tpu_torch import rep      # noqa: F401
 from kaolin_tpu_torch import utils    # noqa: F401
+from kaolin_tpu_torch import visualize  # noqa: F401

@@ -1,6 +1,7 @@
 """File I/O of the port: OBJ/MTL, glTF/GLB, PLY (meshes, point clouds,
-INRIA 3DGS), OFF, the synthetic-view loader, the dataset wrappers and
-``CachedDataset``. Counterpart of ``kaolin_tpu/io``; USD is not ported yet.
+INRIA 3DGS), OFF, USD (``.usda``, ``.usdc``, ``.usdz``), the synthetic-view
+loader, the dataset wrappers and ``CachedDataset``. Counterpart of
+``kaolin_tpu/io``.
 
 Textures are read and written through Pillow, as the JAX package reads
 and writes them. No module imports Pillow when it is imported: a file that
@@ -15,6 +16,7 @@ from kaolin_tpu_torch.io import off       # noqa: F401
 from kaolin_tpu_torch.io import ply       # noqa: F401
 from kaolin_tpu_torch.io import shapenet  # noqa: F401
 from kaolin_tpu_torch.io import shrec     # noqa: F401
+from kaolin_tpu_torch.io import usd       # noqa: F401
 from kaolin_tpu_torch.io import utils     # noqa: F401
 from kaolin_tpu_torch.io.dataset import Cache, CachedDataset  # noqa: F401
 from kaolin_tpu_torch.io.mesh import import_mesh  # noqa: F401

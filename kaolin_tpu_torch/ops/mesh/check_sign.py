@@ -9,6 +9,7 @@ shared edge is counted by neither face, as in the JAX package.
 The faces are taken a tile at a time, so memory stays O(N · tile).
 """
 
+import numpy as np
 import torch
 
 __all__ = ["check_sign"]
@@ -60,22 +61,19 @@ def check_sign(verts, faces, points, hash_resolution=512, backend=None):
         verts: (B, V, 3) tensor.
         faces: (F, 3) integer tensor.
         points: (B, N, 3) tensor on the vertices' device.
-        hash_resolution: the grid size of the JAX package's native
-            TriangleHash backend; unused here.
+        hash_resolution: the grid size of the native TriangleHash backend
+            (at most 1,024 is used, as in the JAX package).
         backend: None, the ray-parity test in PyTorch on the tensors'
-            device. ``"native"`` (the C++ TriangleHash of
-            ``kaolin_tpu/native``) is not ported yet and raises
-            NotImplementedError.
+            device; or ``"native"``, the C++ TriangleHash of
+            :mod:`kaolin_tpu_torch.native` on the host: the normalised
+            tensors are copied to the host and the answer back to the
+            points' device. Without the library it raises RuntimeError;
+            nothing falls back.
 
     Returns:
         (B, N) bool on the points' device.
     """
-    if backend == "native":
-        raise NotImplementedError(
-            "check_sign(backend='native') needs the C++ TriangleHash, which "
-            "is not ported yet (ROADMAP Queue A: USD and the native "
-            "library)")
-    if backend is not None:
+    if backend not in (None, "native"):
         raise ValueError(f"unknown backend {backend!r}")
     faces = torch.as_tensor(faces, device=verts.device).long()
     # normalise by the largest box side of each mesh
@@ -83,5 +81,13 @@ def check_sign(verts, faces, points, hash_resolution=512, backend=None):
     maxlen = extent.amax(dim=-1)[:, None, None]
     verts = verts / maxlen
     points = points / maxlen
+    if backend == "native":
+        from kaolin_tpu_torch import native
+        faces_np = faces.cpu().numpy()
+        out = [native.check_sign_cpu(v.detach().cpu().numpy(), faces_np,
+                                     p.detach().cpu().numpy(),
+                                     resolution=min(hash_resolution, 1024))
+               for v, p in zip(verts, points)]
+        return torch.from_numpy(np.stack(out)).to(points.device)
     return torch.stack([_unbatched_check_sign(v, faces, p)
                         for v, p in zip(verts, points)])

@@ -500,7 +500,8 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
     """Every module of the port and every torch example imports with
     ``jax`` and ``kaolin_tpu`` blocked (an import of either raises), and
     neither is loaded afterwards; ``PIL`` is blocked too, so
-    ``kaolin_tpu_torch.io`` and everything else import without Pillow."""
+    ``kaolin_tpu_torch.io`` and everything else import without Pillow;
+    no import builds the native library or loads tornado."""
     code = ("import importlib.abc, sys\n"
             "class Block(importlib.abc.MetaPathFinder):\n"
             "    def find_spec(self, name, path=None, target=None):\n"
@@ -579,7 +580,18 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "kaolin_tpu_torch.render.easy_render.common, "
             "kaolin_tpu_torch.render.easy_render.mesh, "
             "kaolin_tpu_torch.render.mesh.deftet, "
-            "kaolin_tpu_torch.render.mesh.nvdiffrast_context, runpy\n"
+            "kaolin_tpu_torch.render.mesh.nvdiffrast_context, "
+            "kaolin_tpu_torch.native, kaolin_tpu_torch.native.build, "
+            "kaolin_tpu_torch.io.usd, kaolin_tpu_torch.io.usd.core, "
+            "kaolin_tpu_torch.io.usd.crate, "
+            "kaolin_tpu_torch.io.usd.crate_write, "
+            "kaolin_tpu_torch.io.usd.materials, kaolin_tpu_torch.visualize, "
+            "kaolin_tpu_torch.visualize.timelapse, "
+            "kaolin_tpu_torch.visualize.ipython, "
+            "kaolin_tpu_torch.experimental, "
+            "kaolin_tpu_torch.experimental.dash3d, "
+            "kaolin_tpu_torch.experimental.dash3d.util, "
+            "kaolin_tpu_torch.experimental.dash3d.run, runpy\n"
             "for ex in ('torch_simplicits_drop', 'torch_simplicits_train', "
             "'torch_dibr_optimization', 'torch_dibr_texture_fit', "
             "'torch_tutorial_camera_rasterization', "
@@ -591,10 +603,14 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "'torch_tutorial_easy_mesh_render', "
             "'torch_tutorial_diffuse_lighting', "
             "'torch_tutorial_sg_specular_lighting', 'torch_asset_render', "
-            "'torch_tutorial_working_with_meshes'):\n"
+            "'torch_tutorial_working_with_meshes', 'torch_usd_asset', "
+            "'torch_tutorial_usd_scene'):\n"
             "    runpy.run_path(f'examples/{ex}.py')\n"
             "bad = [m for m in sys.modules if m in ('jax', 'kaolin_tpu', "
-            "'PIL') or m.startswith(('jax.', 'kaolin_tpu.', 'PIL.'))]\n"
+            "'PIL', 'tornado') or m.startswith(('jax.', 'kaolin_tpu.', "
+            "'PIL.', 'tornado.'))]\n"
+            "if kaolin_tpu_torch.native._LIB is not None:\n"
+            "    bad.append('the native library, loaded at import')\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

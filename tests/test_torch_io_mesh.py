@@ -19,6 +19,7 @@ import os
 import struct
 import subprocess
 import sys
+import zipfile
 import zlib
 
 import numpy as np
@@ -663,9 +664,11 @@ def test_off_import_matches_jax(header, colors, tmp_path):
 
 # -- the dispatcher and the asset ------------------------------------------
 def test_dispatcher_matches_jax(tmp_path):
-    """``io.import_mesh`` on OBJ (with its keywords), OFF, PLY, glTF and
-    GLB as JAX's; USD raises NotImplementedError naming the ROADMAP item,
-    an unknown extension ValueError."""
+    """``io.import_mesh`` on OBJ (with its keywords), OFF, PLY, glTF, GLB
+    and USD (``.usd``, ``.usda``, ``.usdc``) as JAX's; a ``.usdz`` (which
+    JAX's dispatcher refuses) as JAX's ``io.usd.import_mesh`` reads it, and
+    its gaussians as JAX's ``import_gaussiancloud``; an unknown extension
+    ValueError."""
     _obj_textures(tmp_path)
     _write(tmp_path / "m.mtl", MTL)
     files = {"obj": _write(tmp_path / "a.obj", _obj_text("quads")),
@@ -680,13 +683,33 @@ def test_dispatcher_matches_jax(tmp_path):
         assert_meshes_equal(tio.import_mesh(path, device="cpu", **kw),
                             jio.import_mesh(path, **kw), GLTF_RTOL,
                             ("vertices", "normals"))
+    v, f = RNG.rand(6, 3).astype(np.float32), np.array([[0, 1, 2],
+                                                         [3, 4, 5]])
+    g = {"positions": RNG.randn(5, 3).astype(np.float32),
+         "orientations": RNG.randn(5, 4).astype(np.float32),
+         "scales": RNG.rand(5, 3).astype(np.float32),
+         "opacities": RNG.rand(5).astype(np.float32),
+         "sh_coeff": RNG.randn(5, 4, 3).astype(np.float32)}
     for ext in ("usd", "usda", "usdc"):
-        with pytest.raises(NotImplementedError,
-                           match="USD and the native library"):
-            tio.import_mesh(str(tmp_path / f"a.{ext}"), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="USD and the native library"):
-        tio.import_gaussiancloud(str(tmp_path / "a.usdz"), device="cpu")
+        path = str(tmp_path / f"a.{ext}")
+        stage = jio.usd.create_stage(path)
+        jio.usd.add_mesh(stage, "/World/a", v, f)
+        jio.usd.add_gaussiancloud(stage, "/World/g", **g)
+        stage.save()
+        assert_meshes_equal(tio.import_mesh(path, device="cpu"),
+                            jio.import_mesh(path))
+    usdz = str(tmp_path / "a.usdz")
+    with zipfile.ZipFile(usdz, "w", zipfile.ZIP_STORED) as z:
+        z.write(str(tmp_path / "a.usdc"), "a.usdc")
+    with pytest.raises(ValueError):
+        jio.import_mesh(usdz)
+    assert_meshes_equal(tio.import_mesh(usdz, device="cpu"),
+                        jio.usd.import_mesh(usdz))
+    got = tio.import_gaussiancloud(usdz, device="cpu")
+    want = jio.import_gaussiancloud(usdz)
+    for k in g:
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      np.asarray(getattr(want, k)))
     with pytest.raises(ValueError):
         tio.import_mesh(str(tmp_path / "a.stl"), device="cpu")
 

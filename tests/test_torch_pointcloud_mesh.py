@@ -102,9 +102,21 @@ def test_check_sign_tiles_give_one_answer(monkeypatch):
 
 
 def test_check_sign_native_backend_is_not_ported():
-    verts, faces = train.torus_mesh((8, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"Queue A: USD and the "
-                       r"native library"):
-        check_sign(verts[None], faces, verts[None], backend="native")
+    """``backend="native"`` (the host C++ TriangleHash) gives JAX's native
+    answer and JAX's XLA answer on the torus's candidates, B = 2; an
+    unknown backend raises ValueError. (The name is the one the test had
+    while the backend raised.)"""
+    verts, faces = train.torus_mesh((16, 8), device="cpu")
+    cand = torch.stack([train.candidates(verts, 2000, seed=s)
+                        for s in (0, 1)])
+    v2 = torch.stack([verts, verts * 1.5])
+    got = check_sign(v2, faces, cand, backend="native")
+    args = (jnp.asarray(v2.numpy()), jnp.asarray(faces.numpy()),
+            jnp.asarray(cand.numpy()))
+    assert got.dtype == torch.bool and got.shape == (2, 2000)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(check_sign_jax(*args, backend="native")))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(check_sign_jax(*args)))
     with pytest.raises(ValueError, match="backend"):
         check_sign(verts[None], faces, verts[None], backend="warp")

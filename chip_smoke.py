@@ -207,7 +207,8 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    against ``table_gather_plain``: the probe's shape, 2^14 and 2^20
    tables, 58,112 and 58,113 floats (either side of the route rule),
    negative and out-of-range indices, counts that are not a multiple of 4
-   and unaligned views;
+   or of the L2 route's 1,024-index tile, 2^22 indices, 4,097, a 64 MB
+   table and unaligned views;
 8. the probe path: ``primitives_bench.main([])`` at its full sizes, counters
    set to 0 before and read after; every probe printed its line, both
    gather routes launched, and ``correct`` is true; then config 1's 150
@@ -264,9 +265,11 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
 10. ``torch.profiler`` (``kaolin_tpu_torch.utils.profiling.trace``) over 10
    config-2 steps and 10 config-3 frames after warm-up: each kernel's
    device ms and launches per step or frame, each path's device-busy and
-   idle share; the gathers and the library calls beside the kernels
-   (``library_ms``), warm, at the probe's shapes; both gather routes on
-   tables of 2^10 to 58,112 floats, to show where the route rule belongs;
+   idle share; the gathers, ``table[idx]`` (``library_ms``) and the plain
+   versions at the probe's shapes, cold (a 256 MB fill before each call
+   evicts L2; the kernels line takes these) and warm; both gather routes
+   cold and warm on tables of 2^10 to 58,112 floats, to show where the
+   route rule belongs;
    the config-1 sim step and the collision_10k step eager and as a graph
    replay, and one training step: device busy, idle share and the largest
    ops, and detection's share of the collision_10k step; config 4's two
@@ -324,6 +327,14 @@ GATHER_IDX = (8192, 128)
 GATHER_TABLES = {"table_gather_l2": 1 << 20, "table_gather_smem": 1 << 14}
 # tables up to the shared-memory route's largest, both routes timed on each
 GATHER_SWEEP = (1 << 10, 1 << 12, 1 << 14, 1 << 15, 40_000, 58_112)
+# cold readings: a 256 MB scratch filled before each profiled launch evicts
+# the 50 MB L2; the median over the COLD_REPS launches the trace holds
+# whole, at least COLD_MIN of them. A random 4-byte read pulls one
+# L2_SECTOR-byte sector.
+FLUSH_BYTES = 256 << 20
+COLD_REPS = 40
+COLD_MIN = 20
+L2_SECTOR = 32
 PROFILE_STEPS = 10
 # the Simplicits sim step: states compared per step at the graft size and
 # at config 1; B z within SIM_Z_TOL of max|B z| (card against CPU), z
@@ -340,6 +351,9 @@ COLLISION_STACK = dict(objects=2, qp=300, plate_side=10)
 COLLISION_PARITY_STEPS = 5
 COLLISION_DEMO = dict(num_qp=48, kinematic_qp=25, max_contact_pairs=512)
 COLLISION_DEMO_STEPS = {"dense": 10, "grid": 10, "sweep": 5}
+# the demo scene padded as a heterogeneous scene batch pads it: the soft
+# body to 80 points and 5 handles, the plate to 36 points (43 phantoms)
+COLLISION_DEMO_PAD = (80, 5, 36)
 COLLISION_STEPS = 20
 COLLISION_TIMED_STEPS = 10
 COLLISION_PROFILE_STEPS = 4
@@ -4459,6 +4473,15 @@ class Smoke:
              self.gather_case(big, (1_000_003,), lo=-big, seed=4)),
             ("58,112 floats, 3 indices", self.gather_case(
                 cg.SMEM_MAX_FLOATS, (3,), lo=-100, seed=5)),
+            ("2^20 table, 2^22 indices (many tiles a block)",
+             self.gather_case(big, (1 << 22,), seed=7)),
+            ("2^20 table, 4,097 indices (4 tiles and 1, no prefetch)",
+             self.gather_case(big, (4097,), lo=-big, seed=8)),
+            ("2^24 table (64 MB, more than L2), 2^20 indices",
+             self.gather_case(1 << 24, (big,), seed=9)),
+            ("2^18 table, 616,447 indices (601 tiles and 1,023)",
+             self.gather_case(1 << 18, (601 * 1024 + 1023,), lo=-(1 << 18),
+                              seed=10)),
         ]
         table, idx = self.gather_case(1 << 14, (4099,), lo=-(1 << 14), seed=6)
         cases.append(("unaligned views, 2^14 - 1 floats, 4,098 indices",
@@ -4792,8 +4815,8 @@ class Smoke:
         inputs: each broad phase's pair set on three seeded scenes of 3 x 400
         points (and the grid's and the sweep's against the dense set on each
         device, the diagnostics equal); the stack scene's contact terms
-        (``check_stack_step``); the demo scene's step, by B z
-        (``check_demo_steps``)."""
+        (``check_stack_step``); the demo scene's step, by B z, plain and
+        padded with phantom points (``check_demo_steps``)."""
         torch = self.torch
         self.check_precision("phase_collision_parity")
         Collision = self.Collision
@@ -4825,6 +4848,7 @@ class Smoke:
                        f"{diags['grid', 'cuda']['max_cell_occupancy']}")
         self.check_stack_step()
         self.check_demo_steps()
+        self.check_demo_steps({"grid": 8}, pad=COLLISION_DEMO_PAD)
 
     def step_system(self, scene, fn, consts, z_in):
         """The Newton system a step of ``scene`` starts from at state
@@ -4941,23 +4965,28 @@ class Smoke:
                    + f"; the step finite {finite}, flags {flags} "
                    f"[{self.card}]")
 
-    def check_demo_steps(self):
+    def check_demo_steps(self, steps=COLLISION_DEMO_STEPS, pad=None):
         """``make_demo_scene``'s scene (48 points, 3 handles, a 25-point
         plate; its QR rotation is small) on the card against the CPU for
-        each broad phase: the card's step from each of the CPU's states, by
-        B z within 1e-4 of max|B z| plus twice the card's own spread under
-        a ±1e-7 change of z (about 1e-7 of max|B z| where the step is well
-        conditioned; the CPU tests see 9.1e-5 at step 9, where contacts
-        press into the barrier)."""
+        each broad phase of ``steps``: the card's step from each of the
+        CPU's states, by B z within 1e-4 of max|B z| plus twice the card's
+        own spread under a ±1e-7 change of z (about 1e-7 of max|B z| where
+        the step is well conditioned; the CPU tests see 9.1e-5 at step 9,
+        where contacts press into the barrier). ``pad`` pads both objects
+        with phantom points (the example's ``demo_scene``), which contact
+        leaves out."""
         torch, ex = self.torch, self.col_ex
         f64 = torch.float64
-        for bp, n in COLLISION_DEMO_STEPS.items():
-            cpu = ex.demo_scene("cpu", 3, broad_phase=bp, **COLLISION_DEMO)
+        what = "demo scene" if pad is None else f"padded demo scene {pad}"
+        for bp, n in steps.items():
+            cpu = ex.demo_scene("cpu", 3, broad_phase=bp, pad=pad,
+                                **COLLISION_DEMO)
             states = [(cpu.sim_z, cpu.sim_z_prev, cpu.sim_z_dot)]
             for _ in range(n):
                 cpu.run_sim_step()
                 states.append((cpu.sim_z, cpu.sim_z_prev, cpu.sim_z_dot))
-            card = ex.demo_scene("cuda", 3, broad_phase=bp, **COLLISION_DEMO)
+            card = ex.demo_scene("cuda", 3, broad_phase=bp, pad=pad,
+                                 **COLLISION_DEMO)
             conv, same = self.qr_conv(card, cpu)
             fn, consts = card.build_functional_step(with_diag=True)
             bk = card.sim_B.cpu().to(f64)
@@ -4981,20 +5010,37 @@ class Smoke:
                 errs.append(float((got - want).abs().max()) / scale)
                 spreads.append(spread / scale)
                 flags.append(int(out[3]))
-            pairs = int(cpu.collision_diagnostics()["num_pairs"])
+            # the diagnostics at the CPU's last state, on both devices
+            diag = {k: int(v) for k, v in cpu.collision_diagnostics().items()}
+            card.sim_z = (states[n][0] if same else
+                          (conv @ states[n][0].to(f64)).float()).cuda()
+            card_diag = {k: int(v)
+                         for k, v in card.collision_diagnostics().items()}
+            card.reset_scene()
+            pairs = diag["num_pairs"]
             rot = float(card.get_object(0).qr_tfm.abs().max())
+            phantoms = int(card.qp_is_phantom.sum())
             self.check(all(e <= SIM_Z_TOL + 2 * s
                            for e, s in zip(errs, spreads))
                        and flags == [0] * n and pairs > 0
+                       and card_diag["num_pairs"] > 0
+                       and not any(card_diag.get(k) for k in (
+                           "contacts_overflow", "cell_overflow",
+                           "dropped_points", "out_of_bounds"))
+                       and phantoms == card.total_qp - COLLISION_DEMO[
+                           "num_qp"] - COLLISION_DEMO["kinematic_qp"]
                        and all(bool(torch.isfinite(x).all())
                                for x in states[-1]),
-                       f"contact step card vs CPU [demo scene, {bp}, "
-                       f"{card.total_qp} points, D {card.total_dofs}], {n} "
+                       f"contact step card vs CPU [{what}, {bp}, "
+                       f"{card.total_qp} points ({phantoms} phantom), D "
+                       f"{card.total_dofs}], {n} "
                        f"steps from the CPU's states: max |d(B z)| / "
                        f"max|B z| " + ", ".join(f"{e:.1e}" for e in errs)
                        + " (the card's own spread under a 1e-7 change of z "
                        + ", ".join(f"{e:.1e}" for e in spreads)
-                       + f"); flags {flags}; {pairs} pairs at the end; the "
+                       + f"); flags {flags}; {pairs} pairs at the end; "
+                       f"the card's diagnostics there {card_diag}, "
+                       f"= the CPU's {card_diag == diag}; the "
                        f"same QR pivots {same}, the QR rotation's largest "
                        f"entry {rot:.4g} [{self.card}]")
 
@@ -5822,29 +5868,104 @@ class Smoke:
         self.results["spc_untile"]["library_ms"] = self.device_ms(
             "untile library",
             lambda: self.sr.untile_plain(dt, it, **b["size"]))
+        self.profile_gather()
+        torch.cuda.synchronize()
+
+    def profile_gather(self):
+        """The gathers cold (L2 flushed, as a caller that has just touched
+        other data finds it) and warm (the same call repeated), beside
+        ``table[idx]`` and the plain versions, then the route sweep: the
+        share is taken cold, against a bound in HBM bytes."""
         for name, n_tab in GATHER_TABLES.items():
             table, idx = self.gather_case(n_tab, GATHER_IDX)
             fn = self.counters()[name]
+            ms = self.gather_readings(f"{name}, {n_tab} floats", {
+                "kernel": lambda: fn(table, idx),
+                "table[idx]": lambda: table[idx],
+                "plain": lambda: self.cg.table_gather_plain(table, idx)})
             r = self.results[name]
-            r["device_ms"] = self.device_ms(name, lambda: fn(table, idx))
-            r["library_ms"] = self.device_ms(f"{name} library",
-                                             lambda: table[idx])
+            r["device_ms"], r["device_ms_warm"] = ms["kernel"]
+            r["library_ms"], r["library_ms_warm"] = ms["table[idx]"]
             self.per_step[name] = 1
-            print(f"{name}, {n_tab} floats, {GATHER_IDX} indices, warm: "
-                  f"kernel {r['device_ms']:.4f} device ms, table[idx] "
-                  f"{r['library_ms']:.4f} device ms [{self.card}]")
-        # both routes on every table the shared-memory route can hold: where
-        # they cross is where the route rule belongs
+        self.gather_sweep()
+
+    def gather_sweep(self):
+        """Both routes, cold and warm, on every table the shared-memory
+        route can hold: where they cross cold is where the route rule
+        belongs."""
         for n_tab in GATHER_SWEEP:
             table, idx = self.gather_case(n_tab, GATHER_IDX)
-            ms = {name: self.device_ms(f"sweep {name} {n_tab}",
-                                       lambda fn=self.counters()[name]:
-                                       fn(table, idx))
-                  for name in GATHER_KERNELS}
-            print(f"route sweep, {n_tab} floats, {GATHER_IDX} indices, warm:"
-                  f" shared memory {ms['table_gather_smem']:.4f}, L2 "
-                  f"{ms['table_gather_l2']:.4f} device ms [{self.card}]")
+            ms = self.gather_readings(
+                f"route sweep, {n_tab} floats",
+                {name: lambda fn=self.counters()[name]: fn(table, idx)
+                 for name in GATHER_KERNELS})
+            cold = {k: c for k, (c, _) in ms.items()}
+            print(f"route sweep, {n_tab} floats: cold, the L2 route is "
+                  f"{cold['table_gather_l2'] / cold['table_gather_smem']:.3f}"
+                  f" x the shared-memory route (the rule takes "
+                  f"{self.cg.gather_route(n_tab)}) [{self.card}]")
+
+    def cold_ms(self, label, fn, reps=COLD_REPS, attempts=5):
+        """Device ms of one call of ``fn`` with L2 cold: a 256 MB scratch
+        is filled before each of ``reps`` profiled calls, which evicts the
+        50 MB L2 → the median over the calls of the device time each one
+        launched. The flush is the fill kernel with the most device time
+        in the same trace, about 0.1 ms a call, and is left out (a separate
+        trace of the flush alone came back without device time inside a
+        full run). The profiler now and then drops a call's events: only the
+        calls with as many device events as most calls have count, and at
+        least ``COLD_MIN`` of them."""
+        torch = self.torch
+        cuda = torch.autograd.DeviceType.CUDA
+        if getattr(self, "_flush", None) is None:
+            self._flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                                      device="cuda")
+        flush = self._flush
+        fn()
         torch.cuda.synchronize()
+        for _ in range(attempts):
+            with self.profiling.trace(label, TRACE_DIR) as prof:
+                for _ in range(reps):
+                    flush.fill_(1.0)
+                    fn()
+                torch.cuda.synchronize()
+            events = sorted((e.time_range.start, e.name,
+                             e.time_range.elapsed_us())
+                            for e in prof.events() if e.device_type == cuda
+                            and not getattr(e, "is_user_annotation", False))
+            fills = {}
+            for _, name, us in events:
+                if "fill" in name.lower():
+                    fills[name] = fills.get(name, 0.0) + us
+            flush_name = max(fills, key=fills.get, default=None)
+            calls = []   # [events, µs] a call
+            for _, name, us in events:
+                if name == flush_name:   # a call's flush: a new call begins
+                    calls.append([0, 0.0])
+                elif calls:
+                    calls[-1][0] += 1
+                    calls[-1][1] += us
+            counts = [c for c, _ in calls if c]
+            whole = [us for c, us in calls if counts
+                     and c == statistics.mode(counts)]
+            if len(whole) >= COLD_MIN:
+                return statistics.median(whole) / 1e3
+            print(f"{label}: {len(whole)} whole cold calls of {reps} in the "
+                  "trace; tracing again", flush=True)
+        raise RuntimeError(f"{label}: no cold reading in {attempts} traces")
+
+    def gather_readings(self, label, fns):
+        """Each of ``fns`` (name → a call at the probe's shape) cold and
+        warm → {name: (cold device ms, warm device ms)}, printed side by
+        side."""
+        out = {}
+        for name, fn in fns.items():
+            out[name] = (self.cold_ms(f"{label} {name} cold", fn),
+                         self.device_ms(f"{label} {name} warm", fn))
+            print(f"{label}, {GATHER_IDX} indices: {name} cold "
+                  f"{out[name][0]:.4f}, warm {out[name][1]:.4f} device ms "
+                  f"[{self.card}]", flush=True)
+        return out
 
     def profile_collision(self):
         """collision_10k from the path's start: an eager step and a graph
@@ -6039,6 +6160,22 @@ class Smoke:
                   f"{'operations' if t_ops >= t_bytes else 'bytes'}; device "
                   f"busy {busy} [{self.card}]")
 
+    def gather_bounds(self):
+        """The gathers' bounds in HBM bytes (the table once, 8 bytes an
+        index), beside the L2 sector traffic of their random reads, and
+        their shares cold and warm."""
+        for name, n_tab in GATHER_TABLES.items():
+            n = GATHER_IDX[0] * GATHER_IDX[1]
+            self.set_bound(name, 4 * n_tab + 8 * n, 0,
+                           f"a {n_tab}-float table once, {n} indices read "
+                           f"and values written")
+            r = self.results[name]
+            print(f"{name}: the random reads' L2 sector traffic {n} x "
+                  f"{L2_SECTOR} B = {n * L2_SECTOR} bytes (for understanding,"
+                  f" not the bound); share cold "
+                  f"{r['bound_ms'] / r['device_ms']:.4f}, warm "
+                  f"{r['bound_ms'] / r['device_ms_warm']:.4f} [{self.card}]")
+
     def phase_bounds(self):
         torch = self.torch
         d, h, w = self.sphere_case(RES)
@@ -6112,11 +6249,7 @@ class Smoke:
                        f"{work['slab_tests']}")
         self.set_bound("spc_untile", 4 * t_p * 4, 0,
                        f"{t_p} depths and ids read, as many written")
-        for name, n_tab in GATHER_TABLES.items():
-            n = GATHER_IDX[0] * GATHER_IDX[1]
-            self.set_bound(name, 4 * n_tab + 8 * n, 0,
-                           f"a {n_tab}-float table once, {n} indices read "
-                           f"and values written")
+        self.gather_bounds()
         torch.cuda.synchronize()
         self.sim_bound()
         self.collision_bound()

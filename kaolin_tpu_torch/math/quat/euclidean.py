@@ -3,6 +3,8 @@
 
 import torch
 
+from kaolin_tpu_torch.utils.backend import resolve_device
+
 __all__ = [
     "euclidean_identity",
     "euclidean_from_rotation_translation",
@@ -18,9 +20,11 @@ def _eye4(batch, dtype, device):
         tuple(batch) + (1, 1))
 
 
-def euclidean_identity(batch_size, dtype=torch.float32, device="cpu"):
-    """Identity SE(3) matrices (b, 4, 4)."""
-    return _eye4((batch_size,), dtype, device)
+def euclidean_identity(batch_size, dtype=torch.float32, device=None):
+    """Identity SE(3) matrices (b, 4, 4), on ``device`` (the CUDA device
+    unless another is named)."""
+    return _eye4((batch_size,), dtype,
+                 resolve_device(device, "euclidean_identity"))
 
 
 def euclidean_from_rotation_translation(r=None, t=None):

@@ -4,6 +4,7 @@ the real part last; every function broadcasts over leading batch dims."""
 
 import torch
 
+from kaolin_tpu_torch.utils.backend import resolve_device
 from kaolin_tpu_torch.utils.numerics import clip
 
 __all__ = [
@@ -56,10 +57,12 @@ def quat_unit_positive(quat):
     return quat_unit(quat_positive(quat))
 
 
-def quat_identity(shape, dtype=torch.float32, device="cpu"):
-    """Identity quaternion(s) of shape (*shape, 4)."""
+def quat_identity(shape, dtype=torch.float32, device=None):
+    """Identity quaternion(s) of shape (*shape, 4), on ``device`` (the CUDA
+    device unless another is named)."""
     if isinstance(shape, int):
         shape = (shape,)
+    device = resolve_device(device, "quat_identity")
     q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
     q[..., 3] = 1.0
     return q

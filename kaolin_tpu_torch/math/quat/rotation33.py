@@ -3,6 +3,7 @@
 
 import torch
 
+from kaolin_tpu_torch.utils.backend import resolve_device
 from kaolin_tpu_torch.utils.numerics import clip
 
 __all__ = [
@@ -26,13 +27,17 @@ def is_rot33_valid(rot33, atol=1e-6):
                                                atol=atol))
 
 
-def rot33_identity(batch_size=1, dtype=torch.float32, device="cpu"):
-    """Identity rotations (b, 3, 3)."""
+def rot33_identity(batch_size=1, dtype=torch.float32, device=None):
+    """Identity rotations (b, 3, 3), on ``device`` (the CUDA device unless
+    another is named)."""
+    device = resolve_device(device, "rot33_identity")
     return torch.eye(3, dtype=dtype, device=device).expand(batch_size, 3, 3)
 
 
-def translation_identity(batch_size=1, dtype=torch.float32, device="cpu"):
-    """Zero translations (b, 3)."""
+def translation_identity(batch_size=1, dtype=torch.float32, device=None):
+    """Zero translations (b, 3), on ``device`` (the CUDA device unless
+    another is named)."""
+    device = resolve_device(device, "translation_identity")
     return torch.zeros((batch_size, 3), dtype=dtype, device=device)
 
 

@@ -16,6 +16,7 @@ from kaolin_tpu_torch.math.quat.quaternion import (
     quat_rotate,
     quat_unit_positive,
 )
+from kaolin_tpu_torch.utils.backend import resolve_device
 
 __all__ = [
     "transform_from_rotation_translation",
@@ -49,10 +50,12 @@ def transform_from_euclidean(euclidean):
         euclidean_translation_vector(euclidean))
 
 
-def transform_identity(shape, dtype=torch.float32, device="cpu"):
-    """Identity transforms (*shape, 7)."""
+def transform_identity(shape, dtype=torch.float32, device=None):
+    """Identity transforms (*shape, 7), on ``device`` (the CUDA device
+    unless another is named)."""
     if isinstance(shape, int):
         shape = (shape,)
+    device = resolve_device(device, "transform_identity")
     return torch.cat([quat_identity(shape, dtype=dtype, device=device),
                       torch.zeros(tuple(shape) + (3,), dtype=dtype,
                                   device=device)], dim=-1)

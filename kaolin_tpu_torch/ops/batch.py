@@ -17,6 +17,8 @@ tensor is accepted wherever they are read); the data are torch tensors.
 import numpy as np
 import torch
 
+from kaolin_tpu_torch.utils.backend import input_device
+
 __all__ = [
     "get_shape_per_tensor",
     "get_first_idx",
@@ -168,9 +170,11 @@ def padded_to_packed(padded_tensor, shape_per_tensor):
         -1, padded_tensor.shape[-1])
 
 
-def packed_segment_ids(shape_per_tensor, total=None, device="cpu"):
-    """The item id of each packed row → int32 tensor on ``device``; rows
-    past the items, up to ``total``, get the id B."""
+def packed_segment_ids(shape_per_tensor, total=None, device=None):
+    """The item id of each packed row → int32 tensor on ``device``, by
+    default ``shape_per_tensor``'s device when it is a tensor, else the
+    CUDA device; rows past the items, up to ``total``, get the id B."""
+    device = input_device(shape_per_tensor, device, "packed_segment_ids")
     spt = host(shape_per_tensor)
     numel = spt.prod(axis=1) if spt.ndim == 2 else spt
     ids = np.repeat(np.arange(numel.shape[0]), numel)

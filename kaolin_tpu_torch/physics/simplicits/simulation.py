@@ -309,6 +309,14 @@ class SimplicitsScene:
             np.concatenate(qp_is_kin).astype(np.int32)).to(self.device)
         self.qp_to_object_map = torch.from_numpy(
             np.concatenate(qp_obj_ids).astype(np.int32)).to(self.device)
+        # phantom points (the padding of a heterogeneous batch) are left
+        # out of contact altogether: they are not physical and sit far
+        # outside the content's box
+        self._qp_is_real = np.concatenate([
+            np.arange(o.num_qp) < (o.num_qp if o.num_real_qp is None
+                                   else int(o.num_real_qp)) for o in objs])
+        self.qp_is_phantom = torch.from_numpy(~self._qp_is_real).to(
+            self.device)
         mask = np.ones(z0, dtype=bool)
         mask[kin_dofs] = False
         self.dyn_idx = np.nonzero(mask)[0]
@@ -430,13 +438,6 @@ class SimplicitsScene:
         (:meth:`check_collision_capacity`)."""
         if not self._ready_for_forces:
             self._get_scene_ready_for_forces()
-        objs = list(self.sim_obj_dict.values())
-        if any(o.num_real_qp is not None and int(o.num_real_qp) < o.num_qp
-               for o in objs):
-            raise NotImplementedError(
-                "collisions of padded objects (phantom points) are not "
-                "ported yet (ROADMAP Queue A: parallel/ and scene "
-                "batching)")
         auto_broad = broad_phase is None
         if broad_phase is None:
             broad_phase = ("grid" if self.total_qp >=
@@ -460,9 +461,13 @@ class SimplicitsScene:
             max_occupied_cells=(2048 if max_occupied_cells is None
                                 else max_occupied_cells))
         if broad_phase == "grid":
+            # sized from the real points only: phantom points would blow
+            # the grid's span; in a step they clamp into boundary cells,
+            # and the exclusion mask drops them
+            real = self._qp_is_real
             collision.configure_grid(
-                self.sim_pts.cpu().numpy(),
-                obj_ids=self.qp_to_object_map.cpu().numpy(),
+                self.sim_pts.cpu().numpy()[real],
+                obj_ids=self.qp_to_object_map.cpu().numpy()[real],
                 headroom_k=1.25,
                 auto_capacities=(cell_capacity is None
                                  or max_occupied_cells is None))
@@ -476,7 +481,8 @@ class SimplicitsScene:
                 # matrix takes fewer tests
                 grid_tests = (collision.max_occupied_cells * 14
                               * collision.cell_capacity ** 2)
-                if self.total_qp * self.total_qp < grid_tests:
+                n_real = int(real.sum())
+                if n_real * n_real < grid_tests:
                     collision.broad_phase = "dense"
         self.force_dict["collision"] = {"object": collision,
                                         "coeff": float(collision_penalty)}
@@ -492,7 +498,8 @@ class SimplicitsScene:
         if "collision" not in self.force_dict:
             return True
         col = self.force_dict["collision"]["object"]
-        if torch.unique(self.qp_to_object_map).numel() > 1:
+        ids = self.qp_to_object_map.cpu().numpy()[self._qp_is_real]
+        if np.unique(ids).size > 1:
             return False
         pts = self.sim_pts.cpu().numpy()
         diag2 = float(((pts.max(0) - pts.min(0)) ** 2).sum())
@@ -513,6 +520,11 @@ class SimplicitsScene:
         return int(min(max(minimum, 1 << int(np.ceil(np.log2(max(want, 1))))),
                        self.total_qp))
 
+    def _phantoms(self):
+        """The (N,) bool phantom mask for detection, or None when every
+        point is real."""
+        return None if self._qp_is_real.all() else self.qp_is_phantom
+
     def collision_diagnostics(self):
         """The collision force's :meth:`Collision.detection_diagnostics` at
         the scene's current state."""
@@ -522,7 +534,8 @@ class SimplicitsScene:
         with torch.no_grad():
             dx = (self.sim_B @ self.sim_z).reshape(-1, 3)
             return col.detection_diagnostics(
-                dx, self.sim_pts, self.qp_to_object_map, self.qp_is_kinematic)
+                dx, self.sim_pts, self.qp_to_object_map, self.qp_is_kinematic,
+                cp_exclude=self._phantoms())
 
     # ---- state ----
     def reset_scene(self):
@@ -671,6 +684,7 @@ class SimplicitsScene:
             consts["qr_tfm"] = self.sim_qr_tfm
             consts["qp_obj_ids"] = self.qp_to_object_map
             consts["qp_is_kin"] = self.qp_is_kinematic
+            consts["qp_is_phantom"] = self._phantoms()
             # the global block-diagonal skinning weights (N, H_total), from
             # which detection makes the contacts' q-form factors
             wblocks = self.sim_pts.new_zeros((self.total_qp,
@@ -703,7 +717,8 @@ class SimplicitsScene:
                                       c["qr_tfm"])
                 contacts, det_diag = col.detect_collisions(
                     dx_of(z), pts, c["qp_obj_ids"], c["qp_is_kin"],
-                    weights=c["col_w"], return_diag=True)
+                    weights=c["col_w"], cp_exclude=c["qp_is_phantom"],
+                    return_diag=True)
                 flags = Collision.diag_flags(det_diag)
 
                 def zq_of(z_):
@@ -959,9 +974,11 @@ class SimplicitsScene:
                         col.max_occupied_cells)
 
             old = sizes()
+            real = self._qp_is_real
             col.configure_grid(
-                cur, obj_ids=self.qp_to_object_map.cpu().numpy(),
-                headroom=headroom, bounds_pts=self.sim_pts.cpu().numpy())
+                cur[real], obj_ids=self.qp_to_object_map.cpu().numpy()[real],
+                headroom=headroom,
+                bounds_pts=self.sim_pts.cpu().numpy()[real])
             warnings.warn(
                 f"collision capacity overflow (flags={flags:#x}); grid "
                 f"re-measured from the current configuration: dims/K/M "

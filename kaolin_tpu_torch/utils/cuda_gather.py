@@ -1,5 +1,9 @@
 """Table gather ``out = table[idx]``: the CUDA kernels of ``csrc/gather.cu``
 (two routes), their plain PyTorch version and the dispatch between them.
+The shared-memory route holds the whole table in every block; the L2 route
+streams tiles of indices through a bulk-copy ring while L2, prefetched
+with the table, serves the random reads (``csrc/gather.cu``'s header says
+why, and what it leaves out).
 
 Counterpart of the Pallas probe ``gather_kernel`` of
 ``kaolin_tpu/utils/primitives_bench.py``. The semantics are those of
@@ -85,9 +89,16 @@ def table_gather_smem_cuda(table, idx):
 
 
 def table_gather_l2_cuda(table, idx):
-    """The L2 route on the card: the table stays in device memory and is
-    read through the read-only path. Any table size; otherwise as
-    :func:`table_gather_smem_cuda`."""
+    """The L2 route on the card: the table stays in device memory and L2
+    serves the random reads. A persistent grid (two blocks an SM) walks
+    tiles of 1,024 indices: a block reads its first tile directly, and the
+    rest arrive by bulk copies through a ring of two shared-memory slots;
+    each block first prefetches its slice of the table into L2 as a stream
+    (a table of at most 24 MB, given at least ``n_tab / 8`` indices); a
+    thread keeps two tiles' table reads in flight. Any table size;
+    otherwise as :func:`table_gather_smem_cuda`. Not used: an L2
+    persistence window (device-wide), sorting the indices (two more
+    passes), a cluster's distributed shared memory (3.6 MB < 4 MB)."""
     out, launched = _launch("kaolin_gather_l2", table, idx)
     table_gather_l2_cuda.launches += int(launched)
     return out

@@ -22,6 +22,10 @@ from kaolin_tpu_torch.render.camera import (
     PinholeIntrinsics,
     generate_rays,
 )
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 ATOL = 1e-6
 EYES = [[1.4, 1.0, 1.3], [0.1, 2.0, 0.1], [-1.8, -0.4, 0.6],

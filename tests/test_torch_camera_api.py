@@ -28,6 +28,7 @@ from kaolin_tpu_torch.render.camera import extrinsics as text
 from kaolin_tpu_torch.render.camera import extrinsics_backends as tback
 from kaolin_tpu_torch.render.camera import intrinsics as tint
 from tests.torch_parity import warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 ATOL = 1e-5
 EYES = np.array([[1.4, 1.0, 1.3], [-1.8, -0.4, 0.6], [0.3, 2.0, -1.1]],

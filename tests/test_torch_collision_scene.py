@@ -44,6 +44,10 @@ from kaolin_tpu_torch.physics.simplicits import (
     SkinnedPhysicsPoints,
 )
 from tests.torch_parity import displacement, load_example, z_converter
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 Z_TOL = 2e-5
 STEPS = {"dense": 10, "grid": 10, "sweep": 5}

@@ -33,6 +33,10 @@ from kaolin_tpu_torch.utils.interop import (
 )
 from kaolin_tpu_torch.utils.numerics import nonzero_static
 from tests.torch_parity import pair_set, random_contact_scene
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 TERM_TOL = 1e-5
 

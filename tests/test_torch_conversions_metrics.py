@@ -30,6 +30,7 @@ from kaolin_tpu_torch.metrics import voxelgrid as vgm
 from kaolin_tpu_torch.ops import conversions
 from kaolin_tpu_torch.ops import voxelgrid
 from tests.torch_parity import load_example, warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 ATOL, GRAD_TOL = 1e-6, 1e-5
 DMTET = load_example("torch_tutorial_dmtet")

@@ -60,6 +60,7 @@ from kaolin_tpu_torch.render.mesh.rasterization import (
 from kaolin_tpu_torch.utils import cuda_build
 from kaolin_tpu_torch.utils.interop import from_numpy_tree
 from tests.torch_parity import ROOT, grid_faces, warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 
 def random_faces(seed, f, scale=0.3):

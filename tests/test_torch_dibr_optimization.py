@@ -21,6 +21,7 @@ from kaolin_tpu.render.mesh.dibr import (
 )
 from kaolin_tpu.render.mesh.rasterization import rasterize as rasterize_jax
 from tests.torch_parity import load_example, warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 
 def _jax_loop(res, iters):

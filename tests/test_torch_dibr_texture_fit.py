@@ -29,6 +29,7 @@ from kaolin_tpu.render.mesh import utils as jutils
 from kaolin_tpu.render.mesh.dibr import _soft_mask_binned
 from kaolin_tpu.render.mesh.rasterization import rasterize as rasterize_jax
 from tests.torch_parity import load_example, warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 RES, STEPS = 64, 5
 SMALL = dict(n_lat=10, n_lon=16, tex=32)

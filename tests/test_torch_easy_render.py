@@ -60,6 +60,7 @@ from tests.torch_parity import (  # noqa: F401
     jax_unoptimized,
     jax_without_contraction,
     load_example,
+    torch_threads_per_worker,
     warm_torch_exp,
 )
 

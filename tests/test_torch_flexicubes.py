@@ -31,6 +31,7 @@ from kaolin_tpu_torch.ops.conversions import FlexiCubes, dense_extract
 from kaolin_tpu_torch.ops.conversions import _mc_tables as mc_port
 from kaolin_tpu_torch.ops.conversions.flexicubes import _tables as tables_port
 from tests.torch_parity import warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 RES = 12
 ATOL, GRAD_TOL = 1e-6, 1e-5

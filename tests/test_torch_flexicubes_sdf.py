@@ -39,6 +39,7 @@ import kaolin_tpu.ops.conversions as conv_jax
 from kaolin_tpu.ops.conversions import FlexiCubes as JaxFlexiCubes
 from kaolin_tpu_torch.utils.interop import dmtet_mlp_from_jax
 from tests.torch_parity import load_example, warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 RES, STEPS, REL = 12, 5, 1e-5
 FX = load_example("torch_flexicubes_sdf")

@@ -34,6 +34,10 @@ from tests.torch_io_parity import (
     double_points,
     host,
 )
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ACT_RTOL = 1e-6

@@ -35,6 +35,10 @@ from tests.torch_io_parity import (
     assert_meshes_equal,
     host,
 )
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GLTF_RTOL = 1e-6

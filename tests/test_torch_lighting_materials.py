@@ -34,6 +34,7 @@ from kaolin_tpu_torch.render.easy_render import (
 from kaolin_tpu_torch.utils import pbr_material_from_jax, sg_lighting_from_jax
 from tests.torch_parity import jax_unoptimized  # noqa: F401
 from tests.torch_parity import warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("jax_unoptimized")
 RTOL, GRAD_TOL = 1e-5, 1e-5

@@ -28,6 +28,7 @@ from kaolin_tpu_torch.ops.mesh import mesh as tmesh
 from kaolin_tpu_torch.ops.mesh import tetmesh as ttet
 from kaolin_tpu_torch.ops.mesh import trianglemesh as ttri
 from tests.torch_parity import load_example, warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -159,7 +160,7 @@ def test_packed_and_padded_round_trips():
           jbatch.packed_simple_sum(jpacked, jspt[:, 0]))
     close(tbatch.tile_to_packed(torch.tensor([1.0, 2.0, 3.0]), spt[:, 0]),
           jbatch.tile_to_packed(jnp.asarray([1.0, 2.0, 3.0]), jspt[:, 0]))
-    equal(tbatch.packed_segment_ids(spt, total=14),
+    equal(tbatch.packed_segment_ids(spt, total=14, device="cpu"),
           jbatch.packed_segment_ids(jspt, total=14))
 
 

@@ -35,6 +35,10 @@ from kaolin_tpu.ops.mesh.check_sign import check_sign as check_sign_jax
 from kaolin_tpu_torch.native import build as nbuild
 from kaolin_tpu_torch.ops.mesh import check_sign
 from kaolin_tpu_torch.ops.spc import unbatched_points_to_octree
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 ROOT_BUILD = nbuild._ROOT / "build" / "kaolin_tpu_torch" / "native"
 

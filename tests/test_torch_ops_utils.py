@@ -36,6 +36,10 @@ import kaolin_tpu_torch.utils.env_vars as tenv
 import kaolin_tpu_torch.utils.testing as ttesting
 from kaolin_tpu_torch.utils import graph_conv_from_jax
 from tests.torch_io_parity import assert_close
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 RTOL, GRAD_TOL = 1e-5, 1e-5
 

@@ -25,6 +25,10 @@ from kaolin_tpu_torch.ops import (
     farthest_point_sampling,
 )
 from tests.torch_parity import load_example
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 train = load_example("torch_simplicits_train")
 

@@ -30,6 +30,10 @@ import torch
 
 from kaolin_tpu_torch.utils import cuda_gather, primitives_bench, profiling
 from tests.torch_parity import ROOT
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 RNG_SEED = 0
 
@@ -167,6 +171,53 @@ def test_table_gather_plain_matches_jax(n_tab, shape):
                                    torch.from_numpy(idx))
     want = _jit_gather()(jnp.asarray(table), jnp.asarray(idx))
     assert got.shape == shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+
+
+# the L2 kernel's index counts: around a group of 4 and around its
+# 1,024-index tile (a block's first tile is read directly; a later tile's
+# whole 16-byte vectors come by bulk copy, the rest by the threads that own
+# them), into a table the L2 route takes
+L2_COUNTS = (1, 3, 4, 5, 7, 8, 9, 1022, 1023, 1024, 1025, 1027, 2047, 2048,
+             2049, 4095, 4096, 4097, 3 * 1024 + 1001)
+
+
+@pytest.mark.parametrize("n_idx", L2_COUNTS)
+def test_table_gather_counts_match_jax(n_idx):
+    """Counts around 4 and around a tile, indices drawn in range, negative
+    and past the end of a 58,113-float table (the smallest the L2 route
+    takes), bitwise against ``jax.jit(lambda t, i: t[i])``."""
+    rng = np.random.RandomState(n_idx)
+    n_tab = cuda_gather.SMEM_MAX_FLOATS + 1
+    assert cuda_gather.gather_route(n_tab) == "l2"
+    table = rng.randn(n_tab).astype(np.float32)
+    idx = rng.randint(-2 * n_tab, 2 * n_tab, n_idx).astype(np.int32)
+    idx[::5] = rng.randint(0, n_tab, idx[::5].shape)
+    idx[-1] = -1 if n_idx % 2 else n_tab
+    got = cuda_gather.table_gather_plain(torch.from_numpy(table),
+                                         torch.from_numpy(idx))
+    want = _jit_gather()(jnp.asarray(table), jnp.asarray(idx))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_table_gather_unaligned_views_match_jax(offset):
+    """Views that start 4, 8 or 12 bytes into their storage (the wrapper
+    copies them to 16-byte-aligned storage on the card) gather as JAX does
+    on the same values."""
+    rng = np.random.RandomState(100 + offset)
+    n_tab = cuda_gather.SMEM_MAX_FLOATS + 1 + offset
+    table = torch.from_numpy(rng.randn(n_tab).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(-n_tab, 2 * n_tab, 2049 + offset)
+                           .astype(np.int32))
+    tv, iv = table[offset:], idx[offset:]
+    assert tv.data_ptr() % 16 != 0 and iv.data_ptr() % 16 != 0
+    assert cuda_gather._aligned(tv).data_ptr() % 16 == 0
+    assert torch.equal(cuda_gather._aligned(tv), tv)
+    got = cuda_gather.table_gather(tv, iv)
+    want = _jit_gather()(jnp.asarray(tv.numpy()), jnp.asarray(iv.numpy()))
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   np.asarray(want).view(np.int32))
 

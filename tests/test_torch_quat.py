@@ -16,6 +16,7 @@ import torch
 import kaolin_tpu.math.quat as jq
 import kaolin_tpu_torch.math.quat as tq
 from tests.torch_parity import warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 ATOL = 1e-6
 
@@ -87,17 +88,37 @@ def test_function_matches_jax(name):
 
 
 def test_identities_and_degrees():
-    close(tq.quat_identity((2, 3)), jq.quat_identity((2, 3)))
-    close(tq.rot33_identity(4), jq.rot33_identity(4))
-    close(tq.translation_identity(2), jq.translation_identity(2))
-    close(tq.euclidean_identity(3), jq.euclidean_identity(3))
-    close(tq.transform_identity(5), jq.transform_identity(5))
+    close(tq.quat_identity((2, 3), device="cpu"), jq.quat_identity((2, 3)))
+    close(tq.rot33_identity(4, device="cpu"), jq.rot33_identity(4))
+    close(tq.translation_identity(2, device="cpu"),
+          jq.translation_identity(2))
+    close(tq.euclidean_identity(3, device="cpu"), jq.euclidean_identity(3))
+    close(tq.transform_identity(5, device="cpu"), jq.transform_identity(5))
     a, x = DATA["angle"] * 50, DATA["axis"]
     close(tq.quat_from_angle_axis(torch.from_numpy(a), torch.from_numpy(x),
                                   is_degree=True),
           jq.quat_from_angle_axis(jnp.asarray(a), jnp.asarray(x),
                                   is_degree=True))
-    assert tq.quat_identity(2).dtype == torch.float32
+    assert tq.quat_identity(2, device="cpu").dtype == torch.float32
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: tq.quat_identity((2, 3), **kw),
+    lambda **kw: tq.rot33_identity(4, **kw),
+    lambda **kw: tq.translation_identity(2, **kw),
+    lambda **kw: tq.euclidean_identity(3, **kw),
+    lambda **kw: tq.transform_identity(5, **kw),
+], ids=["quat", "rot33", "translation", "euclidean", "transform"])
+def test_identities_default_to_the_card(make):
+    """Without ``device`` each constructor makes its tensor on the CUDA
+    device, and raises where there is none: it never falls back to the
+    CPU unasked."""
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            make()
+    assert make(device="cpu").device.type == "cpu"
 
 
 def test_validity_checks_match_jax():

@@ -30,6 +30,7 @@ from kaolin_tpu_torch.utils.interop import from_numpy_tree
 from tests.torch_parity import (  # noqa: F401
     grid_faces,
     load_example,
+    torch_threads_per_worker,
     warm_torch_exp,
 )
 

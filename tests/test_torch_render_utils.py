@@ -30,6 +30,7 @@ from kaolin_tpu_torch.render.mesh import utils as tutils
 from kaolin_tpu_torch.utils.numerics import clip
 from tests.render.golden_corpus import GOLDEN_DIR
 from tests.torch_parity import load_example, warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 ATOL, GRAD_TOL = 1e-6, 1e-5
 RNG = np.random.RandomState(0)
@@ -258,7 +259,7 @@ def test_exports_match_jax():
     assert hasattr(tc, "legacy") and tc.legacy.__name__.endswith("legacy")
 
     # io, its modules, ops and utils.testing: their names, and for a
-    # package its own submodules too (USD is not ported yet)
+    # package its own submodules too
     import kaolin_tpu.io as jio
     import kaolin_tpu.ops as jops
     import kaolin_tpu.utils.testing as jtesting
@@ -266,9 +267,9 @@ def test_exports_match_jax():
     import kaolin_tpu_torch.ops as tops
     import kaolin_tpu_torch.utils.testing as ttesting
     for jmod, tmod, not_ported in (
-            (jio, tio, {"usd"}), (jops, tops, set()),
+            (jio, tio, set()), (jops, tops, set()),
             *((getattr(jio, m), getattr(tio, m), set())
-              for m in ("obj", "gltf", "ply", "utils", "dataset")),
+              for m in ("obj", "gltf", "ply", "utils", "dataset", "usd")),
             (jtesting, ttesting, set())):
         names = {n for n in dir(jmod) if not n.startswith("_") and (
             not isinstance(getattr(jmod, n), type(os))

@@ -36,7 +36,11 @@ from kaolin_tpu.physics.simplicits import SkinnedPhysicsPoints as PointsJax
 from kaolin_tpu_torch.physics.common.optimization import newtons_method
 from kaolin_tpu_torch.physics.simplicits import SimplicitsScene
 from kaolin_tpu_torch.physics.simplicits import simulation
-from tests.torch_parity import ROOT
+from tests.torch_parity import ROOT, load_example, z_converter
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 STEPS = 20
 Z_TOL = 2e-5
@@ -311,23 +315,162 @@ def test_scene_needs_a_device(monkeypatch):
     assert SimplicitsScene(device="cpu").device == torch.device("cpu")
 
 
-def test_collisions_are_not_ported(graft):
-    """Contact is ported (``tests/test_torch_collision_scene.py``) but for
-    padded objects, whose phantom points wait for scene batching (ROADMAP
-    Queue A: parallel/ and scene batching); a scene without forces does not
-    step."""
-    points = graft["points"]
-    padded = simulation.SkinnedPhysicsPoints(
-        pts=points["pts"], yms=1e4, prs=0.45, rhos=500.0, appx_vol=1.0,
-        skinning_weights=points["w"], dwdx=points["dwdx"], num_real_qp=200)
-    scene = SimplicitsScene(device="cpu")
-    scene.add_object(padded)
-    scene.set_scene_gravity()
-    with pytest.raises(NotImplementedError,
-                       match="Queue A: parallel/ and scene batching"):
-        scene.enable_collisions()
+PAD_STEPS = 8
+
+
+def padded_demo_points(seed=3, num_qp=48, kinematic_qp=25):
+    """``make_demo_scene``'s soft body (48 points, 3 handles) and kinematic
+    plate (25 points) from its numpy draws, each padded by the JAX
+    package's ``pad_skinned_physics_points`` (to 80 points and 5 handles,
+    and to 36 points): [(arrays, padded arrays)] as numpy."""
+    from kaolin_tpu.parallel.simplicits import pad_skinned_physics_points
+    rng = np.random.RandomState(seed)
+    pts = rng.uniform(-0.5, 0.5, (num_qp, 3)).astype(np.float32)
+    freqs = rng.randn(3, 2).astype(np.float32)
+    w = np.concatenate([np.sin(pts @ freqs), np.ones((num_qp, 1),
+                                                     np.float32)], axis=1)
+    dwdx = np.zeros((num_qp, 3, 3), np.float32)
+    dwdx[:, :-1, :] = np.cos(pts @ freqs)[:, :, None] * freqs.T[None]
+    g = np.linspace(-0.6, 0.6, 5)
+    gx, gz = np.meshgrid(g, g)
+    kpts = np.stack([gx.ravel(), np.full(25, -0.85), gz.ravel()],
+                    axis=1)[:kinematic_qp].astype(np.float32)
+    soft = dict(pts=pts, yms=1e4, prs=0.45, rhos=500.0, appx_vol=1.0,
+                skinning_weights=w, dwdx=dwdx)
+    plate = dict(pts=kpts, yms=1e5, prs=0.45, rhos=1000.0, appx_vol=0.1,
+                 skinning_weights=np.ones((kinematic_qp, 1), np.float32),
+                 dwdx=np.zeros((kinematic_qp, 1, 3), np.float32))
+    out = []
+    for arrays, qp, handles in ((soft, 80, 5), (plate, 36, 1)):
+        padded = pad_skinned_physics_points(PointsJax(**arrays), qp, handles)
+        out.append((arrays, {
+            "pts": padded.pts, "yms": padded.yms, "prs": padded.prs,
+            "rhos": padded.rhos, "appx_vol": padded.appx_vol,
+            "skinning_weights": padded.skinning_weights,
+            "dwdx": padded.dwdx, "num_real_qp": padded.num_real_qp}))
+    return [(a, {k: v if np.isscalar(v) or v is None else np.array(v)
+                 for k, v in p.items()}) for a, p in out]
+
+
+def demo_with_contact(scene, objects, on_jax):
+    """The demo scene's set-up on ``scene`` from ``objects`` (keyword
+    arrays): the soft body with the QR, the plate kinematic, gravity, a
+    floor and grid contact of radius 0.15 (K = 32, M = 512)."""
+    cls = PointsJax if on_jax else simulation.SkinnedPhysicsPoints
+    for arrays, kin in zip(objects, (False, True)):
+        scene.add_object(cls(**arrays), is_kinematic=kin, apply_qr=not kin,
+                         normalize_weights_by_samples=not kin)
+    scene.set_scene_gravity(jnp.asarray([0.0, 9.8, 0.0]) if on_jax
+                            else (0.0, 9.8, 0.0))
+    scene.set_scene_floor(floor_height=-1.0)
+    scene.enable_collisions(collision_particle_radius=0.15,
+                            max_contact_pairs=512, broad_phase="grid",
+                            cell_capacity=32, max_occupied_cells=512)
+    return scene
+
+
+@pytest.fixture(scope="module")
+def padded():
+    """The padded demo scene in both packages, JAX's states over
+    ``PAD_STEPS`` steps, and the port's unpadded scene."""
+    objs = padded_demo_points()
+    js = demo_with_contact(SceneJax(timestep=0.03, max_newton_steps=3,
+                                    max_ls_steps=5), [p for _, p in objs],
+                           True)
+    ps = demo_with_contact(SimplicitsScene(timestep=0.03, max_newton_steps=3,
+                                           max_ls_steps=5, device="cpu"),
+                           [p for _, p in objs], False)
+    ref = demo_with_contact(SimplicitsScene(timestep=0.03,
+                                            max_newton_steps=3,
+                                            max_ls_steps=5, device="cpu"),
+                            [a for a, _ in objs], False)
+    return {"jax": js, "port": ps, "unpadded": ref,
+            "states": jax_states(js, PAD_STEPS)}
+
+
+def test_collisions_are_not_ported(padded):
+    """Contact of padded objects, which the port once refused, against
+    JAX's padded scene: the soft body's and the plate's phantom points
+    (``num_real_qp``) are left out of detection and of the grid's sizing,
+    and the port's step from JAX's state at each of 8 steps gives B z
+    within 2e-5 of max|B z| of JAX's next state, with the same contact
+    count and no overflow. A scene without forces does not step."""
+    ps, js = padded["port"], padded["jax"]
+    cp = ps.force_dict["collision"]["object"]
+    cj = js.force_dict["collision"]["object"]
+    assert cp.grid_dims == cj.grid_dims
+    np.testing.assert_array_equal(cp.grid_origin, np.asarray(cj.grid_origin))
+    np.testing.assert_array_equal(ps.qp_is_phantom.numpy(),
+                                  np.asarray(js.qp_is_phantom))
+    assert int(ps.qp_is_phantom.sum()) == 32 + 11
+    assert not ps._collision_provably_empty()
+    fn, consts = ps.build_functional_step(with_diag=True)
+    conv = z_converter(ps, js)
+    for s in range(PAD_STEPS):
+        z_in = [conv(x) for x in padded["states"][s]]
+        with torch.no_grad():
+            z1, _, _, flags = fn(consts, *z_in)
+        assert int(flags) == 0
+        assert_z_close(displacement(ps, z1),
+                       displacement(js, padded["states"][s + 1][0]))
     with pytest.raises(RuntimeError, match="Forces"):
         SimplicitsScene(device="cpu").run_sim_step()
+
+
+def test_padded_contact_matches_unpadded(padded):
+    """The port's padded scene with contact steps as the unpadded one: the
+    real points' deformed positions after 8 free steps within the JAX
+    package's own padded-scene tolerance (1e-4 relative, 1e-5 absolute),
+    with contacts found at every step."""
+    import copy
+    ps, ref = copy.deepcopy(padded["port"]), copy.deepcopy(
+        padded["unpadded"])
+    for _ in range(PAD_STEPS):
+        assert int(ps.collision_diagnostics()["num_pairs"]) > 0
+        ps.run_sim_step()
+        ref.run_sim_step()
+    for obj, n in ((0, 48), (1, 25)):
+        np.testing.assert_allclose(
+            ps.get_object_deformed_pts(obj).numpy()[:n],
+            ref.get_object_deformed_pts(obj).numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_padded_contact_diagnostics_match_jax(padded):
+    """The padded scene's diagnostics at JAX's state after each step equal
+    JAX's: the same pair count, and no footprint of the far-away phantom
+    points (no cell overflow, dropped or out-of-bounds point)."""
+    ps, js = padded["port"], padded["jax"]
+    conv = z_converter(ps, js)
+    for s in (0, PAD_STEPS // 2, PAD_STEPS):
+        z = padded["states"][s][0]
+        js.sim_z = jnp.asarray(z)
+        ps.sim_z = conv(z)
+        want = {k: int(v) for k, v in js.collision_diagnostics().items()}
+        got = {k: int(v) for k, v in ps.collision_diagnostics().items()}
+        assert got == want, (s, got, want)
+        assert got["num_pairs"] > 0
+        assert got["cell_overflow"] == got["dropped_points"] == 0
+        assert got["out_of_bounds"] == 0
+    ps.reset_scene()
+    js.reset_scene()
+
+
+def test_example_pads_as_jax(padded):
+    """``examples/torch_collision_stack.py``'s ``pad_points`` (which
+    ``chip_smoke.py`` pads with, as it imports no JAX) gives JAX's padded
+    arrays bit for bit, and its padded demo scene is this module's."""
+    stack = load_example("torch_collision_stack")
+    for arrays, want in padded_demo_points():
+        got = stack.pad_points(arrays, want["pts"].shape[0],
+                               want["skinning_weights"].shape[1])
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            np.testing.assert_array_equal(np.asarray(got[k]), v, err_msg=k)
+    scene = stack.demo_scene("cpu", 3, num_qp=48, kinematic_qp=25,
+                             max_contact_pairs=512, pad=(80, 5, 36))
+    ps = padded["port"]
+    for name in ("sim_pts", "sim_B", "sim_masses", "qp_is_phantom"):
+        assert torch.equal(getattr(scene, name), getattr(ps, name)), name
 
 
 def test_config1_scene_shapes_on_the_cpu():

@@ -59,6 +59,10 @@ from kaolin_tpu_torch.utils.interop import (
     simplicits_rkpm_from_jax,
 )
 from tests.torch_parity import load_example, qr_blocks
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 train_ex = load_example("torch_simplicits_train")
 

@@ -45,6 +45,10 @@ from kaolin_tpu_torch.physics.simplicits.skinning import standard_lbs
 from kaolin_tpu_torch.physics.utils import finite_diff as fd
 from kaolin_tpu_torch.physics.utils import torch_utilities as tu
 from kaolin_tpu_torch.utils.interop import simplicits_mlp_from_jax
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -30,6 +30,7 @@ from kaolin_tpu_torch.ops.spc import exsum_compat
 from kaolin_tpu_torch.rep import Spc
 from kaolin_tpu_torch.utils.interop import spc_conv_params_from_jax
 from tests.torch_parity import load_example, warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 REL, GRAD_TOL = 1e-6, 1e-5
 EX = load_example("torch_spc_raytrace")

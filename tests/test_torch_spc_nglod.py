@@ -21,6 +21,7 @@ from kaolin_tpu.ops import spc as spc_jax
 from kaolin_tpu.render.spc import raytrace as rt_jax
 from kaolin_tpu_torch.utils.interop import nglod_params_from_jax
 from tests.torch_parity import load_example, warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 EX = load_example("torch_spc_raytrace")
 LEVEL, RES, FEAT, HIDDEN = 5, 32, 8, 16

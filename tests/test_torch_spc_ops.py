@@ -15,6 +15,10 @@ import torch
 import kaolin_tpu.native
 from kaolin_tpu.ops import spc as spc_jax
 from kaolin_tpu_torch.ops import spc
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 
 def eq(port, jax_value):

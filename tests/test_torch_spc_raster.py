@@ -52,6 +52,10 @@ from kaolin_tpu_torch.render.spc import (
 )
 from kaolin_tpu_torch.utils.interop import from_numpy_tree
 from tests.torch_parity import ROOT
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 EYES = ([1.4, 1.0, 1.3], [0.1, 2.0, 0.1], [-1.8, -0.4, 0.6])
 

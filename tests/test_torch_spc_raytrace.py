@@ -39,6 +39,7 @@ from kaolin_tpu_torch.render.spc import raytrace as rt
 from tests.render.golden_corpus import GOLDEN_DIR
 from tests.render.test_raytrace import _brute_force_hits
 from tests.torch_parity import load_example, warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 EX = load_example("torch_spc_raytrace")
 REL, GRAD_TOL = 1e-6, 1e-5

@@ -27,6 +27,7 @@ from kaolin_tpu_torch.rep import SurfaceMesh as TMesh
 from kaolin_tpu_torch.utils import surface_mesh_from_jax
 from tests.torch_parity import jax_unoptimized  # noqa: F401
 from tests.torch_parity import warm_torch_exp  # noqa: F401
+from tests.torch_parity import torch_threads_per_worker  # noqa: F401
 
 B = TMesh.Batching
 pytestmark = pytest.mark.usefixtures("jax_unoptimized")

@@ -38,6 +38,10 @@ from kaolin_tpu.render.materials import PBRMaterial as JPBRMaterial
 from kaolin_tpu_torch.io.utils import TextureExporter as TTextureExporter
 from kaolin_tpu_torch.physics.simplicits import training as ttrain
 from kaolin_tpu_torch.render.materials import PBRMaterial as TPBRMaterial
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 RNG = np.random.RandomState(0)
 F32 = np.float32

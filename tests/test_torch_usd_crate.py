@@ -27,6 +27,10 @@ import kaolin_tpu_torch.io.usd as tusd
 import kaolin_tpu_torch.io.usd.core as tcore
 import kaolin_tpu_torch.io.usd.crate as tcrate
 import kaolin_tpu_torch.io.usd.crate_write as tcw
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 RNG = np.random.RandomState(3)
 

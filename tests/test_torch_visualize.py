@@ -33,6 +33,10 @@ import kaolin_tpu_torch.visualize as tvis
 import kaolin_tpu_torch.visualize.ipython as tipy
 from kaolin_tpu.render.camera import Camera as JCamera
 from kaolin_tpu_torch.render.camera import Camera as TCamera
+from tests.torch_parity import (  # noqa: F401
+    torch_threads_per_worker,
+    warm_torch_exp,
+)
 
 RNG = np.random.RandomState(0)
 CAMERA_TOL = 1e-6

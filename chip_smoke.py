@@ -205,10 +205,16 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    the same events); ``phase_usd_timing`` after phase_io_timing);
 7. the table gather's two routes (shared memory, L2) held bit for bit
    against ``table_gather_plain``: the probe's shape, 2^14 and 2^20
-   tables, 58,112 and 58,113 floats (either side of the route rule),
+   tables, 58,110 and 58,111 floats (either side of the route rule),
    negative and out-of-range indices, counts that are not a multiple of 4
    or of the L2 route's 1,024-index tile, 2^22 indices, 4,097, a 64 MB
-   table and unaligned views;
+   table and unaligned views; the shared-memory route's edges (tables of
+   1, 3, 4, 5 and 1,021 floats and its largest, 1 and 3 indices, fewer
+   than one cluster has threads, a grid rounded up to whole clusters with
+   a block that gets no index; each launch's cluster size and blocks
+   printed); then the camera API without ``device`` on the card
+   (``Camera.from_args`` with lists, ``from_lookat`` given an eye on the
+   card, the dicts, grids, bases and projection), equal to its CPU build;
 8. the probe path: ``primitives_bench.main([])`` at its full sizes, counters
    set to 0 before and read after; every probe printed its line, both
    gather routes launched, and ``correct`` is true; then config 1's 150
@@ -268,7 +274,7 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    idle share; the gathers, ``table[idx]`` (``library_ms``) and the plain
    versions at the probe's shapes, cold (a 256 MB fill before each call
    evicts L2; the kernels line takes these) and warm; both gather routes
-   cold and warm on tables of 2^10 to 58,112 floats, to show where the
+   cold and warm on tables of 2^10 to 58,110 floats, to show where the
    route rule belongs;
    the config-1 sim step and the collision_10k step eager and as a graph
    replay, and one training step: device busy, idle share and the largest
@@ -326,7 +332,8 @@ INSIDE_EYE = (0.05, 0.02, 0.04)
 GATHER_IDX = (8192, 128)
 GATHER_TABLES = {"table_gather_l2": 1 << 20, "table_gather_smem": 1 << 14}
 # tables up to the shared-memory route's largest, both routes timed on each
-GATHER_SWEEP = (1 << 10, 1 << 12, 1 << 14, 1 << 15, 40_000, 58_112)
+GATHER_SWEEP = (1 << 10, 1 << 11, 1 << 12, 1 << 13, 1 << 14, 1 << 15, 40_000,
+                58_110)
 # cold readings: a 256 MB scratch filled before each profiled launch evicts
 # the 50 MB L2; the median over the COLD_REPS launches the trace holds
 # whole, at least COLD_MIN of them. A random 4-byte read pulls one
@@ -4463,15 +4470,15 @@ class Smoke:
              self.gather_case(big, GATHER_IDX)),
             (f"{GATHER_IDX}, 2^14 table", self.gather_case(1 << 14,
                                                            GATHER_IDX)),
-            ("58,112 floats, 2^20 indices",
+            (f"{cg.SMEM_MAX_FLOATS:,} floats, 2^20 indices",
              self.gather_case(cg.SMEM_MAX_FLOATS, (big,), seed=1)),
-            ("58,113 floats, 2^20 indices",
+            (f"{cg.SMEM_MAX_FLOATS + 1:,} floats, 2^20 indices",
              self.gather_case(cg.SMEM_MAX_FLOATS + 1, (big,), seed=2)),
             ("2^14 table, indices in [-2^15, 2^14) and past the end",
              self.gather_case(1 << 14, (big,), lo=-(1 << 15), seed=3)),
             ("2^20 table, 1,000,003 indices, negative ones too",
              self.gather_case(big, (1_000_003,), lo=-big, seed=4)),
-            ("58,112 floats, 3 indices", self.gather_case(
+            (f"{cg.SMEM_MAX_FLOATS:,} floats, 3 indices", self.gather_case(
                 cg.SMEM_MAX_FLOATS, (3,), lo=-100, seed=5)),
             ("2^20 table, 2^22 indices (many tiles a block)",
              self.gather_case(big, (1 << 22,), seed=7)),
@@ -4486,13 +4493,14 @@ class Smoke:
         table, idx = self.gather_case(1 << 14, (4099,), lo=-(1 << 14), seed=6)
         cases.append(("unaligned views, 2^14 - 1 floats, 4,098 indices",
                       (table[1:], idx[1:])))
+        cases += self.smem_edge_cases()
         for label, (table, idx) in cases:
             if "past the end" in label:
                 idx = torch.where(idx % 7 == 0, idx + (3 << 14), idx)
             want = cg.table_gather_plain(table, idx)
             route = cg.gather_route(table.shape[0])
             fns = {"table_gather_l2": cg.table_gather_l2_cuda}
-            if route == "smem":
+            if table.shape[0] <= cg.SMEM_MAX_FLOATS:
                 fns["table_gather_smem"] = cg.table_gather_smem_cuda
             for name, fn in fns.items():
                 got = fn(table, idx)
@@ -4509,6 +4517,99 @@ class Smoke:
                        f"table_gather of {table.shape[0]} floats took "
                        f"{took}, the rule says {route}")
         torch.cuda.synchronize()
+
+    def smem_edge_cases(self):
+        """The shared-memory route's edges → [(label, (table, idx))]:
+        tables of 1, 3, 4, 5 and 1,021 floats and the route's largest, 1
+        and 3 indices, fewer indices than one cluster has threads, 4,099
+        indices on a grid rounded up to whole clusters (a block gets no
+        index), negative and past-the-end indices. Prints each launch as
+        ``csrc/gather.cu`` computes it (``cuda_gather.smem_grid``)."""
+        cg, big = self.cg, 1 << 20
+        top = cg.SMEM_MAX_FLOATS
+        cluster, _, threads = cg.smem_grid(1 << 14, 1, self.device)
+        few, rounded = cluster * threads - 5, 4099
+        cases = [
+            ("1 float, 3 indices", self.gather_case(1, (3,), lo=-1,
+                                                    seed=20)),
+            ("3 floats, 1 index", self.gather_case(3, (1,), lo=-3, seed=21)),
+            ("4 floats, 5 indices", self.gather_case(4, (5,), lo=-4,
+                                                     seed=22)),
+            ("5 floats, 4,099 indices", self.gather_case(5, (4099,), lo=-5,
+                                                         seed=23)),
+            (f"1,021 floats (no multiple of {cluster} x 4), 2^20 indices",
+             self.gather_case(1021, (big,), lo=-1021, seed=24)),
+            (f"{top:,} floats (the route's largest), 4,099 indices",
+             self.gather_case(top, (4099,), lo=-top, seed=25)),
+            (f"2^14 table, {few:,} indices (fewer than a cluster's "
+             f"{cluster * threads:,} threads)",
+             self.gather_case(1 << 14, (few,), lo=-(1 << 14), seed=26)),
+            (f"2^14 table, {rounded:,} indices (a grid rounded up to whole "
+             "clusters)",
+             self.gather_case(1 << 14, (rounded,), lo=-(1 << 14), seed=27)),
+        ]
+        out = []
+        for label, (table, idx) in cases:
+            idx = self.torch.where(idx % 7 == 0, idx + 3 * table.shape[0],
+                                   idx)
+            c, blocks, _ = cg.smem_grid(table.shape[0], idx.numel(),
+                                        table.device)
+            # a block's threads take consecutive groups of 4 indices
+            busy = min(blocks, -(-(-(-idx.numel() // 4)) // threads))
+            print(f"shared-memory route [{label}, past-the-end every 7th]:"
+                  f" clusters of {c}, {blocks} blocks launched, {busy} with "
+                  f"indices", flush=True)
+            if "rounded up" in label:
+                self.check(blocks % c == 0 and busy < blocks,
+                           f"{label}: {blocks - busy} of {blocks} blocks get "
+                           "no index")
+            out.append((f"{label}, past the end", (table, idx)))
+        return out
+
+    def phase_camera_defaults(self):
+        """The camera API without ``device`` builds on the card:
+        ``Camera.from_args`` with lists, ``CameraExtrinsics.from_lookat``
+        given an eye on the card, the dicts, grids, bases and the legacy
+        projection; each equal to its CPU build (``device="cpu"``)."""
+        torch = self.torch
+        from kaolin_tpu_torch.render import camera as tc
+        eye, at, up = [2.0, 1.0, 2.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]
+        args = dict(eye=eye, at=at, up=up, fov=0.9, width=64, height=48)
+        cam, cam_cpu = (tc.Camera.from_args(**args),
+                        tc.Camera.from_args(**args, device="cpu"))
+        made = {
+            "Camera.from_args, lists": (
+                (cam.extrinsics.params, cam.intrinsics.params),
+                (cam_cpu.extrinsics.params, cam_cpu.intrinsics.params)),
+            "CameraExtrinsics.from_lookat, eye on the card": (
+                tc.CameraExtrinsics.from_lookat(
+                    torch.tensor(eye, device="cuda"), at, up).params,
+                tc.CameraExtrinsics.from_lookat(eye, at, up,
+                                                device="cpu").params),
+            "Camera.from_dict": (
+                tc.Camera.from_dict(cam_cpu.to_dict()).extrinsics.params,
+                cam_cpu.extrinsics.params),
+            "PinholeIntrinsics.from_fov": (
+                tc.PinholeIntrinsics.from_fov(64, 48, 0.9).params,
+                cam_cpu.intrinsics.params),
+            "generate_centered_pixel_coords": (
+                tc.generate_centered_pixel_coords(64, 48),
+                tc.generate_centered_pixel_coords(64, 48, device="cpu")),
+            "blender_coords": (tc.blender_coords(),
+                               tc.blender_coords(device="cpu")),
+            "generate_perspective_projection": (
+                tc.generate_perspective_projection(0.9),
+                tc.generate_perspective_projection(0.9, device="cpu")),
+        }
+        for label, (got, want) in made.items():
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            on_card = all(g.is_cuda for g in got)
+            same = all(torch.allclose(g.cpu(), w, rtol=0, atol=1e-6)
+                       for g, w in zip(got, want))
+            self.check(on_card and same, f"camera without device, {label}: "
+                       f"on the card {on_card}, equal to the CPU's within "
+                       f"1e-6 {same}")
 
     # -- the Simplicits sim step ------------------------------------------
     def check_precision(self, label):
@@ -5891,19 +5992,50 @@ class Smoke:
 
     def gather_sweep(self):
         """Both routes, cold and warm, on every table the shared-memory
-        route can hold: where they cross cold is where the route rule
-        belongs."""
+        route can hold, in three turns (shared memory first, then L2
+        first, then shared memory first); a route's cold time is the median
+        of its turns' cold readings. Printed beside it, the median leaving
+        out any cold reading below the same turn's warm one (a trace in
+        which the flush may not have held), and where the two medians
+        disagree on the faster route. Where the routes cross cold (by the
+        plain median) is where the route rule belongs."""
+        faster = {}
         for n_tab in GATHER_SWEEP:
             table, idx = self.gather_case(n_tab, GATHER_IDX)
-            ms = self.gather_readings(
-                f"route sweep, {n_tab} floats",
-                {name: lambda fn=self.counters()[name]: fn(table, idx)
-                 for name in GATHER_KERNELS})
-            cold = {k: c for k, (c, _) in ms.items()}
+            fns = {name: lambda fn=self.counters()[name]: fn(table, idx)
+                   for name in GATHER_KERNELS}
+            turns = [self.gather_readings(
+                f"route sweep, {n_tab} floats, turn {k}",
+                dict(sorted(fns.items(), reverse=k % 2 == 1)))
+                for k in range(3)]
+            cold, kept = {}, {}
+            for name in fns:
+                readings = [t[name] for t in turns]
+                cold[name] = statistics.median(c for c, _ in readings)
+                kept[name] = statistics.median(
+                    [c for c, w in readings if c >= w]
+                    or [c for c, _ in readings])
+                print(f"route sweep, {n_tab} floats, {name}: cold median "
+                      f"{cold[name]}, leaving out cold below warm "
+                      f"{kept[name]} ({sum(c < w for c, w in readings)} "
+                      f"of {len(readings)} left out) [{self.card}]",
+                      flush=True)
+            ratio = cold["table_gather_l2"] / cold["table_gather_smem"]
+            kept_ratio = kept["table_gather_l2"] / kept["table_gather_smem"]
+            faster[n_tab] = "smem" if ratio >= 1 else "l2"
             print(f"route sweep, {n_tab} floats: cold, the L2 route is "
-                  f"{cold['table_gather_l2'] / cold['table_gather_smem']:.3f}"
-                  f" x the shared-memory route (the rule takes "
-                  f"{self.cg.gather_route(n_tab)}) [{self.card}]")
+                  f"{ratio:.3f} x the shared-memory route ({kept_ratio:.3f} "
+                  f"leaving out cold below warm"
+                  + ("; the two disagree on the faster route"
+                     if (kept_ratio >= 1) != (ratio >= 1) else "")
+                  + f"; the rule takes {self.cg.gather_route(n_tab)}) "
+                  f"[{self.card}]", flush=True)
+        wins = [n for n in GATHER_SWEEP
+                if all(faster[m] == "smem" for m in GATHER_SWEEP if m >= n)]
+        print(f"route sweep: cold, the shared-memory route is no slower "
+              f"from {min(wins, default=None)} floats up to "
+              f"{max(GATHER_SWEEP)}; the rule takes it up to "
+              f"{self.cg.SMEM_MAX_FLOATS} [{self.card}]")
 
     def cold_ms(self, label, fn, reps=COLD_REPS, attempts=5):
         """Device ms of one call of ``fn`` with L2 cold: a 256 MB scratch
@@ -6276,7 +6408,8 @@ class Smoke:
     def run(self):
         for phase in (self.phase_card, self.phase_build, self.phase_parity,
                       self.phase_spc_parity, self.phase_gather_parity,
-                      self.phase_sim_parity, self.phase_collision_parity,
+                      self.phase_camera_defaults, self.phase_sim_parity,
+                      self.phase_collision_parity,
                       self.phase_train_parity, self.phase_texfit_parity,
                       self.phase_main_path, self.phase_texfit_path,
                       self.phase_tutorials,

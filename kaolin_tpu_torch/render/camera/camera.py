@@ -17,11 +17,9 @@ from kaolin_tpu_torch.render.camera.intrinsics import (
     PinholeIntrinsics,
 )
 from kaolin_tpu_torch.render.camera.raygen import generate_rays
+from kaolin_tpu_torch.utils.backend import resolve_device
 
 __all__ = ["Camera", "allclose"]
-
-_EXTRINSICS_TENSORS = ("eye", "view_matrix", "cam_pos")
-
 
 class Camera:
     """Batched camera. Construct with :meth:`from_args`."""
@@ -43,16 +41,13 @@ class Camera:
             Camera.from_args(eye=..., at=..., up=..., fov_distance=1.0,
                              width=..., height=...)
 
-        ``device`` places the parameters; where it is not given, they go
-        where the eye, view matrix or camera position tensor lies, else on
-        the CPU. ``dtype`` defaults to float32.
+        ``device`` places the parameters; where it is not given, the
+        extrinsics go where their first tensor argument lies, else on the
+        CUDA device (raising without one), and the intrinsics follow them.
+        ``dtype`` defaults to float32.
         """
         dtype = kwargs.pop("dtype", torch.float32)
         device = kwargs.pop("device", None)
-        if device is None:
-            given = [kwargs[k] for k in _EXTRINSICS_TENSORS
-                     if isinstance(kwargs.get(k), torch.Tensor)]
-            device = given[0].device if given else torch.device("cpu")
         backend = kwargs.pop("backend", "matrix_se3")
         if "extrinsics" in kwargs:
             extrinsics = kwargs.pop("extrinsics")
@@ -70,6 +65,8 @@ class Camera:
                 device=device, backend=backend)
         else:
             raise ValueError("no valid extrinsics args given")
+        if device is None:
+            device = extrinsics.device
 
         if "intrinsics" in kwargs:
             intrinsics = kwargs.pop("intrinsics")
@@ -172,9 +169,12 @@ class Camera:
                 "intrinsics": self.intrinsics.as_dict()}
 
     @classmethod
-    def from_dict(cls, d, dtype=torch.float32, device="cpu"):
+    def from_dict(cls, d, dtype=torch.float32, device=None):
+        """The camera :meth:`to_dict` wrote, on ``device`` (the CUDA device
+        unless one is given)."""
         if d.get("classname") != "Camera":
             raise ValueError(f"not a Camera dict: {d.get('classname')}")
+        device = resolve_device(device, "Camera.from_dict")
         return cls(CameraExtrinsics.from_dict(d["extrinsics"], dtype=dtype,
                                               device=device),
                    CameraIntrinsics.from_dict(d["intrinsics"], dtype=dtype,

@@ -4,15 +4,21 @@ right-handed cartesian, Y up, Z out of the screen."""
 
 import torch
 
+from kaolin_tpu_torch.utils.backend import resolve_device
+
 __all__ = ["blender_coords", "opengl_coords"]
 
 
-def blender_coords(device="cpu"):
-    """Right-handed, Z up."""
+def blender_coords(device=None):
+    """Right-handed, Z up; on ``device`` (the CUDA device unless one is
+    given)."""
     return torch.tensor([[1, 0, 0], [0, 0, 1], [0, -1, 0]],
-                        dtype=torch.float32, device=device)
+                        dtype=torch.float32,
+                        device=resolve_device(device, "blender_coords"))
 
 
-def opengl_coords(device="cpu"):
-    """Right-handed, Y up (the identity against the default)."""
-    return torch.eye(3, dtype=torch.float32, device=device)
+def opengl_coords(device=None):
+    """Right-handed, Y up (the identity against the default); on
+    ``device`` (the CUDA device unless one is given)."""
+    return torch.eye(3, dtype=torch.float32,
+                     device=resolve_device(device, "opengl_coords"))

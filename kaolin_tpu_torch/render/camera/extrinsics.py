@@ -12,9 +12,12 @@ Counterpart of ``kaolin_tpu/render/camera/extrinsics.py``. ``params`` is a
   :func:`~kaolin_tpu_torch.render.camera.extrinsics_backends.register_backend`.
 
 Every method that changes the camera returns a new object, as in the JAX
-package. :meth:`CameraExtrinsics.parameters` is the params tensor itself:
-make it require grad, and gradients of anything computed from the camera
-reach it.
+package. A constructor places the params on ``device`` where it is given,
+else where its first tensor argument lies, else on the CUDA device (and
+raises without one): never on the CPU unasked.
+:meth:`CameraExtrinsics.parameters` is the params tensor itself: make it
+require grad, and gradients of anything computed from the camera reach
+it.
 """
 
 import numpy as np
@@ -24,6 +27,11 @@ from kaolin_tpu_torch.render.camera.extrinsics_backends import (
     _BACKEND_REGISTRY,
     ExtrinsicsParamsDefEnum,
     get_backend,
+)
+from kaolin_tpu_torch.utils.backend import (
+    first_tensor,
+    input_device,
+    resolve_device,
 )
 from kaolin_tpu_torch.utils.numerics import clip
 
@@ -73,10 +81,12 @@ class CameraExtrinsics:
         return cls(params, backend=backend)
 
     @classmethod
-    def from_lookat(cls, eye, at, up, dtype=torch.float32, device="cpu",
+    def from_lookat(cls, eye, at, up, dtype=torch.float32, device=None,
                     backend="matrix_se3"):
         """glm-compatible right-handed look-at, in the JAX package's op
         order."""
+        device = input_device(first_tensor(eye, at, up), device,
+                              "CameraExtrinsics.from_lookat")
         eye = _to_batched_3(eye, dtype, device)
         at = _to_batched_3(at, dtype, device)
         up = _to_batched_3(up, dtype, device)
@@ -92,9 +102,11 @@ class CameraExtrinsics:
 
     @classmethod
     def from_camera_pose(cls, cam_pos, cam_dir, dtype=torch.float32,
-                         device="cpu", backend="matrix_se3"):
+                         device=None, backend="matrix_se3"):
         """From the camera's world position (C, 3) and its orientation
         (C, 3, 3), the camera axes as columns in world space."""
+        device = input_device(first_tensor(cam_pos, cam_dir), device,
+                              "CameraExtrinsics.from_camera_pose")
         cam_pos = _to_batched_3(cam_pos, dtype, device)
         cam_dir = torch.as_tensor(cam_dir, dtype=dtype, device=device)
         if cam_dir.dim() == 2:
@@ -104,9 +116,11 @@ class CameraExtrinsics:
         return cls._from_R_t(R, t, backend)
 
     @classmethod
-    def from_view_matrix(cls, view_matrix, dtype=torch.float32, device="cpu",
+    def from_view_matrix(cls, view_matrix, dtype=torch.float32, device=None,
                          backend="matrix_se3"):
         """From a (C, 4, 4) world → camera matrix."""
+        device = input_device(view_matrix, device,
+                              "CameraExtrinsics.from_view_matrix")
         m = torch.as_tensor(view_matrix, dtype=dtype, device=device)
         if m.dim() == 2:
             m = m[None]
@@ -379,10 +393,11 @@ class CameraExtrinsics:
         return self.to_dict()
 
     @classmethod
-    def from_dict(cls, d, dtype=torch.float32, device="cpu"):
+    def from_dict(cls, d, dtype=torch.float32, device=None):
         if d.get("classname") != "CameraExtrinsics":
             raise ValueError(
                 f"not a CameraExtrinsics dict: {d.get('classname')}")
+        device = resolve_device(device, "CameraExtrinsics.from_dict")
         bc = d.get("base_change")
         if bc is not None:
             bc = tuple(tuple(float(x) for x in row) for row in bc)

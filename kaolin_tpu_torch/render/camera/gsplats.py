@@ -17,6 +17,7 @@ import torch
 from kaolin_tpu_torch.ops.spc.points import host
 from kaolin_tpu_torch.render.camera.camera import Camera
 from kaolin_tpu_torch.render.camera.intrinsics import CameraFOV
+from kaolin_tpu_torch.utils.backend import input_device
 
 __all__ = [
     "kaolin_camera_to_gsplat_inria",
@@ -55,9 +56,10 @@ def kaolin_camera_to_gsplat_inria(kal_camera, gs_cam_cls=None):
 
 
 def gsplat_inria_camera_to_kaolin(gs_camera):
-    """INRIA gaussian-splats camera → Camera. Accepts either the INRIA class
-    or a dict with world_view_transform / image sizes / FoVy.
-    Ref ``gsplats_inria.py:88``."""
+    """INRIA gaussian-splats camera → Camera on the device of its
+    world_view_transform when that is a tensor, else on the CUDA device.
+    Accepts either the INRIA class or a dict with world_view_transform /
+    image sizes / FoVy. Ref ``gsplats_inria.py:88``."""
     if isinstance(gs_camera, dict):
         wvt = gs_camera["world_view_transform"]
         width = gs_camera["image_width"]
@@ -68,7 +70,7 @@ def gsplat_inria_camera_to_kaolin(gs_camera):
         width = gs_camera.image_width
         height = gs_camera.image_height
         fovy = gs_camera.FoVy
-    device = wvt.device if isinstance(wvt, torch.Tensor) else None
+    device = input_device(wvt, None, "gsplat_inria_camera_to_kaolin")
     view_mat = host(wvt).T.copy()
     view_mat[1:3] = -view_mat[1:3]
     return Camera.from_args(view_matrix=torch.from_numpy(view_mat)[None],
@@ -101,10 +103,12 @@ def gsplat_nerfstudio_camera_to_kaolin(Ks, viewmats, width=None, height=None,
                                        camera_model="pinhole",
                                        near_plane=1e-2, far_plane=1e2):
     """nerfstudio-gsplat (Ks, viewmats) → Camera on the device of
-    ``viewmats`` when it is a tensor. Ref ``gsplats_nerfstudio.py:86``."""
+    ``viewmats`` when it is a tensor, else on the CUDA device. Ref
+    ``gsplats_nerfstudio.py:86``."""
     if camera_model != "pinhole":
         raise RuntimeError("only pinhole cameras are supported")
-    device = viewmats.device if isinstance(viewmats, torch.Tensor) else None
+    device = input_device(viewmats, None,
+                          "gsplat_nerfstudio_camera_to_kaolin")
     Ks = torch.as_tensor(host(Ks))
     viewmats = torch.as_tensor(host(viewmats))
     if Ks.ndim == 2:

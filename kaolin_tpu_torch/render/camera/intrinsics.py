@@ -15,6 +15,11 @@ import math
 
 import torch
 
+from kaolin_tpu_torch.utils.backend import (
+    first_tensor,
+    input_device,
+    resolve_device,
+)
 from kaolin_tpu_torch.utils.numerics import clip
 
 __all__ = [
@@ -203,13 +208,15 @@ class CameraIntrinsics:
                 "params": self.params.detach().cpu().tolist()}
 
     @staticmethod
-    def from_dict(in_dict, dtype=torch.float32, device="cpu"):
-        """The subclass that :meth:`as_dict` names, rebuilt."""
+    def from_dict(in_dict, dtype=torch.float32, device=None):
+        """The subclass that :meth:`as_dict` names, rebuilt on ``device``
+        (the CUDA device unless one is given)."""
         registry = {c.__name__: c for c in CameraIntrinsics.__subclasses__()}
         name = in_dict.get("classname")
         if name not in registry:
             raise ValueError(f"classname {name!r} not a registered "
                              f"CameraIntrinsics subclass: {sorted(registry)}")
+        device = resolve_device(device, "CameraIntrinsics.from_dict")
         return registry[name](
             in_dict["width"], in_dict["height"],
             torch.tensor(in_dict["params"], dtype=dtype, device=device),
@@ -225,7 +232,11 @@ class PinholeIntrinsics(CameraIntrinsics):
     @classmethod
     def from_focal(cls, width, height, focal_x, focal_y=None, x0=0.0,
                    y0=0.0, near=DEFAULT_NEAR, far=DEFAULT_FAR, num_cameras=1,
-                   dtype=torch.float32, device="cpu"):
+                   dtype=torch.float32, device=None):
+        """Params on ``device``, else where the first tensor among the focal
+        lengths and the principal point lies, else on the CUDA device."""
+        device = input_device(first_tensor(focal_x, focal_y, x0, y0), device,
+                              "PinholeIntrinsics.from_focal")
         focal_y = focal_x if focal_y is None else focal_y
         return cls(width, height,
                    _params([x0, y0, focal_x, focal_y], num_cameras, dtype,
@@ -234,8 +245,10 @@ class PinholeIntrinsics(CameraIntrinsics):
     @classmethod
     def from_fov(cls, width, height, fov, fov_direction=CameraFOV.VERTICAL,
                  x0=0.0, y0=0.0, near=DEFAULT_NEAR, far=DEFAULT_FAR,
-                 num_cameras=1, dtype=torch.float32, device="cpu"):
-        """``fov`` in radians."""
+                 num_cameras=1, dtype=torch.float32, device=None):
+        """``fov`` in radians; params on ``device``, else on the CUDA
+        device."""
+        device = resolve_device(device, "PinholeIntrinsics.from_fov")
         tan_half = math.tan(fov / 2.0)
         half = width / 2.0 if fov_direction is CameraFOV.HORIZONTAL \
             else height / 2.0
@@ -343,7 +356,11 @@ class OrthographicIntrinsics(CameraIntrinsics):
     @classmethod
     def from_frustum(cls, width, height, fov_distance=1.0, near=DEFAULT_NEAR,
                      far=DEFAULT_FAR, num_cameras=1, dtype=torch.float32,
-                     device="cpu"):
+                     device=None):
+        """Params on ``device``, else where ``fov_distance`` lies when it
+        is a tensor, else on the CUDA device."""
+        device = input_device(fov_distance, device,
+                              "OrthographicIntrinsics.from_frustum")
         return cls(width, height,
                    _params([fov_distance], num_cameras, dtype, device), near,
                    far)

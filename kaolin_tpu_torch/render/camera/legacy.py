@@ -5,6 +5,8 @@ import math
 
 import torch
 
+from kaolin_tpu_torch.utils.backend import resolve_device
+
 __all__ = [
     "rotate_translate_points",
     "generate_rotate_translate_matrices",
@@ -56,9 +58,11 @@ def perspective_camera(points, camera_proj):
 
 
 def generate_perspective_projection(fovyangle, ratio=1.0,
-                                    dtype=torch.float32, device="cpu"):
+                                    dtype=torch.float32, device=None):
     """The (3, 1) projection vector of a vertical field of view
-    ``fovyangle`` (radians)."""
+    ``fovyangle`` (radians), on ``device`` (the CUDA device unless one is
+    given)."""
+    device = resolve_device(device, "generate_perspective_projection")
     tanfov = math.tan(fovyangle / 2.0)
     return torch.tensor([[1.0 / (ratio * tanfov)], [1.0 / tanfov], [-1.0]],
                         dtype=dtype, device=device)

@@ -9,15 +9,17 @@ import numpy as np
 import torch
 
 from kaolin_tpu_torch.ops.spc.points import host
+from kaolin_tpu_torch.utils.backend import resolve_device
 
 __all__ = ["polyscope_camera_to_kaolin", "kaolin_camera_to_polyscope"]
 
 
 def polyscope_camera_to_kaolin(ps_camera, width, height, near=1e-2, far=1e2,
                                dtype=None, device=None):
-    """polyscope.core.CameraParameters → Camera on ``device`` (None: as
-    ``Camera.from_args`` places it). Ref :28."""
+    """polyscope.core.CameraParameters → Camera on ``device`` (the CUDA
+    device unless one is given). Ref :28."""
     from kaolin_tpu_torch.render.camera.camera import Camera
+    device = resolve_device(device, "polyscope_camera_to_kaolin")
     return Camera.from_args(
         view_matrix=torch.as_tensor(np.asarray(ps_camera.get_view_mat())),
         fov=np.deg2rad(ps_camera.get_fov_vertical_deg()),

@@ -7,6 +7,7 @@ order.
 import torch
 
 from kaolin_tpu_torch.render.camera.intrinsics import CameraFOV
+from kaolin_tpu_torch.utils.backend import resolve_device
 
 __all__ = [
     "generate_default_grid",
@@ -18,17 +19,21 @@ __all__ = [
 ]
 
 
-def generate_default_grid(width, height, dtype=torch.float32, device="cpu"):
+def generate_default_grid(width, height, dtype=torch.float32, device=None):
     """Pixel-corner grid → (pixel_y, pixel_x), each of shape
-    (height, width)."""
+    (height, width), on ``device`` (the CUDA device unless one is
+    given)."""
+    device = resolve_device(device, "generate_default_grid")
     h = torch.arange(height, dtype=dtype, device=device)
     w = torch.arange(width, dtype=dtype, device=device)
     return torch.meshgrid(h, w, indexing="ij")
 
 
 def generate_centered_pixel_coords(img_width, img_height, dtype=torch.float32,
-                                   device="cpu"):
-    """Pixel-centre grid → (pixel_y, pixel_x)."""
+                                   device=None):
+    """Pixel-centre grid → (pixel_y, pixel_x), on ``device`` (the CUDA
+    device unless one is given)."""
+    device = resolve_device(device, "generate_centered_pixel_coords")
     pixel_y, pixel_x = generate_default_grid(img_width, img_height, dtype,
                                              device)
     return pixel_y + 0.5, pixel_x + 0.5
@@ -36,8 +41,11 @@ def generate_centered_pixel_coords(img_width, img_height, dtype=torch.float32,
 
 def generate_centered_custom_resolution_pixel_coords(
         img_width, img_height, res_x=None, res_y=None, dtype=torch.float32,
-        device="cpu"):
-    """Pixel-centre grid at a custom resolution → (pixel_y, pixel_x)."""
+        device=None):
+    """Pixel-centre grid at a custom resolution → (pixel_y, pixel_x), on
+    ``device`` (the CUDA device unless one is given)."""
+    device = resolve_device(
+        device, "generate_centered_custom_resolution_pixel_coords")
     res_x = img_width if res_x is None else res_x
     res_y = img_height if res_y is None else res_y
     scale_x = img_width / res_x

@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from kaolin_tpu_torch.utils.backend import input_device
+from kaolin_tpu_torch.utils.backend import first_tensor, input_device
 from kaolin_tpu_torch.utils.numerics import clip
 
 __all__ = [
@@ -34,10 +34,6 @@ __all__ = [
 ]
 
 
-def _first_tensor(*values):
-    return next((v for v in values if isinstance(v, torch.Tensor)), None)
-
-
 def _to_arr(val, shape, device):
     return torch.as_tensor(val, dtype=torch.float32,
                            device=device).broadcast_to(shape)
@@ -53,7 +49,7 @@ class SgLightingParameters:
 
     def __init__(self, amplitude=3.0, direction=(1.0, 0.0, 0.0),
                  sharpness=5.0, device=None):
-        device = input_device(_first_tensor(direction, amplitude, sharpness),
+        device = input_device(first_tensor(direction, amplitude, sharpness),
                               device, "SgLightingParameters")
         direction = torch.atleast_2d(torch.as_tensor(
             direction, dtype=torch.float32, device=device))
@@ -68,8 +64,8 @@ class SgLightingParameters:
                  device=None):
         """Lobes from sun directions, strengths, angular sizes and
         colors."""
-        device = input_device(_first_tensor(direction, strength, angle,
-                                            color), device,
+        device = input_device(first_tensor(direction, strength, angle,
+                                           color), device,
                               "SgLightingParameters.from_sun")
         direction = torch.atleast_2d(torch.as_tensor(
             direction, dtype=torch.float32, device=device))
@@ -141,7 +137,7 @@ def sg_direction_from_azimuth_elevation(azimuth, elevation, device=None):
     """y-up direction (n, 3) from angles (n,). Numbers are made into
     tensors on ``device``, else on the device of a tensor given, else on
     the CUDA device."""
-    device = input_device(_first_tensor(azimuth, elevation), device,
+    device = input_device(first_tensor(azimuth, elevation), device,
                           "sg_direction_from_azimuth_elevation")
     azimuth = torch.atleast_1d(torch.as_tensor(azimuth, dtype=torch.float32,
                                                device=device))

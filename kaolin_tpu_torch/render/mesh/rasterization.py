@@ -194,7 +194,7 @@ def tile_face_lists(face_vertices_image, height, width, multiplier,
     return lists
 
 
-def tile_rects(height, width, tile_px, multiplier, device="cpu"):
+def tile_rects(height, width, tile_px, multiplier, device):
     """The JAX package's per-tile pixel-centre extents in kernel coords
     → (x_lo, x_hi) (W/tile_px,) and (y_lo, y_hi) (H/tile_px,)."""
     i0 = torch.arange(width // tile_px, device=device) * tile_px

@@ -29,6 +29,11 @@ def resolve_device(device, what):
     return torch.device("cuda")
 
 
+def first_tensor(*values):
+    """The first of ``values`` that is a tensor, else None."""
+    return next((v for v in values if isinstance(v, torch.Tensor)), None)
+
+
 def input_device(x, device, what):
     """``device`` if given, else the device of ``x`` when it is a tensor,
     else the CUDA device (:func:`resolve_device`): an entry point given

@@ -15,13 +15,42 @@
 // 227 KB of shared memory (232,448 bytes), so the TPU's 4 MB table cannot be
 // held by one block, nor by a 16-block cluster (about 3.6 MB). Hence:
 //
-// * gather_smem_kernel, for a table of at most 58,112 floats: the counterpart
-//   of "the table lives on chip". A persistent grid of one or two blocks per
-//   SM; each block stages the whole table in dynamic shared memory once with
-//   16-byte loads, then walks the index array with a grid stride: one int4 of
-//   indices, four shared-memory reads, one float4 store; the last n % 4
-//   indices by one thread. Device memory then sees only the 8 bytes per
-//   element (plus the table once per block, from L2 after the first block).
+// * gather_smem_kernel, for a table of at most 58,110 floats (232,440
+//   bytes, 8-byte aligned, beside its 8-byte mbarrier: one block's opt-in
+//   shared memory): the counterpart of "the table lives on chip". The grid
+//   is whole clusters of kSmemCluster blocks, as many as the indices need,
+//   at most kSmemBlocksPerSm blocks an SM and the clusters that fit the
+//   card at once (cudaOccupancyMaxActiveClusters), at least one. The table
+//   is staged once a cluster, not once a block: each block's thread 0
+//   copies its 1/kSmemCluster of the table's whole 16-byte vectors by one
+//   bulk copy multicast to every block of the cluster (cp.async.bulk ...
+//   .multicast::cluster), and each block's mbarrier expects the whole
+//   table's bytes. The last n_tab % 4 floats come by ordinary loads from one
+//   thread, which then arrives on the same mbarrier. Every thread issues
+//   its first batch of kSmemVecs int4 of indices (streaming loads) before
+//   it waits for the table, then walks its groups of 4 indices with a grid
+//   stride, issuing each next batch before the shared-memory lookups of
+//   the current one; streaming float4 stores; the last n % 4 indices are
+//   masked by the thread that owns that group. The hazards: the mbarrier
+//   is initialised and its expect-tx posted, then fence.mbarrier_init and a
+//   release / acquire cluster barrier, before any block copies into a peer;
+//   every block of a cluster takes part in the copies and both cluster
+//   barriers, one without indices too; the kernel ends on a cluster
+//   barrier (arrived at when the block's table has landed), so no block
+//   leaves while a peer's copy into it can be in flight. The first design
+//   copied the whole table into every block with 16-byte loads and read
+//   no index before that copy was done: 264 blocks x 64 KB = 16.9 MB from
+//   L2 at the probe's 2^14 table, twice the gather's own 8.45 MB.
+//   Settled on the card (scripts/gather_variants.py --route smem rebuilds
+//   the kernel with each choice turned the other way and times it, PERF.md
+//   has the numbers): clusters of 4 (without a cluster, plain bulk copies,
+//   every block asks L2 for the same lines at once and loses at 2^14
+//   floats; clusters of 2 lose, of 8 tie), two blocks of
+//   512 threads an SM, two int4 in flight a thread (one loses; four, one
+//   block an SM and one 1,024-thread block an SM tie or lose at 2^14 and
+//   win by about 5% only on the largest tables, where one block an SM
+//   fits and a cluster of 4 can leave SMs idle), streaming index loads
+//   and stores (__ldg and plain stores tie).
 // * gather_l2_kernel, for any other table: the table stays in device memory
 //   and L2 (50 MB) serves the random reads. The first design (one
 //   thread per 4 indices, one wave of 262,144 threads, __ldg) ran as one
@@ -63,6 +92,11 @@
 //   they save at 2^20); a cluster holding the table in distributed shared
 //   memory (16 x 227 KB = 3.6 MB < 4 MB, and staging it in 8 clusters would
 //   read 29 MB from L2).
+// Left out of the shared-memory route: a table split across a cluster's
+// blocks and read through distributed shared memory (it would raise the
+// size limit C-fold, but (C - 1) / C of the lookups would be remote reads
+// across the SM-to-SM network); the tensor form of TMA (a 1-D table needs
+// no tensor map).
 //
 // The wrapper passes 16-byte-aligned table, index and output pointers.
 
@@ -70,10 +104,12 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
 
-constexpr int kSmemThreads = 512;
 constexpr int kL2Threads = 256;
 
 __device__ __forceinline__ int wrap_clamp(int i, int n) {
@@ -81,51 +117,24 @@ __device__ __forceinline__ int wrap_clamp(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-__global__ void __launch_bounds__(kSmemThreads)
-gather_smem_kernel(const float* __restrict__ table,  // (n_tab,)
-                   const int* __restrict__ idx,      // (n,)
-                   float* __restrict__ out,          // (n,)
-                   int n_tab, long long n) {
-  extern __shared__ float4 s_tab4[];
-  float* s_tab = reinterpret_cast<float*>(s_tab4);
-  const int n_vec = n_tab / 4;
-  const float4* table4 = reinterpret_cast<const float4*>(table);
-  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
-    s_tab4[i] = __ldg(table4 + i);
-  }
-  for (int i = 4 * n_vec + threadIdx.x; i < n_tab; i += blockDim.x) {
-    s_tab[i] = __ldg(table + i);
-  }
-  __syncthreads();
-
-  const long long groups = n / 4;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const int4* idx4 = reinterpret_cast<const int4*>(idx);
-  float4* out4 = reinterpret_cast<float4*>(out);
-  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       g < groups; g += stride) {
-    const int4 q = __ldg(idx4 + g);
-    out4[g] = make_float4(s_tab[wrap_clamp(q.x, n_tab)],
-                          s_tab[wrap_clamp(q.y, n_tab)],
-                          s_tab[wrap_clamp(q.z, n_tab)],
-                          s_tab[wrap_clamp(q.w, n_tab)]);
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    for (long long i = 4 * groups; i < n; ++i) {
-      out[i] = s_tab[wrap_clamp(idx[i], n_tab)];
-    }
-  }
-}
-
-// --- the L2 route's PTX: mbarriers, bulk copies, cache policies ----------
+// --- PTX: mbarriers, bulk copies, clusters ---------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+// An mbarrier whose phase completes after `count` arrivals (and the bytes
+// they expect).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
                : "memory");
 }
 
@@ -163,6 +172,39 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// The same copy into this offset of every block of the cluster named in
+// `mask`, completing on each one's mbarrier at `bar`'s offset.
+__device__ __forceinline__ void bulk_copy_multicast(void* dst, const void* src,
+                                                    uint32_t bytes,
+                                                    uint64_t* bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+// An arrival that publishes nothing: what it signals (this block's table
+// has landed) the mbarrier has already ordered.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
                "r"(bytes)
@@ -188,6 +230,124 @@ __device__ __forceinline__ uint64_t policy_evict_normal() {
   asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n"
                : "=l"(p));
   return p;
+}
+
+constexpr int kSmemCluster = 4;      // blocks a cluster, staging one table
+constexpr int kSmemBlocksPerSm = 2;  // at most
+constexpr int kSmemThreads = 512;
+constexpr int kSmemVecs = 2;     // int4 of indices a batch, a thread
+constexpr int kTailThread = 32;  // loads the table's last n_tab % 4 floats
+static_assert(kTailThread < kSmemThreads, "the tail thread is in the block");
+static_assert(kSmemCluster == 1 || kSmemCluster == 2 || kSmemCluster == 4 ||
+                  kSmemCluster == 8,
+              "a portable cluster size");
+
+// The byte offset of the mbarrier behind a table of n_tab floats.
+__host__ __device__ constexpr int smem_bar_offset(int n_tab) {
+  return (4 * n_tab + 7) / 8 * 8;
+}
+
+// Issue the loads of a thread's batch of groups of 4 indices g0 + k stride,
+// k < kSmemVecs: a whole group as one int4, the last, partial group by
+// scalar loads (0 past the count); groups past the end are left alone.
+__device__ __forceinline__ void load_batch(const int* __restrict__ idx,
+                                           long long n, long long g0,
+                                           long long stride,
+                                           int4 (&q)[kSmemVecs]) {
+#pragma unroll
+  for (int k = 0; k < kSmemVecs; ++k) {
+    const long long b = 4 * (g0 + k * stride);
+    if (b + 4 <= n) {
+      q[k] = __ldcs(reinterpret_cast<const int4*>(idx + b));
+    } else if (b < n) {
+      q[k] = make_int4(__ldcs(idx + b), b + 1 < n ? __ldcs(idx + b + 1) : 0,
+                       b + 2 < n ? __ldcs(idx + b + 2) : 0, 0);
+    }
+  }
+}
+
+// The batch's values from the table in shared memory, stored streaming.
+__device__ __forceinline__ void store_batch(const float* s_tab, int n_tab,
+                                            float* __restrict__ out,
+                                            long long n, long long g0,
+                                            long long stride,
+                                            const int4 (&q)[kSmemVecs]) {
+#pragma unroll
+  for (int k = 0; k < kSmemVecs; ++k) {
+    const long long b = 4 * (g0 + k * stride);
+    const float4 v = make_float4(
+        s_tab[wrap_clamp(q[k].x, n_tab)], s_tab[wrap_clamp(q[k].y, n_tab)],
+        s_tab[wrap_clamp(q[k].z, n_tab)], s_tab[wrap_clamp(q[k].w, n_tab)]);
+    if (b + 4 <= n) {
+      __stcs(reinterpret_cast<float4*>(out + b), v);
+    } else if (b < n) {
+      __stcs(out + b, v.x);
+      if (b + 1 < n) __stcs(out + b + 1, v.y);
+      if (b + 2 < n) __stcs(out + b + 2, v.z);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kSmemThreads, kSmemBlocksPerSm)
+gather_smem_kernel(const float* __restrict__ table,  // (n_tab,)
+                   const int* __restrict__ idx,      // (n,)
+                   float* __restrict__ out,          // (n,)
+                   int n_tab, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_tab = reinterpret_cast<float*>(smem);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + smem_bar_offset(n_tab));
+  const int n_vec = n_tab / 4;
+  const int tail = n_tab - 4 * n_vec;
+  const uint32_t rank = cluster_rank();
+
+  if (threadIdx.x == 0) {
+    // thread 0's arrival expects every block's slice; the tail thread's
+    // arrival publishes the tail
+    mbar_init(bar, tail ? 2 : 1);
+    mbar_expect_tx(bar, 16u * static_cast<uint32_t>(n_vec));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive_release();
+  // the first batch of indices is in flight while the table lands
+  const long long groups = (n + 3) / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long g0 = static_cast<long long>(blockIdx.x) * blockDim.x +
+                 threadIdx.x;
+  int4 q[kSmemVecs] = {};
+  load_batch(idx, n, g0, stride, q);
+  cluster_wait_acquire();  // every block's mbarrier is initialised
+
+  if (threadIdx.x == 0) {
+    // this block's run of the table's whole 16-byte vectors
+    const int per = (n_vec + kSmemCluster - 1) / kSmemCluster;
+    const int v0 = static_cast<int>(rank) * per;
+    const int v1 = min(n_vec, v0 + per);
+    if (v1 > v0) {
+      const uint32_t bytes = 16u * static_cast<uint32_t>(v1 - v0);
+      bulk_copy_multicast(s_tab + 4 * v0, table + 4 * v0, bytes, bar,
+                          (1u << kSmemCluster) - 1);
+    }
+  }
+  if (tail && threadIdx.x == kTailThread) {
+    for (int r = 0; r < tail; ++r) {
+      s_tab[4 * n_vec + r] = __ldg(table + 4 * n_vec + r);
+    }
+    mbar_arrive(bar);
+  }
+  mbar_wait(bar, 0);
+  cluster_arrive_relaxed();  // this block's table has landed
+
+  for (; g0 < groups; g0 += kSmemVecs * stride) {
+    const long long g1 = g0 + kSmemVecs * stride;
+    int4 next[kSmemVecs] = {};
+    if (g1 < groups) load_batch(idx, n, g1, stride, next);
+    store_batch(s_tab, n_tab, out, n, g0, stride, q);
+#pragma unroll
+    for (int k = 0; k < kSmemVecs; ++k) q[k] = next[k];
+  }
+  // every block of the cluster has its table: no copy into this block, or
+  // from it into a peer, is still in flight
+  cluster_wait_acquire();
 }
 
 // A read-only table read under an L2 cache policy.
@@ -302,7 +462,7 @@ gather_l2_kernel(const float* __restrict__ table,  // (n_tab,)
                                        (v1 - v) * 16)));
       }
     }
-    for (int s = 0; s < kStages; ++s) mbar_init(&s_bar[s]);
+    for (int s = 0; s < kStages; ++s) mbar_init(&s_bar[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (long long k = 1; k <= kStages && k < mine; ++k) {
       issue_tile(blockIdx.x + k * gridDim.x, static_cast<int>(k % kStages),
@@ -373,33 +533,110 @@ gather_l2_kernel(const float* __restrict__ table,  // (n_tab,)
 
 }  // namespace
 
-// The table must fit the block's opt-in shared memory (the wrapper checks
-// n_tab * 4 <= 232,448); a refused size comes back as the error status.
+namespace {
+
+constexpr int kSmemMaxBytes = 232448;  // one block's opt-in shared memory
+
+// The clusters of cfg that device `dev` holds at once. The query takes
+// tens of µs of host time, so its answer is kept for each device and
+// shared-memory size.
+cudaError_t active_clusters(int dev, const cudaLaunchConfig_t* cfg,
+                            int* active) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, int> known;
+  const std::pair<int, size_t> key(dev, cfg->dynamicSmemBytes);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = known.find(key);
+  if (it != known.end()) {
+    *active = it->second;
+    return cudaSuccess;
+  }
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(active, gather_smem_kernel, cfg);
+  if (err == cudaSuccess) known[key] = *active;
+  return err;
+}
+
+// The shared-memory route's launch for a table of n_tab floats and n
+// indices: clusters of kSmemCluster blocks, as many as the groups of 4
+// indices need at kSmemVecs int4 a thread, at most kSmemBlocksPerSm blocks
+// an SM and the clusters the card holds at once, and at least one cluster
+// (whose blocks past the first may get no index). A table too large for a
+// block's shared memory beside its mbarrier is an error, as is a card that
+// holds no such cluster (cudaErrorInvalidConfiguration).
+cudaError_t smem_launch(int n_tab, long long n, cudaStream_t stream,
+                        cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  if (n_tab < 1 || n_tab > (kSmemMaxBytes - 8) / 4) {
+    return cudaErrorInvalidValue;
+  }
+  const int smem = smem_bar_offset(n_tab) + 8;
+  int dev = 0, sms = 0, active = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(
+           gather_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           smem)) != cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess) {
+    return err;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kSmemCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(kSmemCluster);
+  cfg->blockDim = dim3(kSmemThreads);
+  cfg->dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  if ((err = active_clusters(dev, cfg, &active)) != cudaSuccess) return err;
+  if (active < 1) return cudaErrorInvalidConfiguration;
+  const long long groups = (n + 3) / 4;
+  const long long per_block = static_cast<long long>(kSmemThreads) * kSmemVecs;
+  const long long need = (groups + per_block - 1) / per_block;
+  const long long cap = std::max(
+      1, std::min(active, sms * kSmemBlocksPerSm / kSmemCluster));
+  const long long clusters = std::max(
+      1LL, std::min(cap, (need + kSmemCluster - 1) / kSmemCluster));
+  cfg->gridDim = dim3(static_cast<unsigned>(clusters * kSmemCluster));
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// The launch kaolin_gather_smem makes for a table of n_tab floats and n
+// indices on the current device → *cluster blocks a cluster, *blocks in
+// the grid, *threads a block; an error for what it would refuse.
+extern "C" int kaolin_gather_smem_grid(int n_tab, long long n, int* cluster,
+                                       int* blocks, int* threads) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  const cudaError_t err = smem_launch(n_tab, n, nullptr, &attr, &cfg);
+  if (err == cudaSuccess) {
+    *cluster = kSmemCluster;
+    *blocks = static_cast<int>(cfg.gridDim.x);
+    *threads = kSmemThreads;
+  }
+  return static_cast<int>(err);
+}
+
+// A refused size or cluster launch comes back as the error status.
 extern "C" int kaolin_gather_smem(const void* table, const void* idx,
                                   void* out, int n_tab, long long n,
                                   void* stream) {
-  const int smem = n_tab * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = smem_launch(n_tab, n, static_cast<cudaStream_t>(stream),
+                                &attr, &cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, gather_smem_kernel, kSmemThreads, smem)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  // one or two blocks per SM, and no more blocks than groups of 4 need
-  const long long need = (n / 4 + kSmemThreads - 1) / kSmemThreads;
-  long long blocks =
-      static_cast<long long>(sms) * std::min(std::max(per_sm, 1), 2);
-  blocks = std::max(1LL, std::min(blocks, need));
-  gather_smem_kernel<<<static_cast<unsigned>(blocks), kSmemThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int*>(idx),
-      static_cast<float*>(out), n_tab, n);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaLaunchKernelEx(&cfg, gather_smem_kernel,
+                           static_cast<const float*>(table),
+                           static_cast<const int*>(idx),
+                           static_cast<float*>(out), n_tab, n);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 extern "C" int kaolin_gather_l2(const void* table, const void* idx, void* out,

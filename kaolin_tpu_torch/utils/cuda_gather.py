@@ -1,9 +1,12 @@
 """Table gather ``out = table[idx]``: the CUDA kernels of ``csrc/gather.cu``
 (two routes), their plain PyTorch version and the dispatch between them.
-The shared-memory route holds the whole table in every block; the L2 route
-streams tiles of indices through a bulk-copy ring while L2, prefetched
-with the table, serves the random reads (``csrc/gather.cu``'s header says
-why, and what it leaves out).
+The shared-memory route holds the whole table in every block, staged once
+a cluster of blocks by multicast bulk copies while the first indices are
+already in flight; the L2 route streams tiles of indices through a
+bulk-copy ring while L2, prefetched with the table, serves the random
+reads (``csrc/gather.cu``'s header says why, and what each leaves out).
+Each route's launch geometry is computed in C, beside its kernel;
+:func:`smem_grid` reports the shared-memory route's.
 
 Counterpart of the Pallas probe ``gather_kernel`` of
 ``kaolin_tpu/utils/primitives_bench.py``. The semantics are those of
@@ -18,11 +21,12 @@ import torch
 from kaolin_tpu_torch.utils import cuda_build
 
 __all__ = ["table_gather", "table_gather_plain", "gather_route",
-           "table_gather_smem_cuda", "table_gather_l2_cuda",
+           "table_gather_smem_cuda", "table_gather_l2_cuda", "smem_grid",
            "SMEM_MAX_FLOATS"]
 
-# opt-in dynamic shared memory of one block on sm_90 (232,448 bytes)
-SMEM_MAX_FLOATS = 232_448 // 4
+# opt-in dynamic shared memory of one block on sm_90 (232,448 bytes), less
+# the shared-memory route's 8-byte mbarrier behind the table
+SMEM_MAX_FLOATS = (232_448 - 8) // 4
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_void_p]
 
@@ -30,8 +34,25 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
 def gather_route(n_tab):
     """The route :func:`table_gather` takes on the card for a table of
     ``n_tab`` floats: ``"smem"`` when it fits one block's shared memory
-    (``n_tab ≤ 58,112``), else ``"l2"``."""
+    beside the route's mbarrier (``n_tab ≤ 58,110``), else ``"l2"``. Cold,
+    the shared-memory route is no slower than the L2 route at any size it
+    takes (``chip_smoke.py``'s route sweep, ``PERF.md`` §6)."""
     return "smem" if n_tab <= SMEM_MAX_FLOATS else "l2"
+
+
+def smem_grid(n_tab, n, device):
+    """The launch :func:`table_gather_smem_cuda` makes for a table of
+    ``n_tab`` floats and ``n`` indices on CUDA ``device``, as
+    ``csrc/gather.cu`` computes it → (blocks a cluster, blocks, threads a
+    block). Raises for what the launch would refuse."""
+    fn = cuda_build.function(
+        "kaolin_gather_smem_grid",
+        [ctypes.c_int, ctypes.c_longlong] + [ctypes.POINTER(ctypes.c_int)] * 3)
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(torch.device(device)):
+        status = fn(n_tab, n, *map(ctypes.byref, out))
+    cuda_build.check(status, "kaolin_gather_smem_grid")
+    return tuple(o.value for o in out)
 
 
 def table_gather_plain(table, idx):
@@ -77,12 +98,18 @@ def _launch(entry, table, idx):
 
 def table_gather_smem_cuda(table, idx):
     """The shared-memory route on the card: every block holds the whole
-    table. ``table`` (n,) float32 with ``n ≤ 58,112``, ``idx`` int32 of any
-    shape, both contiguous on one CUDA device → float32 of ``idx``'s shape.
-    Launches on PyTorch's current stream and does not synchronise."""
+    table. The grid is whole clusters of four blocks (:func:`smem_grid`);
+    each block multicasts its slice of the table to the cluster's blocks by
+    one bulk copy on their mbarriers, while every thread's first indices
+    are already being read. ``table`` (n,) float32 with ``n ≤ 58,110``,
+    ``idx`` int32 of any shape, both contiguous on one CUDA device →
+    float32 of ``idx``'s shape. Launches on PyTorch's current stream and does not synchronise; a
+    cluster launch the card refuses raises, nothing falls back. Not used: a
+    table split across the cluster and read remotely, TMA tensor maps."""
     if table.shape[0] > SMEM_MAX_FLOATS:
         raise ValueError(f"a table of {table.shape[0]} floats does not fit "
-                         f"one block's shared memory ({SMEM_MAX_FLOATS})")
+                         f"one block's shared memory beside its mbarrier "
+                         f"({SMEM_MAX_FLOATS})")
     out, launched = _launch("kaolin_gather_smem", table, idx)
     table_gather_smem_cuda.launches += int(launched)
     return out
@@ -114,10 +141,10 @@ def table_gather(table, idx):
 
     A CPU table takes :func:`table_gather_plain`. A CUDA table launches a
     kernel, chosen by one size rule (:func:`gather_route`): a table of at
-    most 58,112 floats (232,448 bytes, one Hopper block's shared memory)
-    takes the shared-memory route, any larger one the L2 route. On the card
-    ``table`` is (n,) float32 and ``idx`` int32, contiguous; anything else
-    raises."""
+    most 58,110 floats (232,440 bytes, one Hopper block's shared memory
+    beside an 8-byte mbarrier) takes the shared-memory route, any larger
+    one the L2 route. On the card ``table`` is (n,) float32 and ``idx``
+    int32, contiguous; anything else raises."""
     if not table.is_cuda:
         return table_gather_plain(table, idx)
     if gather_route(table.shape[0]) == "smem":

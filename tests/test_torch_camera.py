@@ -86,9 +86,11 @@ def test_tan_half_fov_and_params(direction):
           jcam.intrinsics.tan_half_fov(CameraFOVJax[direction.name]))
     for name in ("x0", "y0", "focal_x", "focal_y"):
         close(getattr(tcam, name), getattr(jcam, name))
-    tp = PinholeIntrinsics.from_fov(32, 16, 0.7, CameraFOV.HORIZONTAL)
+    tp = PinholeIntrinsics.from_fov(32, 16, 0.7, CameraFOV.HORIZONTAL,
+                                   device="cpu")
     assert tp.params.shape == (1, 4)
-    to = OrthographicIntrinsics.from_frustum(32, 16, 2.0, num_cameras=3)
+    to = OrthographicIntrinsics.from_frustum(32, 16, 2.0, num_cameras=3,
+                                             device="cpu")
     assert to.params.shape == (3, 1) and to.lens_type == "ortho"
 
 
@@ -124,4 +126,4 @@ def test_from_args_rejects_bad_arguments():
     with pytest.raises(TypeError):
         Camera.from_args(eye=[1.0, 1.0, 1.0], at=[0.0, 0.0, 0.0],
                          up=[0.0, 1.0, 0.0], fov=0.5, width=8, height=8,
-                         nonsense=1)
+                         device="cpu", nonsense=1)

@@ -66,7 +66,8 @@ def test_legacy_transformation_and_projection():
         jnp.asarray(pos), jnp.asarray(look), jnp.asarray(up))
     close(m_t, m_j)
     for ratio in (1.0, 1.5):
-        close(tcam.generate_perspective_projection(np.pi / 3, ratio),
+        close(tcam.generate_perspective_projection(np.pi / 3, ratio,
+                                                  device="cpu"),
               jcam.generate_perspective_projection(np.pi / 3, ratio))
     proj = jcam.generate_perspective_projection(np.pi / 3)
     pts_cam = np.asarray(jnp.concatenate(
@@ -129,7 +130,7 @@ def test_extrinsics_coordinate_systems():
     j, t = cams()
     for basis in ("blender_coords", "opengl_coords"):
         pj = getattr(jcam, basis)()
-        pt = getattr(tcam, basis)()
+        pt = getattr(tcam, basis)(device="cpu")
         close(pt, pj, atol=0)
         a = t.extrinsics.change_coordinate_system(pt)
         b = j.extrinsics.change_coordinate_system(pj)
@@ -154,14 +155,16 @@ def test_extrinsics_batching_and_dicts():
     assert text.allclose(te, te[[0, 1, 2]])
     assert not text.allclose(te, te.move_up(1e-3))
     assert not text.allclose(te, te.switch_backend("matrix_6dof_rotation"))
-    d = te.change_coordinate_system(tcam.blender_coords()).to_dict()
+    d = te.change_coordinate_system(
+        tcam.blender_coords(device="cpu")).to_dict()
     dj = je.change_coordinate_system(jcam.blender_coords()).to_dict()
     assert d.keys() == dj.keys() and d["backend"] == dj["backend"]
     close(np.array(d["params"]), np.array(dj["params"]))
     assert d["base_change"] == dj["base_change"]
-    back = text.CameraExtrinsics.from_dict(d)
+    back = text.CameraExtrinsics.from_dict(d, device="cpu")
     assert text.allclose(back, te.change_coordinate_system(
-        tcam.blender_coords())) and back._base_change is not None
+        tcam.blender_coords(device="cpu"))) \
+        and back._base_change is not None
     assert te.as_dict() == te.to_dict()
     for a, b in zip(te.named_params(), je.named_params()):
         close(a["R"], b["R"])
@@ -238,7 +241,8 @@ def test_intrinsics_api_matches_jax(lens):
     close(type(ti).cat([ti, ti[0]]).params, type(ji).cat([ji, ji[0]]).params)
     d = ti.as_dict()
     assert d == {**ji.as_dict(), "params": d["params"]}
-    assert tint.allclose(tint.CameraIntrinsics.from_dict(d), ti)
+    assert tint.allclose(tint.CameraIntrinsics.from_dict(d, device="cpu"),
+                        ti)
     assert not tint.allclose(ti, ti.zoom(1.0))
     with pytest.raises(NotImplementedError):
         ti.set_ndc_range(0.0, 1.0)
@@ -299,7 +303,7 @@ def test_camera_api_matches_jax(lens):
     close(mj, mji, atol=0)
     d = t.to_dict()
     assert d.keys() == j.to_dict().keys()
-    assert tcam.allclose(tcam.Camera.from_dict(d), t)
+    assert tcam.allclose(tcam.Camera.from_dict(d, device="cpu"), t)
     assert not tcam.allclose(t, tcam.Camera.cat([t[1], t[0], t[2]]))
     pe, pi = t.parameters()
     assert pe is t.extrinsics.params and pi is t.intrinsics.params
@@ -366,3 +370,142 @@ def test_camera_paths_match_jax(interp, lens, loop):
                                                     j.lens_type)
         close(t.extrinsics.view_matrix(), j.extrinsics.view_matrix())
         close(t.intrinsics.params, j.intrinsics.params, atol=1e-4)
+
+
+# -- where the constructors put their tensors ----------------------------
+class _PsCamera:
+    """A stand-in for polyscope's camera parameters."""
+
+    def get_view_mat(self):
+        return np.eye(4) + np.eye(4, k=3) * 2.0
+
+    def get_fov_vertical_deg(self):
+        return 45.0
+
+
+def _dicts():
+    """A camera's, its extrinsics' and its intrinsics' dicts (CPU)."""
+    cam = tcam.Camera.from_args(eye=torch.from_numpy(EYES[0]),
+                                at=torch.from_numpy(AT),
+                                up=torch.from_numpy(UP), fov=0.9, width=40,
+                                height=24)
+    return cam.to_dict(), cam.extrinsics.to_dict(), cam.intrinsics.as_dict()
+
+
+_LOOKAT = (EYES[0].tolist(), AT.tolist(), UP.tolist())
+# name → (make(**device), make from a tensor argument (wrap) or None)
+_CONSTRUCTORS = {
+    "CameraExtrinsics.from_lookat": (
+        lambda **kw: text.CameraExtrinsics.from_lookat(*_LOOKAT, **kw),
+        lambda wrap: text.CameraExtrinsics.from_lookat(
+            wrap(_LOOKAT[0]), *_LOOKAT[1:])),
+    "CameraExtrinsics.from_camera_pose": (
+        lambda **kw: text.CameraExtrinsics.from_camera_pose(
+            [0.5, 1.5, -2.0], np.eye(3, dtype=np.float32), **kw),
+        lambda wrap: text.CameraExtrinsics.from_camera_pose(
+            [0.5, 1.5, -2.0], wrap(np.eye(3)))),
+    "CameraExtrinsics.from_view_matrix": (
+        lambda **kw: text.CameraExtrinsics.from_view_matrix(np.eye(4), **kw),
+        lambda wrap: text.CameraExtrinsics.from_view_matrix(wrap(np.eye(4)))),
+    "CameraExtrinsics.from_dict": (
+        lambda **kw: text.CameraExtrinsics.from_dict(_dicts()[1], **kw),
+        None),
+    "CameraIntrinsics.from_dict": (
+        lambda **kw: tint.CameraIntrinsics.from_dict(_dicts()[2], **kw), None),
+    "PinholeIntrinsics.from_focal": (
+        lambda **kw: tint.PinholeIntrinsics.from_focal(40, 24, 30.0, **kw),
+        lambda wrap: tint.PinholeIntrinsics.from_focal(40, 24, wrap(30.0))),
+    "PinholeIntrinsics.from_fov": (
+        lambda **kw: tint.PinholeIntrinsics.from_fov(40, 24, 0.9, **kw), None),
+    "OrthographicIntrinsics.from_frustum": (
+        lambda **kw: tint.OrthographicIntrinsics.from_frustum(40, 24, 1.5,
+                                                              **kw),
+        lambda wrap: tint.OrthographicIntrinsics.from_frustum(40, 24,
+                                                              wrap(1.5))),
+    "Camera.from_dict": (
+        lambda **kw: tcam.Camera.from_dict(_dicts()[0], **kw), None),
+    "Camera.from_args": (
+        lambda **kw: tcam.Camera.from_args(
+            eye=_LOOKAT[0], at=_LOOKAT[1], up=_LOOKAT[2], fov=0.9, width=40,
+            height=24, **kw),
+        lambda wrap: tcam.Camera.from_args(
+            eye=_LOOKAT[0], at=wrap(_LOOKAT[1]), up=_LOOKAT[2], fov=0.9,
+            width=40, height=24)),
+    "generate_default_grid": (
+        lambda **kw: tcam.generate_default_grid(8, 6, **kw), None),
+    "generate_centered_pixel_coords": (
+        lambda **kw: tcam.generate_centered_pixel_coords(8, 6, **kw), None),
+    "generate_centered_custom_resolution_pixel_coords": (
+        lambda **kw: tcam.generate_centered_custom_resolution_pixel_coords(
+            8, 6, 4, 3, **kw), None),
+    "blender_coords": (lambda **kw: tcam.blender_coords(**kw), None),
+    "opengl_coords": (lambda **kw: tcam.opengl_coords(**kw), None),
+    "generate_perspective_projection": (
+        lambda **kw: tcam.generate_perspective_projection(np.pi / 3, **kw),
+        None),
+    "polyscope_camera_to_kaolin": (
+        lambda **kw: tcam.polyscope_camera_to_kaolin(_PsCamera(), 32, 24,
+                                                     **kw), None),
+}
+
+
+def _device_of(x):
+    """The one device of what a constructor made."""
+    if isinstance(x, torch.Tensor):
+        return x.device
+    if isinstance(x, tuple):
+        assert len({y.device for y in x}) == 1
+        return x[0].device
+    if isinstance(x, tcam.Camera):
+        assert x.extrinsics.device == x.intrinsics.device
+        return x.extrinsics.device
+    return x.params.device
+
+
+@pytest.mark.parametrize("name", sorted(_CONSTRUCTORS))
+def test_camera_constructors_default_to_the_card(name):
+    """Without ``device`` each constructor makes its tensors on the CUDA
+    device, and raises where there is none: it never falls back to the CPU
+    unasked. ``device="cpu"`` makes CPU tensors, and a tensor argument
+    keeps its device (a CPU tensor here, with the same values)."""
+    make, from_tensor = _CONSTRUCTORS[name]
+    if torch.cuda.is_available():
+        assert _device_of(make()).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            make()
+    on_cpu = make(device="cpu")
+    assert _device_of(on_cpu).type == "cpu"
+    if from_tensor is not None:
+        got = from_tensor(lambda x: torch.tensor(x, dtype=torch.float32))
+        assert _device_of(got) == torch.device("cpu")
+        if isinstance(got, tcam.Camera):
+            got, on_cpu = got.extrinsics, on_cpu.extrinsics
+        close(got.params, on_cpu.params.numpy(), atol=0)
+
+
+@pytest.mark.parametrize("source", ["inria", "nerfstudio"])
+def test_gsplat_cameras_follow_their_input(source):
+    """A gaussian-splatting camera given as host arrays comes back on the
+    CUDA device (raising without one); given tensors, on their device."""
+    _, t = cams()
+    ns = tcam.kaolin_camera_to_gsplat_nerfstudio(t[0])
+    wvt = t.extrinsics.view_matrix()[0].numpy().copy()
+    wvt[1:3] = -wvt[1:3]
+
+    def make(wrap):
+        if source == "inria":
+            return tcam.gsplat_inria_camera_to_kaolin(
+                {"world_view_transform": wrap(wvt.T.copy()),
+                 "image_width": 40, "image_height": 24, "FoVy": 0.9})
+        return tcam.gsplat_nerfstudio_camera_to_kaolin(
+            wrap(ns["Ks"].numpy()), wrap(ns["viewmats"].numpy()), 40, 24)
+
+    if torch.cuda.is_available():
+        assert _device_of(make(np.asarray)).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            make(np.asarray)
+    got = make(torch.from_numpy)
+    assert _device_of(got) == torch.device("cpu")
+    close(got.extrinsics.view_matrix(), t.extrinsics.view_matrix()[0:1])

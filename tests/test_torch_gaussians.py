@@ -411,7 +411,7 @@ def test_polyscope_conversions_need_polyscope():
         def get_fov_vertical_deg(self):
             return 45.0
 
-    got = tcam.polyscope_camera_to_kaolin(PsCamera(), 32, 24)
+    got = tcam.polyscope_camera_to_kaolin(PsCamera(), 32, 24, device="cpu")
     want = jcam.polyscope_camera_to_kaolin(PsCamera(), 32, 24)
     np.testing.assert_allclose(got.extrinsics.view_matrix().numpy(),
                                np.asarray(want.extrinsics.view_matrix()),

@@ -223,7 +223,7 @@ def test_table_gather_unaligned_views_match_jax(offset):
 
 
 @pytest.mark.parametrize("n_tab,route", [(1, "smem"), (1 << 14, "smem"),
-                                         (58_112, "smem"), (58_113, "l2"),
+                                         (58_110, "smem"), (58_111, "l2"),
                                          (1 << 20, "l2")])
 def test_gather_route_rule(n_tab, route):
     assert cuda_gather.gather_route(n_tab) == route

@@ -147,7 +147,7 @@ def test_prepare_vertices(branch):
     look = np.zeros((2, 3), np.float32)
     up = np.array([[0.0, 1.0, 0.0]], np.float32)
     proj_j = jleg.generate_perspective_projection(np.pi / 3)
-    proj_t = tleg.generate_perspective_projection(np.pi / 3)
+    proj_t = tleg.generate_perspective_projection(np.pi / 3, device="cpu")
     if branch == "transform":
         cj = {"camera_transform": jleg.generate_transformation_matrix(
             jnp.asarray(pos), jnp.asarray(look), jnp.asarray(up))}

@@ -445,6 +445,9 @@ USD_PARITY = dict(asset=(24, 32), tex=64, res=64)
 USD_TOL = {"usda": 5e-6, "pass": 1e-5, "camera": 1e-6}
 USD_TIMED = 10
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
+# the plane's body +z rotated onto +y (up_axis y)
+NEWTON_Q_UP_Y = (-float(np.sin(np.pi / 4)), 0.0, 0.0,
+                 float(np.cos(np.pi / 4)))
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -5944,6 +5947,7 @@ class Smoke:
                               rspc, cam, tile_px=tile_px, s_max=s_max,
                               c_cap=c_cap))
         self.check_precision("phase_profile")
+        self.profile_newton()
         eager = self.sim_scene("config1", "cuda")
         self.sim["eager_busy"] = self.profile_path(
             "config-1 sim step, eager", (), eager.run_sim_step)
@@ -6405,6 +6409,661 @@ class Smoke:
                   + ("none" if lib is None else f"{lib:.4f} ms")
                   + f", {self.per_step[k]:g} launches per step [{self.card}]")
 
+    # -- slice 18: the SPC and mesh ops' device rule, the Newton bridge,
+    #    parallel/ and the recipes ------------------------------------------
+    def section_a_calls(self):
+        """Each SPC and mesh op that builds on the host, as (name, call of
+        (input maker, device))."""
+        from kaolin_tpu_torch.ops import spc
+        from kaolin_tpu_torch.ops.conversions import (
+            unbatched_pointcloud_to_spc)
+        from kaolin_tpu_torch.ops.mesh import (adjacency_matrix,
+                                               uniform_laplacian)
+        rng = np.random.RandomState(0)
+        pts = rng.randint(0, 16, (3000, 3)).astype(np.int16)
+        octree = spc.unbatched_points_to_octree(pts, 4, device="cpu").numpy()
+        _, pyr, ex = spc.scan_octrees(octree, np.array([len(octree)]),
+                                      device="cpu")
+        ph = spc.generate_points(octree, pyr, ex, device="cpu").numpy()
+        codes = np.unique(spc.points_to_morton(pts, "cpu").numpy())
+        grid = rng.rand(1, 2, 5, 6, 4).astype(np.float32)
+        grid[grid < 0.5] = 0.0
+        cloud = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
+        faces = np.array([[0, 1, 2], [0, 2, 3], [1, 3, 2]])
+        return [
+            ("points_to_morton", lambda a, d: spc.points_to_morton(a(pts), d)),
+            ("morton_to_points",
+             lambda a, d: spc.morton_to_points(a(codes), d)),
+            ("unbatched_points_to_octree",
+             lambda a, d: spc.unbatched_points_to_octree(a(pts), 4,
+                                                         device=d)),
+            ("morton_to_octree",
+             lambda a, d: spc.morton_to_octree(a(codes), 4, device=d)),
+            ("scan_octrees", lambda a, d: spc.scan_octrees(
+                a(octree), a(np.array([len(octree)])), device=d)[1:]),
+            ("generate_points", lambda a, d: spc.generate_points(
+                a(octree), a(pyr.numpy()), a(ex.numpy()), device=d)),
+            ("feature_grids_to_spc",
+             lambda a, d: spc.feature_grids_to_spc(a(grid), device=d)),
+            ("unbatched_pointcloud_to_spc", lambda a, d: (
+                lambda s: (s.octrees, s.lengths, s.features))(
+                    unbatched_pointcloud_to_spc(a(cloud), 4, a(cloud),
+                                                device=d))),
+            ("adjacency_matrix",
+             lambda a, d: adjacency_matrix(4, a(faces), device=d)),
+            ("uniform_laplacian",
+             lambda a, d: uniform_laplacian(4, a(faces), device=d)),
+            ("build_raster_spc", lambda a, d: tuple(self.sr.build_raster_spc(
+                a(ph), a(pyr[0].numpy()), 4, device=d))),
+        ]
+
+    def phase_device_defaults(self):
+        """Each SPC and mesh op of the device rule, given numpy and no
+        ``device``, builds on the card, equal to its CPU build bit for bit
+        (NaN padding included)."""
+        torch = self.torch
+
+        def tensors(out):
+            if isinstance(out, torch.Tensor):
+                return [out]
+            return [t for x in out for t in tensors(x)] \
+                if isinstance(out, (list, tuple)) else []
+
+        for name, call in self.section_a_calls():
+            got = tensors(call(np.asarray, None))
+            want = tensors(call(np.asarray, "cpu"))
+            on_card = bool(got) and all(t.is_cuda for t in got)
+            same = len(got) == len(want) and all(
+                g.shape == w.shape and g.dtype == w.dtype and bool(
+                    ((g.cpu() == w) | (g.cpu().isnan() & w.isnan())
+                     if w.is_floating_point() else g.cpu() == w).all())
+                for g, w in zip(got, want))
+            self.check(on_card and same, f"{name} of numpy without device: "
+                       f"on the card {on_card}, equal to its CPU build {same}")
+
+    def newton_shapes(self, kind, device):
+        from kaolin_tpu_torch.experimental import newton as tn
+        pos, size = {0: ((0.0, -0.3, 0.0), (0.0, 0.0, 0.0)),
+                     1: ((0.0, -1.0, 0.0), (0.8, 0.0, 0.0)),
+                     2: ((0.0, -1.0, 0.0), (1.0, 0.7, 1.0))}[kind]
+        q = NEWTON_Q_UP_Y if kind == 0 else (0.0, 0.0, 0.0, 1.0)
+        return tn.RigidShapes(
+            (kind,), np.asarray([pos], np.float32),
+            np.asarray([q], np.float32), np.full((1, 3), 0.1, np.float32),
+            np.full((1, 3), 0.05, np.float32), np.zeros((1, 3), np.float32),
+            np.asarray([size], np.float32), [2e3], [1e3], [0.4],
+            device=device)
+
+    def phase_newton_parity(self):
+        """The bridge's force on the card against the port's CPU: a plane,
+        a sphere and a box, lagged and current friction, restitution 0.3
+        and a velocity penalty: the energy within 1e-5 relative, the
+        gradient and Hessian within 1e-5 of max|x|; ``detect`` within 1e-6
+        of max|x| on random points, points inside the box, a tie of two of
+        its gaps and the sphere's centre."""
+        torch = self.torch
+        from kaolin_tpu_torch.experimental import newton as tn
+        rng = np.random.RandomState(4)
+        special = np.asarray([[0.0, -1.0, 0.0], [0.2, -0.9, 0.1],
+                              [0.5, -1.2, 0.5], [0.0, -1.0, 0.5],
+                              [0.3, -1.0, 0.0], [-0.95, -1.0, 0.95]],
+                             np.float32)
+        pts = np.concatenate([rng.uniform(-2, 2, (4096, 3)).astype(
+            np.float32), special])
+        n = 4096
+        vols = rng.uniform(0.5, 1.5, (n,)).astype(np.float32)
+        x0 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+        prev = x0 + rng.randn(n, 3).astype(np.float32) * 0.02
+        dx = (prev - x0) + rng.randn(n, 3).astype(np.float32) * 0.01
+
+        def rel_max(got, want):
+            want = want.cpu()
+            return float((got.cpu() - want).abs().max()
+                         / max(float(want.abs().max()), 1e-30))
+
+        for kind, label in ((0, "plane"), (1, "sphere"), (2, "box")):
+            det = {dev: self.newton_shapes(kind, dev).detect(
+                torch.from_numpy(pts).to(dev)) for dev in ("cuda", "cpu")}
+            err = max(rel_max(det["cuda"][k], det["cpu"][k])
+                      for k in ("bx", "normal", "bv"))
+            self.check(err <= 1e-6, f"newton detect {label} card vs CPU: "
+                       f"{err:.2e} of max|x| (<= 1e-6)")
+            for lagged in (True, False):
+                out = {}
+                for dev in ("cuda", "cpu"):
+                    t = {k: torch.from_numpy(v).to(dev) for k, v in
+                         (("vols", vols), ("x0", x0), ("prev", prev),
+                          ("dx", dx))}
+                    f = tn.ParticleShapeSoftContact(
+                        self.newton_shapes(kind, dev), t["vols"], dt=0.02,
+                        particle_mu=0.7,
+                        friction_use_lagged_body_contact_force_norm=lagged,
+                        velocity_penalty_kv_scale=0.5,
+                        coeff_of_restitution=0.3)
+                    f = f.with_step_state(t["prev"])
+                    if lagged:
+                        f = f.update_lagged_body_contact_force_norm(
+                            t["prev"] - t["x0"], t["x0"])
+                    out[dev] = (f.energy(t["dx"], t["x0"], 1.3),
+                                f.gradient(t["dx"], t["x0"], 1.3),
+                                f.hessian(t["dx"], t["x0"], 1.3))
+                e_c, e_h = float(out["cuda"][0]), float(out["cpu"][0])
+                e_rel = abs(e_c - e_h) / abs(e_h)
+                g_err = rel_max(out["cuda"][1], out["cpu"][1])
+                h_err = rel_max(out["cuda"][2], out["cpu"][2])
+                self.check(e_h > 0 and e_rel <= 1e-5 and g_err <= 1e-5
+                           and h_err <= 1e-5,
+                           f"newton force {label}, "
+                           f"{'lagged' if lagged else 'current'} friction, "
+                           f"card vs CPU: energy {e_c:.6e} vs {e_h:.6e} "
+                           f"(rel {e_rel:.2e}), gradient {g_err:.2e}, "
+                           f"Hessian {h_err:.2e} of max|x| (<= 1e-5)")
+
+    def newton_cube(self, add_shapes, device):
+        """``tests/physics/test_newton_bridge.py``'s cube model on
+        ``device`` and its solver."""
+        from kaolin_tpu_torch.experimental import newton as tn
+        from kaolin_tpu_torch.physics.simplicits import SkinnedPhysicsPoints
+        rng = np.random.RandomState(0)
+        g = np.linspace(-0.25, 0.25, 4)
+        pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(
+            -1, 3).astype(np.float32)
+        freqs = rng.randn(3, 4).astype(np.float32)
+        w = np.concatenate([np.sin(pts @ freqs), np.ones((len(pts), 1))],
+                           1).astype(np.float32)
+        dwdx = np.zeros((len(pts), 5, 3), np.float32)
+        dwdx[:, :-1, :] = np.cos(pts @ freqs)[:, :, None] * freqs.T[None]
+        builder = tn.SimplicitsModelBuilder(up_axis="y", gravity=-9.8)
+        builder.add_simplicits_object(SkinnedPhysicsPoints(
+            pts=pts, yms=5e4, prs=0.45, rhos=500.0, appx_vol=0.125,
+            skinning_weights=w, dwdx=dwdx))
+        add_shapes(builder)
+        builder.configure_soft_contact(particle_ke=5e4, particle_mu=0.5)
+        model = builder.finalize(device=device, timestep=0.01,
+                                 max_newton_steps=5, max_ls_steps=10,
+                                 conv_tol=1e-9)
+        model.simplicits_scene.force_dict["pt_wise"][
+            "newton_soft_collisions"]["coeff"] = 1.0
+        return model, tn.SimplicitsSolver(model)
+
+    def phase_newton_path(self):
+        """``examples/torch_newton_coupling.py`` as written on the card:
+        120 finite steps; the cube above the plane and out of the sphere;
+        the first 10 steps' B z within 1e-4 of max|B z| of the port's CPU
+        run from the same state; the Timelapse's last checkpoint equal to
+        the state it logged to the 6 significant digits the .usda keeps.
+        Then the JAX tests' cube dropped onto a plane (80 steps) and a
+        sphere (60) on the card, with their asserts. Each step of the
+        rollout is timed by CUDA events (median)."""
+        torch = self.torch
+        import tempfile
+        ex = load_example("torch_newton_coupling")
+        os.makedirs(TRACE_DIR, exist_ok=True)
+        out = tempfile.mkdtemp(prefix="newton_usd_", dir=TRACE_DIR)
+        model, solver = ex.build(None)
+        self.check(model.device.type == "cuda",
+                   f"newton example builds on {model.device} by default")
+        state = model.state()
+        rest = model.simplicits_scene.sim_pts
+        timelapse = ex.Timelapse(out)
+        states, times = [], []
+        for i in range(120):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state = solver.step(state)
+            end.record()
+            states.append(state)
+            if i % 10 == 0:
+                timelapse.add_pointcloud_batch(
+                    iteration=i, pointcloud_list=[state.particle_q],
+                    category="soft_cube")
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        q = torch.stack([s.particle_q for s in states]).cpu().numpy()
+        finite = bool(np.isfinite(q).all())
+        centre = np.array([0.05, -0.1, 0.0])
+        low = float(q[-1][:, 1].min())
+        deep = float(np.linalg.norm(q - centre, axis=-1).min())
+        speeds = [float(torch.linalg.vector_norm(s.particle_qd, dim=-1).max())
+                  for s in states]
+        self.check(finite and low > -0.6 and deep > 0.1,
+                   f"newton example, 120 steps: finite {finite}, lowest "
+                   f"particle {low:+.4f} (> -0.6, the plane at -0.5), "
+                   f"nearest to the sphere's centre {deep:.4f} (> 0.1, "
+                   f"radius 0.2); max|v| {speeds[-1]:.3f} at the end, "
+                   f"{max(speeds):.3f} at most")
+        cpu_model, cpu_states, _ = ex.run("cpu", 10, quiet=True)
+        rest_cpu = cpu_model.simplicits_scene.sim_pts
+        errs = []
+        for s_card, s_cpu in zip(states[:10], cpu_states):
+            want = (s_cpu.particle_q - rest_cpu).double()
+            got = (s_card.particle_q - rest).double().cpu()
+            errs.append(float((got - want).abs().max() / want.abs().max()))
+        self.check(max(errs) <= 1e-4, f"newton example, first 10 steps card "
+                   f"vs CPU: B z within {max(errs):.2e} of max|B z| "
+                   f"(<= 1e-4)")
+        pc = self.usd_io.import_pointcloud(
+            os.path.join(out, "soft_cube", "pointcloud_0.usda"), time=110,
+            device="cpu")
+        logged = states[110].particle_q.cpu()
+        gap = float(((pc.points - logged).abs() / logged.abs().clamp(
+            min=1e-30)).max())
+        self.check(gap <= 5.2e-6, f"newton Timelapse checkpoint 110 = the "
+                   f"state it logged to {gap:.2e} relative (the .usda's 6 "
+                   f"significant digits, read back in float32: <= 5.2e-6)")
+        step_ms = statistics.median(times)
+        self.newton_ms = step_ms
+        print(f"newton example step (125 particles, 8 handles, 2 shapes): "
+              f"{step_ms:.4f} ms median over 120 steps, CUDA events "
+              f"[{self.card}]", flush=True)
+
+        for label, add, steps in (
+                ("plane", lambda b: b.add_ground_plane(height=-0.5), 80),
+                ("sphere", lambda b: b.add_shape_sphere(
+                    (0.05, -1.3, 0.0), radius=0.8), 60)):
+            model, solver = self.newton_cube(add, None)
+            state = model.state()
+            y0 = float(state.particle_q[:, 1].min())
+            hs, vs = [], []
+            for _ in range(steps):
+                state = solver.step(state)
+                hs.append(float(state.particle_q[:, 1].min()))
+                vs.append(float(torch.linalg.vector_norm(
+                    state.particle_qd, dim=-1).max()))
+            qn = state.particle_q.cpu().numpy()
+            if label == "plane":
+                ok = (np.isfinite(hs).all() and min(hs) < y0 - 0.05
+                      and hs[-1] > -0.6 and vs[-1] < 0.5 * max(vs))
+                what = (f"falls to {min(hs):+.4f}, ends at {hs[-1]:+.4f} "
+                        f"(> -0.6), |v| {vs[-1]:.4f} < half of "
+                        f"{max(vs):.4f}")
+            else:
+                d = float(np.linalg.norm(
+                    qn - np.array([0.05, -1.3, 0.0]), axis=-1).min())
+                ok = np.isfinite(qn).all() and d > 0.7
+                what = f"nearest to the centre {d:.4f} (> 0.7)"
+            self.check(bool(ok), f"newton cube onto the {label} on the card, "
+                       f"{steps} steps: {what}")
+
+    def profile_newton(self):
+        """The bridge's step in ``torch.profiler`` over 10 steps: device
+        busy and idle share."""
+        ex = load_example("torch_newton_coupling")
+        model, solver = ex.build(None)
+        box = [model.state()]
+
+        def step():
+            box[0] = solver.step(box[0])
+        for _ in range(30):
+            step()
+        self.profile_path("newton example step", (), step)
+
+    def parallel_mesh(self):
+        """A group of world size 1 from a FileStore in a temporary
+        directory (no port, no network), and its 1-D ``"dp"`` mesh: NCCL
+        for the card's tensors, gloo for the CPU reference steps."""
+        import tempfile
+
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        os.makedirs(TRACE_DIR, exist_ok=True)
+        path = os.path.join(tempfile.mkdtemp(prefix="nccl_", dir=TRACE_DIR),
+                            "store")
+        dist.init_process_group("cuda:nccl,cpu:gloo",
+                                store=dist.FileStore(path, 1), rank=0,
+                                world_size=1)
+        return init_device_mesh("cuda", (1,), mesh_dim_names=("dp",))
+
+    def texfit_views(self):
+        """Config 2 as written's 8 target views of the 4,992-face sphere at
+        512²: DIB-R's inputs as ``texfit_render`` makes them."""
+        torch = self.torch
+        from kaolin_tpu_torch.render.mesh.utils import prepare_vertices
+        ex = self.tex_ex
+        scene = ex.texfit_setup(ex.texfit_inputs(), "cuda", RES)
+        params = ex.initial_params(scene)
+        with torch.no_grad():
+            v = ex.posed_vertices(scene["template"], params)
+            views = list(range(ex.VIEWS))
+            fvc, fvi, normals = prepare_vertices(
+                v[None], scene["faces"], scene["proj"],
+                camera_transform=scene["cams"][views])
+        uvs = scene["face_uvs"].expand(len(views), -1, -1, -1).contiguous()
+        return (fvc[..., 2].contiguous(), fvi.contiguous(),
+                [uvs, torch.ones_like(uvs[..., :1])],
+                normals[..., 2].contiguous())
+
+    @contextlib.contextmanager
+    def plain_calls(self):
+        """Count the calls of the three plain versions inside."""
+        calls = {}
+        saved = [(self.rast, "rasterize_search_plain"),
+                 (self.dibr, "soft_mask_plain"),
+                 (self.dibr, "_soft_mask_bwd_plain")]
+        originals = [getattr(m, n) for m, n in saved]
+        for (mod, name), fn in zip(saved, originals):
+            def counted(*a, _fn=fn, _name=name, **k):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*a, **k)
+            setattr(mod, name, counted)
+        try:
+            yield calls
+        finally:
+            for (mod, name), fn in zip(saved, originals):
+                setattr(mod, name, fn)
+
+    def phase_parallel_path(self):
+        """``kaolin_tpu_torch.parallel`` on an NCCL group of world size 1:
+        sharded DIB-R of config 2's 8 views at 512² bit for bit the
+        unsharded call, forward and backward, through #1-3 and no plain
+        version; the MLP step at ``create_with_mlp``'s widths card vs CPU;
+        the scene batch of config 1's widths, padded, against each scene's
+        own steps; 8 demo scenes with contact; sharded chamfer."""
+        import torch.distributed as dist
+        mesh = self.parallel_mesh()
+        try:
+            self.parallel_dibr(mesh)
+            self.parallel_mlp(mesh)
+            self.parallel_scenes(mesh)
+            self.parallel_chamfer(mesh)
+        finally:
+            dist.destroy_process_group()
+
+    def parallel_dibr(self, mesh):
+        torch = self.torch
+        from kaolin_tpu_torch.parallel import sharded_dibr_rasterization
+        from kaolin_tpu_torch.render.mesh.dibr import dibr_rasterization
+        fvz, fvi, feats, nz = self.texfit_views()
+
+        def run(sharded):
+            x = fvi.clone().requires_grad_(True)
+            if sharded:
+                outs = sharded_dibr_rasterization(mesh, RES, RES, fvz, x,
+                                                  feats, nz)
+                outs = ([o.to_local() for o in outs[0]],
+                        *(o.to_local() for o in outs[1:]))
+            else:
+                outs = dibr_rasterization(RES, RES, fvz, x, feats, nz)
+            (outs[1] ** 2).sum().backward()
+            return outs, x.grad
+
+        with self.plain_calls() as calls:
+            (got, g_got), launches = self.drive(DIBR_KERNELS,
+                                                lambda: run(True))
+        want, g_want = run(False)
+        same = (all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+                and torch.equal(got[1], want[1])
+                and torch.equal(got[2], want[2]))
+        self.check(same, "sharded DIB-R, 8 views of 4,992 faces at 512², "
+                   "world size 1: image, soft mask and face ids bit for bit "
+                   "the unsharded call's")
+        self.check(torch.equal(g_got, g_want),
+                   "sharded DIB-R: the soft-mask loss's gradient bit for bit "
+                   "the unsharded call's")
+        self.check(all(n > 0 for n in launches.values()) and not calls,
+                   f"sharded DIB-R launched {launches}, plain versions "
+                   f"called {calls or 'never'}")
+        self.check(int((got[2] >= 0).sum()) > 0, "sharded DIB-R covers "
+                   f"{int((got[2] >= 0).sum())} pixels")
+
+        def fwd(sharded):
+            with torch.no_grad():
+                if sharded:
+                    return sharded_dibr_rasterization(mesh, RES, RES, fvz,
+                                                      fvi, feats, nz)
+                return dibr_rasterization(RES, RES, fvz, fvi, feats, nz)
+
+        for label, fn in (("forward", fwd), ("forward + backward", run)):
+            for sharded in (True, False):
+                ms = statistics.median(self.time_ms(lambda: fn(sharded), 10))
+                busy, kms = self.profile_path(
+                    f"{'sharded' if sharded else 'unsharded'} DIB-R "
+                    f"{label}, 8 x 512²",
+                    DIBR_KERNELS if label != "forward" else DIBR_KERNELS[:2],
+                    lambda: fn(sharded), record=False)
+                print(f"{'sharded' if sharded else 'unsharded'} DIB-R "
+                      f"{label}, 8 views x 512², 4,992 faces: {ms:.4f} ms "
+                      f"(CUDA events, median of 10); device busy "
+                      f"{busy:.4f} ms; "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in kms.items())
+                      + f" device ms [{self.card}]", flush=True)
+
+    def parallel_mlp(self, mesh):
+        torch = self.torch
+        from kaolin_tpu_torch.parallel import sharded_mlp_train_step
+        from kaolin_tpu_torch.physics.simplicits import mlp_init
+        rng = np.random.RandomState(0)
+        pts = rng.uniform(-0.5, 0.5, (1000, 3)).astype(np.float32)
+        params = mlp_init(torch.Generator().manual_seed(0), 3, 64, 33, 6)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = [{k: v.to(dev) for k, v in layer.items()} for layer in params]
+            t = torch.from_numpy(pts).to(dev)
+            args = (t, torch.full((1000,), 1e4, device=dev),
+                    torch.full((1000,), 0.45, device=dev),
+                    torch.full((1000,), 500.0, device=dev), 1.0)
+            out[dev] = sharded_mlp_train_step(
+                mesh, p, *args, torch.Generator().manual_seed(1),
+                batch_size=10)
+            if dev == "cuda":
+                ms = statistics.median(self.time_ms(
+                    lambda: sharded_mlp_train_step(
+                        mesh, p, *args, torch.Generator().manual_seed(1),
+                        batch_size=10), 10))
+        (pc, lc), (ph, lh) = out["cuda"], out["cpu"]
+        err = max(float((a[k].cpu() - b[k]).abs().max() / b[k].abs().max())
+                  for a, b in zip(pc, ph) for k in ("w", "b"))
+        lrel = abs(float(lc) - float(lh)) / abs(float(lh))
+        self.check(err <= 1e-5 and lrel <= 1e-5 and np.isfinite(float(lc)),
+                   f"sharded MLP step (33 handles, 6 layers of 64, 1,000 "
+                   f"points, batch 10) card vs CPU: params within {err:.2e} "
+                   f"of max|p|, loss {float(lc):.6e} vs {float(lh):.6e} "
+                   f"(rel {lrel:.2e})")
+        print(f"sharded MLP step: {ms:.4f} ms (CUDA events, median of 10) "
+              f"[{self.card}]", flush=True)
+
+    def config1_scene(self, i, num_qp, num_handles, bucket=None):
+        """A drop scene of config 1's kind on the card (``config1_points``
+        of ``num_qp`` points and ``num_handles`` handles lifted by 0.1·i;
+        QR, gravity, a floor at y = -1 with penalty 10,000; dt 0.01, 5
+        Newton and 10 line-search steps), its object padded to ``bucket``
+        when given."""
+        from kaolin_tpu_torch.parallel.simplicits import (
+            pad_skinned_physics_points)
+        from kaolin_tpu_torch.physics.simplicits import (SimplicitsScene,
+                                                         SkinnedPhysicsPoints)
+        p = self.sim_ex.config1_points(num_qp, num_handles)
+        baked = SkinnedPhysicsPoints(
+            pts=p["pts"] + np.float32([0.0, 0.1 * i, 0.0]), yms=1e4,
+            prs=0.45, rhos=500.0, appx_vol=1.0, skinning_weights=p["w"],
+            dwdx=p["dwdx"])
+        if bucket is not None:
+            baked = pad_skinned_physics_points(baked, *bucket)
+        scene = SimplicitsScene(timestep=0.01, max_newton_steps=5,
+                                max_ls_steps=10, direct_solve=True,
+                                device="cuda")
+        scene.add_object(baked)
+        scene.set_scene_gravity((0.0, 9.8, 0.0))
+        scene.set_scene_floor(floor_height=-1.0, floor_axis=1,
+                              floor_penalty=10000.0)
+        return scene
+
+    def batch_steps(self, mesh, scenes, steps, label):
+        """``steps`` sharded batch steps → (z on the card, ms a step). Then
+        one batched step split in two and printed: the sharded step,
+        ``stack_scenes`` (each scene's step constants built, checked and
+        stacked) and ``batch_step``, the vmapped step alone on constants
+        stacked once, timed in turn for 5 rounds (host wall, synced,
+        medians); the vmapped step's device busy ms, and the share of it
+        in the batched LU's factorization kernels."""
+        torch = self.torch
+        from kaolin_tpu_torch.parallel import sharded_scene_batch_step
+        from kaolin_tpu_torch.parallel.simplicits import (batch_step,
+                                                          stack_scenes)
+        state = sharded_scene_batch_step(mesh, scenes)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = None
+        for _ in range(steps):
+            state = sharded_scene_batch_step(mesh, scenes, state=state)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3 / steps
+        step, consts, start = stack_scenes(scenes)
+        parts = {"sharded": lambda: sharded_scene_batch_step(mesh, scenes),
+                 "stack": lambda: stack_scenes(scenes),
+                 "step": lambda: batch_step(step, consts, *start)}
+        times = {k: [] for k in parts}
+        with torch.no_grad():
+            for _ in range(5):
+                for k, fn in parts.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times[k].append((time.perf_counter() - t0) * 1e3)
+            events = self.device_events(f"{label}, the vmapped step alone",
+                                        parts["step"], 3)
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        busy = sum(us for _, us in events) / 3 / 1e3
+        lu = [us for name, us in events
+              if any(k in name for k in ("getf2", "laswp", "pivinfo"))]
+        rest = ms["sharded"] - ms["stack"] - ms["step"]
+        print(f"{label}: a sharded batch step {ms['sharded']:.4f} ms "
+              f"= stack_scenes {ms['stack']:.4f} ms + the vmapped step "
+              f"{ms['step']:.4f} ms + {rest:.4f} ms else (host wall, "
+              f"synced, medians of 5 rounds in turn); "
+              f"the vmapped step: {len(events) / 3:.1f} device ops, busy "
+              f"{busy:.4f} ms (idle share {1 - busy / ms['step']:.3f}), "
+              f"{sum(lu) / 3 / 1e3:.4f} ms of it in {len(lu) / 3:g} "
+              f"launches of the batched LU's factorization (getf2, laswp, "
+              f"pivinfo) [{self.card}]", flush=True)
+        return state[0].to_local(), batch_ms
+
+    def parallel_scenes(self, mesh):
+        from kaolin_tpu_torch.parallel import make_demo_scene
+        from kaolin_tpu_torch.parallel.simplicits import bucket_pad_targets
+        sizes = [(1000, 33)] * 4 + [(800, 29)] * 4
+        bucket = bucket_pad_targets(sizes)
+        scenes, own, unpadded = ([self.config1_scene(i, nq, nh, pad)
+                                  for i, (nq, nh) in enumerate(sizes)]
+                                 for pad in (bucket, bucket, None))
+        label = ("config-1 scene batch, 8 scenes of 1,000 points and 33 "
+                 f"handles (4 of 800 and 29 padded to {bucket[0]} and "
+                 f"{bucket[1]}), no contact")
+        z, batch_ms = self.batch_steps(mesh, scenes, 10, label)
+        self.scene_batch_report(
+            label, [(s, o, z[i], nq) for i, (s, o, (nq, _)) in
+                    enumerate(zip(scenes, own, sizes))], z, 10, batch_ms)
+        # the padded scenes' real points against the unpadded scenes' (the
+        # bound of tests/parallel/test_heterogeneous_batch.py)
+        for o in unpadded:
+            o.run_sim_steps(10)
+        worst = 0.0
+        for p_s, u_s, (nq, _) in zip(own, unpadded, sizes):
+            got = p_s.get_object_deformed_pts(0)[:nq]
+            want = u_s.get_object_deformed_pts(0)
+            worst = max(worst, float(((got - want).abs()
+                                      - 1e-4 * want.abs()).max()))
+        self.check(worst <= 1e-5, f"config-1 padded scenes' real points "
+                   f"against the unpadded scenes' after 10 steps: within "
+                   f"rtol 1e-4 and atol 1e-5 (largest excess {worst:.2e})")
+
+        demo = [make_demo_scene(s, device="cuda") for s in range(8)]
+        own_demo = [make_demo_scene(s, device="cuda") for s in range(8)]
+        label = "demo batch, 8 make_demo_scene with grid contact"
+        z, batch_ms = self.batch_steps(mesh, demo, 3, label)
+        self.scene_batch_report(
+            label, [(s, o, z[i], 32)
+                    for i, (s, o) in enumerate(zip(demo, own_demo))],
+            z, 3, batch_ms)
+        flags = [int(o._col_overflow) for o in own_demo]
+        self.check(all(f == 0 for f in flags),
+                   f"demo scenes' overflow flags after 3 steps {flags}")
+
+    def scene_batch_report(self, label, own, z, steps, batch_ms):
+        """Each scene's own ``run_sim_step``s against its row of the batch
+        by B z of its real points (within 1e-4 of max|B z|; ``own`` holds
+        (batched scene, the same scene stepped alone, its row of z, real
+        points)), the batch's step time beside the sequential steps'."""
+        torch = self.torch
+        seq = 0.0
+        errs, phantom = [], 0.0
+        for s, o, zi, n in own:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                o.run_sim_step()
+            torch.cuda.synchronize()
+            seq += (time.perf_counter() - t0) * 1e3 / steps
+            got = (s.sim_B.double() @ zi.double()).reshape(-1, 3)
+            want = (o.sim_B.double() @ o.sim_z.double()).reshape(-1, 3)
+            errs.append(float((got[:n] - want[:n]).abs().max()
+                              / want[:n].abs().max()))
+            if s.sim_obj_dict[0].pts.shape[0] > n:
+                phantom = max(phantom, float(
+                    got[n:s.sim_obj_dict[0].pts.shape[0]].abs().max()
+                    / want[:n].abs().max()))
+        finite = bool(torch.isfinite(z).all())
+        self.check(finite and max(errs) <= 1e-4,
+                   f"{label}: {steps} sharded batch steps finite {finite}, "
+                   f"B z within {max(errs):.2e} of max|B z| of each scene's "
+                   f"own run_sim_step (<= 1e-4); the phantom points moved "
+                   f"{phantom:.2e} of it (not 0 in either package: ROADMAP "
+                   f"Queue C)")
+        print(f"{label}: {batch_ms:.4f} ms a batched step, {seq:.4f} ms "
+              f"for the {len(own)} scenes' sequential run_sim_step (host "
+              f"wall, synced) [{self.card}]", flush=True)
+
+    def parallel_chamfer(self, mesh):
+        torch = self.torch
+        from kaolin_tpu_torch.metrics.pointcloud import chamfer_distance
+        from kaolin_tpu_torch.parallel import sharded_chamfer_distance
+        rng = np.random.RandomState(0)
+        p1, p2 = (torch.from_numpy(rng.rand(8, 2048, 3).astype(
+            np.float32)).cuda() for _ in range(2))
+        got = sharded_chamfer_distance(mesh, p1, p2).to_local()
+        want = chamfer_distance(p1, p2)
+        rel = float(((got - want).abs() / want.abs()).max())
+        self.check(rel <= 1e-6, f"sharded chamfer, 8 clouds of 2,048 x "
+                   f"2,048: within {rel:.2e} relative of chamfer_distance")
+
+    def phase_recipes(self):
+        """Each torch recipe on the card prints what its CPU run prints:
+        integers equal, floats within 1e-5 (the draws from a seeded CPU
+        generator on both)."""
+        import re
+        number = re.compile(r"-?\d+(?:\.\d*)?(?:e[-+]?\d+)?")
+        for name in ("quaternions", "camera_recipes", "mesh_sampling",
+                     "spc_basics", "spc_from_pointcloud"):
+            path = os.path.join(ROOT, "examples", "recipes",
+                                f"torch_{name}.py")
+            spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                          path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            printed = {}
+            for dev in ("cuda", "cpu"):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    mod.main(dev)
+                printed[dev] = buf.getvalue()
+            got, want = printed["cuda"], printed["cpu"]
+            # numpy widens a column for a sign: compare the words between
+            # the numbers, their spacing aside
+            ok = (" ".join(number.sub("#", got).split())
+                  == " ".join(number.sub("#", want).split()))
+            for g, w in zip(number.findall(got), number.findall(want)):
+                if re.fullmatch(r"-?\d+", w):
+                    ok = ok and int(g) == int(w)
+                else:
+                    ok = ok and abs(float(g) - float(w)) <= 1e-5 * max(
+                        1.0, abs(float(w)))
+            self.check(ok, f"recipe {name} on the card prints its CPU "
+                       f"run's lines ({len(got.splitlines())} lines)")
+            if not ok:
+                print(got + "--- cpu\n" + want)
+
     def run(self):
         for phase in (self.phase_card, self.phase_build, self.phase_parity,
                       self.phase_spc_parity, self.phase_gather_parity,
@@ -6423,6 +7082,9 @@ class Smoke:
                       self.phase_probe_path,
                       self.phase_sim_path, self.phase_collision_path,
                       self.phase_train_path, self.phase_grad,
+                      self.phase_device_defaults, self.phase_newton_parity,
+                      self.phase_newton_path, self.phase_parallel_path,
+                      self.phase_recipes,
                       self.phase_timing, self.phase_texfit_timing,
                       self.phase_spc_timing,
                       self.phase_gather_timing, self.phase_sim_timing,

@@ -15,10 +15,11 @@ pairs. 10,712 contact particles take the grid broad phase.
 ``stack_scene`` is ``examples/collision_stack.py``'s scene: cubes skinned
 by an analytic function through ``SimplicitsObject.create_from_function``
 over a 23 x 23 plate, 40,000 contact pairs, 20 line-search steps.
-``demo_scene`` is ``kaolin_tpu.parallel.simplicits.make_demo_scene``'s: a
-soft body of a few dozen points falling onto a small kinematic plate; with
-``pad`` both objects are padded by ``pad_points`` (phantom points, as a
-heterogeneous scene batch pads them), which contact leaves out.
+``demo_scene`` is ``kaolin_tpu_torch.parallel.simplicits.make_demo_scene``:
+a soft body of a few dozen points falling onto a small kinematic plate;
+with ``pad`` both objects are padded by ``pad_skinned_physics_points``
+(phantom points, as a heterogeneous scene batch pads them), which contact
+leaves out. ``pad_points`` is that padding on keyword arrays.
 
 ``main`` runs the stack on the CUDA device by default, on the CPU when
 ``cpu`` is named, and prints the contact pairs, the first cube's mean
@@ -37,6 +38,10 @@ import sys
 import numpy as np
 import torch
 
+from kaolin_tpu_torch.parallel.simplicits import (
+    make_demo_scene,
+    pad_skinned_physics_points,
+)
 from kaolin_tpu_torch.physics.simplicits import (
     PhysicsPoints,
     SimplicitsObject,
@@ -150,93 +155,23 @@ def stack_scene(device, objects=6, qp=1700, plate_side=23,
 
 def pad_points(arrays, num_qp, num_handles, phantom_origin=(0.0, 1.0e5, 0.0),
                phantom_spacing=10.0):
-    """``kaolin_tpu.parallel.simplicits.pad_skinned_physics_points`` on the
-    keyword arrays of a ``SkinnedPhysicsPoints`` (numpy) → the padded
-    keyword arrays, ``num_real_qp`` among them. The phantom points carry no
-    mass (``num_real_qp`` marks the real prefix) and sit in a lattice of
-    tetrahedra far above the scene; each phantom handle is supported on 4
-    of them only, inserted before the constant handle."""
-    pts = np.asarray(arrays["pts"])
-    dtype = pts.dtype
-    n, h = arrays["skinning_weights"].shape
-    h_pad, q_pad = num_handles - h, num_qp - n
-    if q_pad < 0 or h_pad < 0 or q_pad < 4 * h_pad:
-        raise ValueError(f"cannot pad {n} points and {h} handles to "
-                         f"{num_qp} and {num_handles}")
-    tetra = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], dtype)
-    offsets = (np.arange(-(-q_pad // 4), dtype=dtype)[:, None]
-               * np.asarray([phantom_spacing, 0, 0], dtype))
-    lattice = (tetra[None] + offsets[:, None]).reshape(-1, 3)[:q_pad]
-    pw = np.zeros((q_pad, num_handles), dtype)
-    for k in range(h_pad):
-        pw[4 * k:4 * k + 4, h - 1 + k] = 1.0
-    w, dw = arrays["skinning_weights"], arrays["dwdx"]
-    w_pad = np.concatenate([w[:, :h - 1], np.zeros((n, h_pad), dtype),
-                            w[:, h - 1:]], axis=1)
-    dw_pad = np.concatenate([dw[:, :h - 1], np.zeros((n, h_pad, 3), dtype),
-                             dw[:, h - 1:]], axis=1)
-
-    def per_point(v):
-        v = np.broadcast_to(np.asarray(v, dtype), (n,))
-        return np.concatenate([v, np.full(q_pad, v[0], dtype)])
-
-    return dict(pts=np.concatenate([pts, np.asarray(phantom_origin, dtype)
-                                    + lattice]),
-                yms=per_point(arrays["yms"]), prs=per_point(arrays["prs"]),
-                rhos=per_point(arrays["rhos"]), appx_vol=arrays["appx_vol"],
-                skinning_weights=np.concatenate([w_pad, pw]),
-                dwdx=np.concatenate([dw_pad, np.zeros((q_pad, num_handles, 3),
-                                                      dtype)]),
-                num_real_qp=n)
+    """``kaolin_tpu_torch.parallel.simplicits.pad_skinned_physics_points``
+    on the keyword arrays of a ``SkinnedPhysicsPoints`` (numpy) → the
+    padded keyword arrays (numpy), ``num_real_qp`` among them."""
+    p = pad_skinned_physics_points(SkinnedPhysicsPoints(**arrays), num_qp,
+                                   num_handles, phantom_origin,
+                                   phantom_spacing)
+    out = {k: getattr(p, k).cpu().numpy() for k in (
+        "pts", "yms", "prs", "rhos", "skinning_weights", "dwdx")}
+    return dict(out, appx_vol=p.appx_vol, num_real_qp=p.num_real_qp)
 
 
-def demo_scene(device, seed, num_qp=32, num_handles=3, dt=0.03,
-               with_collision=True, with_kinematic=True, kinematic_qp=16,
-               max_contact_pairs=64, broad_phase="grid", pad=None,
-               **scene_kw):
-    """The scene of ``kaolin_tpu.parallel.simplicits.make_demo_scene`` on
-    ``device``, from the same numpy draws: one soft body (QR, normalized
-    weights, w = sin(x·f) and the constant handle) above a kinematic plate,
-    gravity, a floor at y = -1, contact of radius 0.15 with K = 32 and
-    M = 512; 3 Newton and 5 line-search steps. ``pad`` = (points, handles
-    of the soft body, points of the plate) pads both by
-    :func:`pad_points`."""
-    rng = np.random.RandomState(seed)
-    pts = rng.uniform(-0.5, 0.5, (num_qp, 3)).astype(np.float32)
-    freqs = rng.randn(3, num_handles - 1).astype(np.float32)
-    w = np.concatenate([np.sin(pts @ freqs), np.ones((num_qp, 1), np.float32)],
-                       axis=1).astype(np.float32)
-    dwdx = np.zeros((num_qp, num_handles, 3), dtype=np.float32)
-    dwdx[:, :-1, :] = np.cos(pts @ freqs)[:, :, None] * freqs.T[None]
-    scene = SimplicitsScene(timestep=dt, max_newton_steps=3, max_ls_steps=5,
-                            device=device, **scene_kw)
-    soft = dict(pts=pts, yms=1e4, prs=0.45, rhos=500.0, appx_vol=1.0,
-                skinning_weights=w, dwdx=dwdx)
-    if pad is not None:
-        soft = pad_points(soft, pad[0], pad[1])
-    scene.add_object(SkinnedPhysicsPoints(**soft))
-    if with_kinematic:
-        side = int(np.ceil(np.sqrt(kinematic_qp)))
-        gx, gz = np.meshgrid(np.linspace(-0.6, 0.6, side),
-                             np.linspace(-0.6, 0.6, side))
-        kpts = np.stack([gx.ravel(), np.full(side * side, -0.85),
-                         gz.ravel()], axis=1)[:kinematic_qp].astype(
-                             np.float32)
-        plate = dict(pts=kpts, yms=1e5, prs=0.45, rhos=1000.0, appx_vol=0.1,
-                     skinning_weights=np.ones((kinematic_qp, 1), np.float32),
-                     dwdx=np.zeros((kinematic_qp, 1, 3), np.float32))
-        if pad is not None:
-            plate = pad_points(plate, pad[2], 1)
-        scene.add_object(SkinnedPhysicsPoints(**plate), is_kinematic=True,
-                         apply_qr=False, normalize_weights_by_samples=False)
-    scene.set_scene_gravity((0.0, 9.8, 0.0))
-    scene.set_scene_floor(floor_height=-1.0)
-    if with_collision:
-        scene.enable_collisions(collision_particle_radius=0.15,
-                                max_contact_pairs=max_contact_pairs,
-                                broad_phase=broad_phase, cell_capacity=32,
-                                max_occupied_cells=512)
-    return scene
+def demo_scene(device, seed, **kwargs):
+    """``kaolin_tpu_torch.parallel.simplicits.make_demo_scene``'s scene on
+    ``device``: one soft body above a kinematic plate, gravity, a floor
+    and contact; ``pad`` = (points, handles of the soft body, points of
+    the plate) pads both objects."""
+    return make_demo_scene(seed, device=device, **kwargs)
 
 
 def mean_height(scene, obj_idx=0):

@@ -52,18 +52,20 @@ def pointclouds_to_voxelgrids(pointclouds, resolution, origin=None, scale=None,
     return _base_points_to_voxelgrids(normalized, resolution)
 
 
-def unbatched_pointcloud_to_spc(pointcloud, level, features=None):
-    """An unbatched [-1, 1] point cloud → Spc (batch of one) on the
-    cloud's device, with ``features`` of the points in one cell averaged
-    (rounded for integer features) as ``spc.features``."""
+def unbatched_pointcloud_to_spc(pointcloud, level, features=None,
+                                device=None):
+    """An unbatched [-1, 1] point cloud → Spc (batch of one) on ``device``,
+    else where the cloud or the features lie, else on the card, with
+    ``features`` of the points in one cell averaged (rounded for integer
+    features) as ``spc.features``."""
     from kaolin_tpu_torch.rep.spc import Spc
 
-    device = device_of(pointcloud, None)
+    device = device_of(pointcloud, device, features)
     points = host(quantize_points(torch.as_tensor(pointcloud), level))
     unique, unique_keys, unique_counts = np.unique(
         points, axis=0, return_inverse=True, return_counts=True)
     unique_keys = unique_keys.reshape(-1)
-    codes = points_to_morton(unique).numpy()
+    codes = points_to_morton(unique, "cpu").numpy()
     order = np.argsort(codes)
     octree = morton_to_octree(codes, level, device=device)
     feat = None
@@ -75,7 +77,7 @@ def unbatched_pointcloud_to_spc(pointcloud, level, features=None):
         if not np.issubdtype(feats_np.dtype, np.floating):
             acc = np.round(acc)
         feat = torch.from_numpy(acc[order].astype(feats_np.dtype)).to(
-            device_of(features, None))
+            device)
     spc = Spc(octrees=octree, lengths=torch.tensor([len(octree)],
                                                    dtype=torch.int32,
                                                    device=device))

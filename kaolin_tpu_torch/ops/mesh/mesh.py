@@ -2,7 +2,8 @@
 
 Counterpart of ``kaolin_tpu/ops/mesh/mesh.py``. Topology (``faces``) is
 numpy, a list or a tensor; adjacency and the laplacian are built on the host
-in numpy, as there, and handed back as tensors. Per-vertex averages use
+in numpy, as there, and handed back as tensors on ``device``, else where
+``faces`` lies, else on the card. Per-vertex averages use
 ``index_add`` where JAX uses ``segment_sum``.
 """
 
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from kaolin_tpu_torch.ops.batch import host
+from kaolin_tpu_torch.utils.backend import input_device
 
 __all__ = [
     "index_vertices_by_faces",
@@ -30,9 +32,9 @@ def faces_on(faces, device):
 
 
 def _device_of(faces, device):
-    if device is not None:
-        return device
-    return faces.device if isinstance(faces, torch.Tensor) else "cpu"
+    """``device``, else the device of ``faces`` when it is a tensor, else
+    the card, raising without one."""
+    return input_device(faces, device, "the mesh topology op")
 
 
 def index_vertices_by_faces(vertices_features, faces):
@@ -54,7 +56,7 @@ def _unique_edges(faces):
 def adjacency_matrix(num_vertices, faces, sparse=False, device=None):
     """Vertex adjacency (V, V) float32. ``sparse`` returns the COO pair
     (indices (2, E) int64, values (E,) float32) instead of a dense tensor.
-    On ``device``, else where ``faces`` lies (the CPU for numpy)."""
+    On ``device``, else where ``faces`` lies, else on the card."""
     device = _device_of(faces, device)
     idx = _unique_edges(faces)
     if sparse:
@@ -67,7 +69,8 @@ def adjacency_matrix(num_vertices, faces, sparse=False, device=None):
 
 def uniform_laplacian(num_vertices, faces, device=None):
     """Uniform laplacian (V, V) float32, dense: 1/deg(i) at the neighbours
-    j of i, −1 on the diagonal. On ``device``, else where ``faces`` lies."""
+    j of i, −1 on the diagonal. On ``device``, else where ``faces`` lies,
+    else on the card."""
     adj = np.zeros((num_vertices, num_vertices), dtype=np.float32)
     idx = _unique_edges(faces)
     adj[idx[:, 0], idx[:, 1]] = 1.0

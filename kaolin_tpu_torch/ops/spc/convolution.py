@@ -30,12 +30,12 @@ def _neighbor_map(point_hierarchies, pyramids, in_level, out_level,
     out_pts = unbatched_get_level_points(ph, pyramid,
                                          out_level).astype(np.int64)
     kv = host(kernel_vectors).astype(np.int64)
-    in_morton = points_to_morton(in_pts).numpy()
+    in_morton = points_to_morton(in_pts, "cpu").numpy()
     res = 2 ** in_level
     # output coords scaled to the input level, plus the kernel offsets
     targets = (out_pts[:, None, :] << (in_level - out_level)) + kv[None]
     in_range = np.all((targets >= 0) & (targets < res), axis=-1)
-    t_morton = points_to_morton(targets.reshape(-1, 3)).numpy().reshape(
+    t_morton = points_to_morton(targets.reshape(-1, 3), "cpu").numpy().reshape(
         targets.shape[:2])
     pos = np.clip(np.searchsorted(in_morton, t_morton), 0,
                   in_morton.shape[0] - 1)

@@ -9,7 +9,8 @@ Morton codes are torch bit operations on the device of their input (the
 CPU for an array). The octree's bytes are packed on the host in numpy, as
 in the JAX package: the octree has a variable length and is built once per
 asset. Each returns a tensor on ``device``; where it is None, on the device
-of the input when that is a tensor, else on the CPU. Interpolation runs on
+of the input when that is a tensor, else on the card (raising without one:
+host inputs go to the CPU only when it is named). Interpolation runs on
 the device of its inputs and is differentiable by autograd through its
 gathers.
 """
@@ -18,6 +19,8 @@ import warnings
 
 import numpy as np
 import torch
+
+from kaolin_tpu_torch.utils.backend import first_tensor, resolve_device
 
 __all__ = [
     "quantize_points",
@@ -40,12 +43,15 @@ def host(x):
     return np.asarray(x)
 
 
-def device_of(x, device):
-    """``device`` if given, else the device of ``x`` when it is a tensor,
-    else the CPU."""
-    if device is not None:
-        return torch.device(device)
-    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+def device_of(x, device, *more):
+    """``device`` if given, else the device of the first tensor of ``x``
+    and ``more``, else the card: an SPC op given host arrays runs on the
+    card unless the CPU is named, and raises where there is no card."""
+    if device is None:
+        t = first_tensor(x, *more)
+        if t is not None:
+            return t.device
+    return resolve_device(device, "the SPC op")
 
 
 def _spread_bits(x):
@@ -83,20 +89,19 @@ def quantize_points(x, level):
 
 def points_to_morton(points, device=None):
     """(..., 3) int coords → (...,) int64 Morton codes, by torch bit
-    operations on the device of ``points`` (the CPU for an array)."""
-    pts = _int64_tensor(points)
+    operations on ``device`` (:func:`device_of`)."""
+    pts = _int64_tensor(points).to(device_of(points, device))
     m = (_spread_bits(pts[..., 0]) << 2 | _spread_bits(pts[..., 1]) << 1
          | _spread_bits(pts[..., 2]))
-    return m.to(device_of(points, device))
+    return m
 
 
 def morton_to_points(morton, device=None):
     """(...,) Morton codes → (..., 3) int16 coords, by torch bit operations
-    on the device of ``morton`` (the CPU for an array)."""
-    m = _int64_tensor(morton).to(torch.int64)
-    pts = torch.stack([_compact_bits(m >> 2), _compact_bits(m >> 1),
-                       _compact_bits(m)], dim=-1).to(torch.int16)
-    return pts.to(device_of(morton, device))
+    on ``device`` (:func:`device_of`)."""
+    m = _int64_tensor(morton).to(device_of(morton, device), torch.int64)
+    return torch.stack([_compact_bits(m >> 2), _compact_bits(m >> 1),
+                        _compact_bits(m)], dim=-1).to(torch.int16)
 
 
 def unbatched_points_to_octree(points, level, sorted=False, device=None):

@@ -61,9 +61,11 @@ def _scan_single(octree_np):
     return len(counts) - 1, counts, exsum
 
 
-def scan_octrees(octrees, lengths, legacy_exsum=False):
+def scan_octrees(octrees, lengths, legacy_exsum=False, device=None):
     """(packed uint8 octrees, lengths (B,)) → (max_level, pyramids
-    (B, 2, max_level + 2) int32, exsum int32)."""
+    (B, 2, max_level + 2) int32, exsum int32), scanned on the host and
+    placed on ``device`` (``points.device_of``: else where the first
+    tensor lies, else the card)."""
     octrees_np = host(octrees)
     lengths_np = host(lengths)
     offsets = np.concatenate([[0], np.cumsum(lengths_np)])
@@ -78,14 +80,15 @@ def scan_octrees(octrees, lengths, legacy_exsum=False):
         pyramids[i, 1, 1:] = np.cumsum(counts)
         exsums.append(np.concatenate([[0], exsum]) if legacy_exsum
                       else exsum)
-    device = device_of(octrees, None)
+    device = device_of(octrees, device, lengths)
     return (max_level, torch.from_numpy(pyramids).to(device),
             torch.from_numpy(np.concatenate(exsums).astype(np.int32)).to(
                 device))
 
 
-def generate_points(octrees, pyramids, exsum):
-    """Decode octrees → packed point hierarchies (num_points, 3) int16."""
+def generate_points(octrees, pyramids, exsum, device=None):
+    """Decode octrees → packed point hierarchies (num_points, 3) int16,
+    decoded on the host and placed as :func:`scan_octrees` places."""
     octrees_np = host(octrees)
     pyramids_np = host(pyramids)
     # bytes per octree = points up to level L - 1
@@ -109,7 +112,7 @@ def generate_points(octrees, pyramids, exsum):
         all_points.append(np.concatenate(pts, axis=0))
     return torch.from_numpy(
         np.concatenate(all_points).astype(np.int16)).to(
-            device_of(octrees, None))
+            device_of(octrees, device, pyramids, exsum))
 
 
 def unbatched_get_level_points(point_hierarchy, pyramid, level):
@@ -180,9 +183,9 @@ def to_dense(point_hierarchies, pyramids, input, level=-1, **kwargs):
     return out.permute(0, 4, 1, 2, 3)
 
 
-def feature_grids_to_spc(feature_grids, masks=None):
+def feature_grids_to_spc(feature_grids, masks=None, device=None):
     """Dense (B, C, X, Y, Z) grids → (octrees, lengths, packed features),
-    on the grids' device; built on the host."""
+    built on the host and placed as :func:`scan_octrees` places."""
     fg = host(feature_grids)
     b, c = fg.shape[:2]
     dims = fg.shape[2:]
@@ -202,14 +205,15 @@ def feature_grids_to_spc(feature_grids, masks=None):
             octrees.append(np.zeros((1,), dtype=np.uint8))
             lengths.append(1)
             continue
-        octree = unbatched_points_to_octree(coords, level).numpy()
+        octree = unbatched_points_to_octree(coords, level,
+                                            device="cpu").numpy()
         octrees.append(octree)
         lengths.append(octree.shape[0])
-        order = np.argsort(points_to_morton(coords).numpy())
+        order = np.argsort(points_to_morton(coords, "cpu").numpy())
         feats.append(padded[i][tuple(coords[order].T)])
     features = (np.concatenate(feats, axis=0) if feats
                 else np.zeros((0, c), dtype=fg.dtype))
-    device = device_of(feature_grids, None)
+    device = device_of(feature_grids, device, masks)
     return (torch.from_numpy(np.concatenate(octrees)).to(device),
             torch.tensor(lengths, dtype=torch.int32, device=device),
             torch.from_numpy(features).to(device))

@@ -98,8 +98,8 @@ def _set_drop(out, idx, values, dim=0):
     tail = list(out.shape)
     tail[dim] = idx.shape[0]
     buf = torch.cat([out, out.new_zeros(tail)], dim)
-    buf.index_copy_(dim, idx, values)
-    return buf.narrow(dim, 0, n)
+    # out of place, so that ``torch.func.vmap`` batches it
+    return buf.index_copy(dim, idx, values).narrow(dim, 0, n)
 
 
 class Collision:

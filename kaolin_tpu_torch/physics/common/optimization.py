@@ -117,7 +117,9 @@ def cholesky_only(failed, with_lu=False):
     a replay and runs the step again eagerly where it is set. With
     ``with_lu`` it also solves by LU every time and takes that solution
     where the Cholesky failed, as the eager solve would: the graph needs
-    no step run again, at the LU's cost in every iteration."""
+    no step run again, at the LU's cost in every iteration. ``failed``
+    None records nothing: with ``with_lu``, the solve of a batch of scenes
+    under ``torch.func.vmap``, which reads nothing back either."""
     token = _FAILED.set((failed, with_lu))
     try:
         yield failed
@@ -140,7 +142,8 @@ def _direct_solve(red_H, red_g):
     deferred = _FAILED.get()
     if deferred is not None:
         flag, with_lu = deferred
-        flag.logical_or_(failed)
+        if flag is not None:
+            flag.logical_or_(failed)
         if with_lu:
             dx = torch.where(failed, torch.linalg.solve_ex(red_H, red_g)[0],
                              dx)

@@ -14,6 +14,8 @@ from kaolin_tpu_torch.physics.simplicits.network import (  # noqa: F401
     SimplicitsMLP,
     SkinningFn,
     SkinningModule,
+    mlp_apply,
+    mlp_init,
 )
 from kaolin_tpu_torch.physics.simplicits.precomputed import (  # noqa: F401
     dFdz_matrix,
@@ -44,3 +46,7 @@ from kaolin_tpu_torch.physics.simplicits.training import (  # noqa: F401
     SkinnedPhysicsPoints,
     SkinnedPoints,
 )
+
+# the reference's Warp fast-path losses are the same functions here
+compute_losses_warp = compute_losses
+loss_elastic_warp = loss_elastic

@@ -6,12 +6,47 @@ learned handles and appends the constant handle; :class:`SimplicitsMLP` is
 the ELU MLP of the reference (``mlp_apply`` there). Weights trained in the
 JAX package come across with
 :func:`kaolin_tpu_torch.utils.interop.simplicits_mlp_from_jax`.
+:func:`mlp_init` and :func:`mlp_apply` are the same MLP as a list of
+``{"w": (in, out), "b": (out,)}`` tensors, for callers that differentiate
+the parameters themselves (``kaolin_tpu_torch.parallel``).
 """
 
 import torch
 from torch import nn
 
-__all__ = ["SimplicitsMLP", "SkinningFn", "SkinningModule"]
+__all__ = ["SimplicitsMLP", "SkinningFn", "SkinningModule", "mlp_init",
+           "mlp_apply"]
+
+
+def mlp_init(generator, spatial_dimensions, layer_width, num_handles,
+             num_layers, dtype=torch.float32, device=None):
+    """ELU-MLP parameters: Linear(d, w) → ELU → [Linear(w, w) → ELU] ×
+    num_layers → Linear(w, H−1), as a list of ``{"w", "b"}`` dicts. Each
+    weight, then its bias, is drawn U(−1/√fan_in, 1/√fan_in) from the
+    ``torch.Generator`` ``generator``, on ``device`` (the generator's
+    device when None)."""
+    device = generator.device if device is None else torch.device(device)
+    sizes = ([spatial_dimensions] + [layer_width] * (num_layers + 1)
+             + [num_handles - 1])
+    params = []
+    for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
+        bound = fan_in ** -0.5
+        layer = {}
+        for name, shape in (("w", (fan_in, fan_out)), ("b", (fan_out,))):
+            x = torch.empty(shape, dtype=dtype, device=generator.device)
+            layer[name] = x.uniform_(-bound, bound,
+                                     generator=generator).to(device)
+        params.append(layer)
+    return params
+
+
+def mlp_apply(params, x):
+    """The MLP of :func:`mlp_init` at ``x`` (N, d) → (N, H−1): the learned
+    handles only, no constant handle."""
+    h = x
+    for layer in params[:-1]:
+        h = nn.functional.elu(h @ layer["w"] + layer["b"])
+    return h @ params[-1]["w"] + params[-1]["b"]
 
 
 def _box_corner(value, default):

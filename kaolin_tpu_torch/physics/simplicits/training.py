@@ -11,6 +11,7 @@ losses.
 """
 
 import logging
+from typing import Any, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -25,8 +26,11 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "PhysicsPoints",
+    "PhysicsPointsProtocol",
     "SkinnedPoints",
+    "SkinnedPointsProtocol",
     "SkinnedPhysicsPoints",
+    "SkinnedPhysicsPointsProtocol",
     "SimplicitsObject",
 ]
 
@@ -45,6 +49,43 @@ def _per_point(val, n, like):
         val = torch.full((n,), float(val), dtype=like.dtype,
                          device=like.device)
     return val.reshape(-1)
+
+
+@runtime_checkable
+class PhysicsPointsProtocol(Protocol):
+    """Point-sampled object with per-point material properties (pts, yms,
+    prs, rhos, appx_vol and ``subsample``)."""
+    pts: Any
+    yms: Any
+    prs: Any
+    rhos: Any
+    appx_vol: Any
+
+    def subsample(self, num_pts=None, sample_indices=None):
+        ...
+
+
+@runtime_checkable
+class SkinnedPointsProtocol(Protocol):
+    """Points with per-point skinning weights: enough to move a renderable
+    representation (e.g. gaussian splats) by LBS."""
+    pts: Any
+    skinning_weights: Any
+
+
+@runtime_checkable
+class SkinnedPhysicsPointsProtocol(Protocol):
+    """What the simulator needs of a baked object: material points,
+    skinning weights, their spatial Jacobian ``dwdx`` and optional
+    renderable points."""
+    pts: Any
+    yms: Any
+    prs: Any
+    rhos: Any
+    appx_vol: Any
+    skinning_weights: Any
+    dwdx: Any
+    renderable: Any
 
 
 class PhysicsPoints:

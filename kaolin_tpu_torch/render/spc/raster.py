@@ -107,9 +107,10 @@ def build_raster_spc(point_hierarchy, pyramid, level, device=None):
 
     On the host, once per octree. ``uids`` keeps each lane's original
     point-hierarchy index, so results are those of the Morton-order
-    traversal. The tensors go to ``device``, by default the device of
-    ``point_hierarchy``."""
-    device = device_of(point_hierarchy, device)
+    traversal. The tensors go to ``device``, else to the device of
+    ``point_hierarchy`` or ``pyramid`` when one is a tensor, else to the
+    card."""
+    device = device_of(point_hierarchy, device, pyramid)
     pyramid = host(pyramid)
     start = int(pyramid[1, level])
     num = int(pyramid[0, level])

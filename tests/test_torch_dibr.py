@@ -498,7 +498,8 @@ def test_interop_round_trip(dtype):
 
 
 def test_import_leaves_out_jax_and_kaolin_tpu():
-    """Every module of the port and every torch example imports with
+    """Every module of the port and every torch example imports, and the
+    Newton example's and the torch recipes' bodies run on the CPU, with
     ``jax`` and ``kaolin_tpu`` blocked (an import of either raises), and
     neither is loaded afterwards; ``PIL`` is blocked too, so
     ``kaolin_tpu_torch.io`` and everything else import without Pillow;
@@ -592,7 +593,15 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "kaolin_tpu_torch.experimental, "
             "kaolin_tpu_torch.experimental.dash3d, "
             "kaolin_tpu_torch.experimental.dash3d.util, "
-            "kaolin_tpu_torch.experimental.dash3d.run, runpy\n"
+            "kaolin_tpu_torch.experimental.dash3d.run, "
+            "kaolin_tpu_torch.experimental.newton, "
+            "kaolin_tpu_torch.experimental.newton.builder, "
+            "kaolin_tpu_torch.experimental.newton.collisions, "
+            "kaolin_tpu_torch.experimental.newton.model, "
+            "kaolin_tpu_torch.experimental.newton.shapes, "
+            "kaolin_tpu_torch.experimental.newton.solver, "
+            "kaolin_tpu_torch.parallel, kaolin_tpu_torch.parallel.ops, "
+            "kaolin_tpu_torch.parallel.simplicits, runpy\n"
             "for ex in ('torch_simplicits_drop', 'torch_simplicits_train', "
             "'torch_dibr_optimization', 'torch_dibr_texture_fit', "
             "'torch_tutorial_camera_rasterization', "
@@ -605,8 +614,14 @@ def test_import_leaves_out_jax_and_kaolin_tpu():
             "'torch_tutorial_diffuse_lighting', "
             "'torch_tutorial_sg_specular_lighting', 'torch_asset_render', "
             "'torch_tutorial_working_with_meshes', 'torch_usd_asset', "
-            "'torch_tutorial_usd_scene'):\n"
+            "'torch_tutorial_usd_scene', 'torch_newton_coupling'):\n"
             "    runpy.run_path(f'examples/{ex}.py')\n"
+            "runpy.run_path('examples/torch_newton_coupling.py')['run']("
+            "'cpu', 2, quiet=True)\n"
+            "for r in ('quaternions', 'camera_recipes', 'mesh_sampling', "
+            "'spc_basics', 'spc_from_pointcloud'):\n"
+            "    runpy.run_path(f'examples/recipes/torch_{r}.py')['main']("
+            "'cpu')\n"
             "bad = [m for m in sys.modules if m in ('jax', 'kaolin_tpu', "
             "'PIL', 'tornado') or m.startswith(('jax.', 'kaolin_tpu.', "
             "'PIL.', 'tornado.'))]\n"

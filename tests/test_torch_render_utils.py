@@ -278,6 +278,36 @@ def test_exports_match_jax():
         assert not missing, (jmod.__name__, missing)
     assert {"gcn", "random", "coords", "reduction"} <= set(dir(tops))
 
+    # the remaining packages and modules: their ``__all__`` where they
+    # have one, else their public names, and a package's own submodules;
+    # left out only the departures that ROADMAP.md's Queue C records
+    import importlib
+    import importlib.util
+
+    import kaolin_tpu.experimental.newton  # noqa: F401
+    import kaolin_tpu.parallel  # noqa: F401
+    import kaolin_tpu_torch.experimental.newton  # noqa: F401
+    import kaolin_tpu_torch.parallel  # noqa: F401
+    departures = {"utils": {"on_tpu", "pallas_interpret"}}
+    for name in ("physics", "physics.simplicits",
+                 "physics.simplicits.network", "physics.simplicits.training",
+                 "math.quat", "ops.spc", "render.spc", "visualize", "native",
+                 "experimental", "experimental.newton", "parallel",
+                 "parallel.ops", "parallel.simplicits", "utils"):
+        jmod = importlib.import_module(f"kaolin_tpu.{name}")
+        tmod = importlib.import_module(f"kaolin_tpu_torch.{name}")
+        names = set(getattr(jmod, "__all__", ())) or {
+            n for n in dir(jmod) if not n.startswith("_") and (
+                not isinstance(getattr(jmod, n), type(os))
+                or getattr(jmod, n).__name__.startswith(jmod.__name__ + "."))}
+        names -= departures.get(name, set())
+        # a submodule is an attribute only once something imported it
+        missing = sorted(n for n in names if not hasattr(tmod, n) and (
+            importlib.util.find_spec(f"{tmod.__name__}.{n}") is None))
+        assert not missing, (name, missing)
+    from kaolin_tpu_torch import utils as tutils
+    assert not any(hasattr(tutils, n) for n in departures["utils"])
+
 
 # -- goldens -------------------------------------------------------------
 def _golden(name):

@@ -111,7 +111,7 @@ def test_exsum_compat_matches_jax():
     with pytest.raises(ValueError, match="neither"):
         exsum_compat.ensure_current_exsum(t(ex[:-1]), lengths, "f")
     octree = spc.unbatched_points_to_octree(
-        np.array([[0, 1, 2], [3, 3, 3], [7, 0, 5]]), 3)
+        np.array([[0, 1, 2], [3, 3, 3], [7, 0, 5]]), 3, device="cpu")
     _, pyr, _ = spc.scan_octrees(torch.cat([octree, octree]),
                                  torch.tensor([len(octree)] * 2))
     eq(exsum_compat.octree_byte_lengths_from_pyramid(pyr),
@@ -383,7 +383,7 @@ def test_raytraced_spc_dataset_matches_jax():
     contracts it), the points and scalars equal."""
     rng = np.random.RandomState(7)
     q = np.unique(rng.randint(20, 44, (3000, 3)), axis=0).astype(np.int16)
-    octree = spc.unbatched_points_to_octree(q, 6)
+    octree = spc.unbatched_points_to_octree(q, 6, device="cpu")
     views = np.array([[2.0, 1.0, 1.5], [0.0, 0.0, 2.5]], np.float32)
     port = spc.RayTracedSPCDataset(t(views), octree, res=4)
     want = spc_jax.RayTracedSPCDataset(views, jnp.asarray(octree.numpy()),

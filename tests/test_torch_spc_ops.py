@@ -64,7 +64,7 @@ def test_uint8_helpers_match_jax():
 @pytest.mark.parametrize("level,seed", [(2, 0), (5, 1), (8, 2)])
 def test_octree_scan_and_points_match_jax(level, seed, monkeypatch):
     pts = shell_points(level, seed)
-    octree = spc.unbatched_points_to_octree(pts, level)
+    octree = spc.unbatched_points_to_octree(pts, level, device="cpu")
     assert octree.dtype == torch.uint8 and octree.device.type == "cpu"
     eq(octree, spc_jax.unbatched_points_to_octree(jnp.asarray(pts), level))
     native = kaolin_tpu.native.points_to_octree(pts, level)
@@ -97,7 +97,8 @@ def test_octree_scan_and_points_match_jax(level, seed, monkeypatch):
 
 
 def test_batched_scan_matches_jax():
-    trees = [spc.unbatched_points_to_octree(shell_points(lv, lv), lv)
+    trees = [spc.unbatched_points_to_octree(shell_points(lv, lv), lv,
+                                            device="cpu")
              for lv in (3, 4)]
     octrees = torch.cat(trees)
     lengths = torch.tensor([len(t) for t in trees], dtype=torch.int32)
@@ -110,3 +111,83 @@ def test_batched_scan_matches_jax():
     eq(spc.generate_points(octrees, pyr, exsum),
        spc_jax.generate_points(jnp.asarray(octrees.numpy()),
                                np.asarray(pyr), np.asarray(exsum)))
+
+
+def section_a_calls():
+    """Each SPC and mesh op that builds on the host, as (name, call of
+    (inputs as given, device))."""
+    from kaolin_tpu_torch.ops.conversions import unbatched_pointcloud_to_spc
+    from kaolin_tpu_torch.ops.mesh import adjacency_matrix, uniform_laplacian
+    from kaolin_tpu_torch.render.spc.raster import build_raster_spc
+    pts = shell_points(4, 0)
+    octree = spc.unbatched_points_to_octree(pts, 4, device="cpu").numpy()
+    _, pyr, ex = spc.scan_octrees(octree, np.array([len(octree)]),
+                                  device="cpu")
+    ph = spc.generate_points(octree, pyr, ex, device="cpu").numpy()
+    codes = np.unique(spc.points_to_morton(pts, "cpu").numpy())
+    grid = np.random.RandomState(1).rand(1, 2, 5, 6, 4).astype(np.float32)
+    grid[grid < 0.5] = 0.0
+    cloud = np.random.RandomState(2).uniform(-1, 1, (300, 3)).astype(
+        np.float32)
+    faces = np.array([[0, 1, 2], [0, 2, 3], [1, 3, 2]])
+    return [
+        ("points_to_morton", lambda a, d: spc.points_to_morton(a(pts), d)),
+        ("morton_to_points", lambda a, d: spc.morton_to_points(a(codes), d)),
+        ("unbatched_points_to_octree",
+         lambda a, d: spc.unbatched_points_to_octree(a(pts), 4, device=d)),
+        ("morton_to_octree",
+         lambda a, d: spc.morton_to_octree(a(codes), 4, device=d)),
+        ("scan_octrees", lambda a, d: spc.scan_octrees(
+            a(octree), a(np.array([len(octree)])), device=d)[1:]),
+        ("generate_points", lambda a, d: spc.generate_points(
+            a(octree), a(pyr.numpy()), a(ex.numpy()), device=d)),
+        ("feature_grids_to_spc",
+         lambda a, d: spc.feature_grids_to_spc(a(grid), device=d)),
+        ("unbatched_pointcloud_to_spc", lambda a, d: (
+            lambda s: (s.octrees, s.lengths, s.features))(
+                unbatched_pointcloud_to_spc(a(cloud), 4, a(cloud),
+                                            device=d))),
+        ("adjacency_matrix",
+         lambda a, d: adjacency_matrix(4, a(faces), device=d)),
+        ("uniform_laplacian",
+         lambda a, d: uniform_laplacian(4, a(faces), device=d)),
+        ("build_raster_spc", lambda a, d: tuple(build_raster_spc(
+            a(ph), a(pyr[0].numpy()), 4, device=d))),
+    ]
+
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        out = list(out.values())
+    return [t for x in out for t in _tensors(x)] if isinstance(
+        out, (list, tuple)) else []
+
+
+def same(a, b, name):
+    """Equal bit for bit, NaN padding included."""
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                               msg=name)
+
+
+def test_spc_and_mesh_ops_default_to_the_card():
+    """Given host arrays and no ``device``, each op builds on the card, and
+    raises where there is none; ``device="cpu"`` builds on the CPU; a CPU
+    tensor's device is kept, with the same values."""
+    host_in = np.asarray
+    for name, call in section_a_calls():
+        on_cpu = _tensors(call(host_in, "cpu"))
+        assert on_cpu and all(t.device.type == "cpu" for t in on_cpu), name
+        kept = _tensors(call(torch.as_tensor, None))
+        assert all(t.device.type == "cpu" for t in kept), name
+        for a, b in zip(kept, on_cpu):
+            same(a, b, name)
+        if torch.cuda.is_available():
+            on_card = _tensors(call(host_in, None))
+            assert all(t.is_cuda for t in on_card), name
+            for a, b in zip(on_card, on_cpu):
+                same(a.cpu(), b, name)
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call(host_in, None)

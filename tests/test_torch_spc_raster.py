@@ -164,7 +164,7 @@ def assert_depths_match(t, nidx, valid, t_ref, nidx_ref, valid_ref):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_build_raster_spc_matches_jax(scenes, name):
     s = scenes[name]
-    octree = spc.unbatched_points_to_octree(s.points, s.level)
+    octree = spc.unbatched_points_to_octree(s.points, s.level, device="cpu")
     _, pyramids, exsum = spc.scan_octrees(octree, torch.tensor([len(octree)]))
     ph = spc.generate_points(octree, pyramids, exsum)
     np.testing.assert_array_equal(ph.numpy(), np.asarray(s.ph_jax))
@@ -242,7 +242,7 @@ def test_sequence_matches_per_frame():
 
 
 def raster_scene(points, level):
-    octree = spc.unbatched_points_to_octree(points, level)
+    octree = spc.unbatched_points_to_octree(points, level, device="cpu")
     _, pyramids, exsum = spc.scan_octrees(octree, torch.tensor([len(octree)]))
     return build_raster_spc(spc.generate_points(octree, pyramids, exsum),
                             pyramids[0], level)

@@ -151,7 +151,7 @@ def level11():
     o = np.concatenate(rays).astype(np.float32)
     d = np.tile(np.array([1e-4, 2e-4, 1.0], np.float32), (len(o), 1))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    octree = spc.unbatched_points_to_octree(q, level)
+    octree = spc.unbatched_points_to_octree(q, level, device="cpu")
     _, pyr, ex = spc.scan_octrees(octree, torch.tensor([len(octree)]))
     oj, exj, _, _ = jax_scene(octree.numpy())
     return {"q": q, "o": o, "d": d, "n": n * n,
@@ -408,7 +408,8 @@ def test_golden_spc_depth():
     pts = np.concatenate([d * 0.62, d * 0.615])
     q = np.unique(np.clip(((pts + 1) * 0.5 * grid).astype(np.int64), 0,
                           grid - 1), axis=0)
-    octree = spc.unbatched_points_to_octree(q.astype(np.int16), level)
+    octree = spc.unbatched_points_to_octree(q.astype(np.int16), level,
+                                            device="cpu")
     _, _, exsum = spc.scan_octrees(octree, torch.tensor([len(octree)]))
     cam = Camera.from_args(eye=torch.tensor([1.6, 1.2, 1.8]),
                            at=torch.zeros(3),

@@ -1,0 +1,9 @@
+"""Device ms per step of the operations launched inside the benchmark's
+``optimizer`` spans (the host call in the span, on any thread)."""
+
+
+def read(run):
+    if run.trace is None or "optimizer" not in run.trace.spans:
+        return None
+    ms = 1e3 * run.trace.span_device_s("optimizer")
+    return ms if ms > 0 else None

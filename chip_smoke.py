@@ -812,26 +812,38 @@ class Smoke:
         self.results = {name: dict(meta) for name, meta in KERNELS.items()}
         self._config3 = None
         self.per_step = {}   # kernel -> launches per step or frame
+        self.driven = {}     # kernel -> launches in the last drive()
 
     # -- helpers ---------------------------------------------------------
     def counters(self):
-        return {"winner": self.cr.rasterize_search_cuda,
-                "soft_mask_fwd": self.cs.soft_mask_fwd_cuda,
-                "soft_mask_bwd": self.cs.soft_mask_bwd_cuda,
-                "spc_raster": self.craster.raster_tiles_cuda,
-                "spc_untile": self.craster.untile_cuda,
-                "table_gather_smem": self.cg.table_gather_smem_cuda,
-                "table_gather_l2": self.cg.table_gather_l2_cuda}
+        """Each kernel by its name here → its launch counter's name in the
+        port's registry (``profiling.counters()``)."""
+        return {"winner": self.cr.LAUNCHES,
+                "soft_mask_fwd": self.cs.FWD_LAUNCHES,
+                "soft_mask_bwd": self.cs.BWD_LAUNCHES,
+                "spc_raster": self.craster.RASTER_LAUNCHES,
+                "spc_untile": self.craster.UNTILE_LAUNCHES,
+                "table_gather_smem": self.cg.SMEM_LAUNCHES,
+                "table_gather_l2": self.cg.L2_LAUNCHES}
+
+    def launches(self):
+        """Every kernel's launches so far, and the soft-mask forward's given
+        the rasterizer's ids (``soft_mask_fwd_with_face_idx``)."""
+        got = self.profiling.counters()
+        out = {k: got[name] for k, name in self.counters().items()}
+        out["soft_mask_fwd_with_face_idx"] = got[self.cs.FWD_WITH_FACE_IDX]
+        return out
 
     def drive(self, names, path):
-        """Run ``path`` with every launch counter set to 0 just before →
-        (its result, the launches of the kernels ``names`` just after)."""
-        for fn in self.counters().values():
-            fn.launches = 0
-        self.cs.soft_mask_fwd_cuda.launches_with_face_idx = 0
+        """Run ``path`` → (its result, the launches of the kernels ``names``
+        it made: what every counter would read had it been set to 0 just
+        before and read just after, as the phases' descriptions say). Every
+        counter's launches during it stay in ``self.driven``."""
+        before = self.launches()
         out = path()
         self.torch.cuda.synchronize()
-        return out, {k: self.counters()[k].launches for k in names}
+        self.driven = {k: n - before[k] for k, n in self.launches().items()}
+        return out, {k: self.driven[k] for k in names}
 
     def check(self, ok, what):
         print(("PASS " if ok else "FAIL ") + what, flush=True)
@@ -1116,7 +1128,7 @@ class Smoke:
         for k, n in launches.items():
             self.results[k]["launches"] = n
             self.check(n > 0, f"main path launched {k} ({n} times)")
-        with_idx = self.cs.soft_mask_fwd_cuda.launches_with_face_idx
+        with_idx = self.driven["soft_mask_fwd_with_face_idx"]
         self.check(with_idx == launches["soft_mask_fwd"],
                    f"main path gave the soft-mask forward the rasterizer's "
                    f"ids at {with_idx} of {launches['soft_mask_fwd']} launches")
@@ -1323,7 +1335,7 @@ class Smoke:
             losses.append(float(loss))
             sil.append(float(terms["silhouette"]))
             counts.append(n)
-            with_idx.append(self.cs.soft_mask_fwd_cuda.launches_with_face_idx)
+            with_idx.append(self.driven["soft_mask_fwd_with_face_idx"])
         host_s = time.perf_counter() - t0
         end = [float(x) for x in ex.pose_error(scene, params)]
         peak = torch.cuda.max_memory_allocated() - base
@@ -4512,10 +4524,10 @@ class Smoke:
                 self.check(same and got.shape == idx.shape,
                            f"{name} vs plain [{label}]: bitwise {same}")
                 self.record_err(name, float((got - want).abs().max()))
-            before = {k: f.launches for k, f in self.counters().items()}
+            before = self.launches()
             cg.table_gather(table, idx)
-            took = [k for k, f in self.counters().items()
-                    if f.launches != before[k]]
+            after = self.launches()
+            took = [k for k in self.counters() if after[k] != before[k]]
             self.check(took == [f"table_gather_{route}"],
                        f"table_gather of {table.shape[0]} floats took "
                        f"{took}, the rule says {route}")
@@ -4802,7 +4814,7 @@ class Smoke:
             t0 = time.perf_counter()
             _, launches = self.drive((), path)
             wall = time.perf_counter() - t0
-            counts = {k: f.launches for k, f in self.counters().items()}
+            counts = {k: self.driven[k] for k in self.counters()}
             low = float(scene.get_object_deformed_pts(0)[:, 1].min())
             finite = all(bool(torch.isfinite(x).all()) for x in
                          (scene.sim_z, scene.sim_z_dot))

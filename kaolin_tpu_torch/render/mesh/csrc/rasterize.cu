@@ -41,6 +41,8 @@
 //   with --fmad=false and without fast math).
 // * The output is written as a row-major (B, H, W) int32 image, and the
 //   ragged edge is masked, so any H and W work.
+// * Given the pair counters (tiles.cuh), a block adds its list's length
+//   times its tile's in-image pixels: the pairs whose box test it ran.
 
 #include <cuda_runtime.h>
 
@@ -129,7 +131,10 @@ __global__ void __launch_bounds__(kBoxThreads)
 winner_box_kernel(const float* __restrict__ fvi,
                   const unsigned char* __restrict__ valid,
                   float4* __restrict__ boxes, float4* __restrict__ groups,
-                  int F) {
+                  int F, unsigned long long* counters, int reset) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    zero_pairs(counters, reset);
+  }
   face_boxes(fvi, valid, boxes, groups, F, 0.f);
 }
 
@@ -141,6 +146,7 @@ winner_kernel(const float* __restrict__ fvz,     // (B, F, 3)
               const float4* __restrict__ boxes,  // (B, F)
               const float4* __restrict__ groups, // (B, G)
               int* __restrict__ out,             // (B, H, W)
+              unsigned long long* pairs,         // or null
               int F, int H, int W, float sx, float sy, float eps) {
   constexpr int NT = TILE * TILE * K;
   extern __shared__ float4 smem[];
@@ -164,8 +170,14 @@ winner_kernel(const float* __restrict__ fvz,     // (B, F, 3)
                            tid % K,
                            -INFINITY,
                            -1};
-  walk_tile_faces<NT>(boxes + static_cast<size_t>(b) * F, groups, F,
-                      tile_rect<TILE>(H, W, sx, sy), *s_list, flush);
+  const int listed =
+      walk_tile_faces<NT>(boxes + static_cast<size_t>(b) * F, groups, F,
+                          tile_rect<TILE>(H, W, sx, sy), *s_list, flush);
+  if (pairs != nullptr && tid == 0) {
+    const int px = min(TILE, W - static_cast<int>(blockIdx.x) * TILE) *
+                   min(TILE, H - static_cast<int>(blockIdx.y) * TILE);
+    atomicAdd(pairs, static_cast<unsigned long long>(listed) * px);
+  }
   float best_z = flush.best_z;
   int best_id = flush.best_id;
   // a hit has z > -inf and an id >= 0; a miss is (-inf, -1)
@@ -186,17 +198,20 @@ winner_kernel(const float* __restrict__ fvz,     // (B, F, 3)
 template <int TILE, int K>
 int launch_winner(const void* fvz, const void* fvi, const void* valid,
                   void* work, void* out, int B, int F, int H, int W, float sx,
-                  float sy, float eps, void* stream) {
+                  float sy, float eps, void* counters, int reset,
+                  void* stream) {
   if (B == 0) return static_cast<int>(cudaGetLastError());
   constexpr int NT = TILE * TILE * K;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float4* boxes = static_cast<float4*>(work);
   float4* groups = boxes + static_cast<size_t>(B) * F;
+  unsigned long long* c = static_cast<unsigned long long*>(counters);
   if (F > 0) {
     winner_box_kernel<<<dim3((F + kBoxThreads - 1) / kBoxThreads, B),
                         kBoxThreads, 0, st>>>(
         static_cast<const float*>(fvi),
-        static_cast<const unsigned char*>(valid), boxes, groups, F);
+        static_cast<const unsigned char*>(valid), boxes, groups, F, c,
+        reset);
   }
   const size_t smem = kList * sizeof(WinnerFace) + sizeof(ListSmem<NT>);
   const auto kernel = winner_kernel<TILE, K>;
@@ -206,18 +221,23 @@ int launch_winner(const void* fvz, const void* fvi, const void* valid,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B), NT, smem,
            st>>>(static_cast<const float*>(fvz), static_cast<const float*>(fvi),
-                 boxes, groups, static_cast<int*>(out), F, H, W, sx, sy, eps);
+                 boxes, groups, static_cast<int*>(out),
+                 pair_counter(c, kWinnerPairs), F, H, W, sx, sy, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// work: (B * F + B * ceil(F / 32)) float4, the face and group boxes.
+// work: (B * F + B * ceil(F / 32)) float4, the face and group boxes;
+// counters: the three pair counters (tiles.cuh) or null, zeroed first where
+// reset is set (F > 0).
 extern "C" int kaolin_rasterize_winner(const void* fvz, const void* fvi,
                                        const void* valid, void* work,
                                        void* out, int B, int F, int H, int W,
                                        float sx, float sy, float eps,
+                                       void* counters, int reset,
                                        void* stream) {
   return launch_winner<kWinnerTile, kWinnerSplit>(
-      fvz, fvi, valid, work, out, B, F, H, W, sx, sy, eps, stream);
+      fvz, fvi, valid, work, out, B, F, H, W, sx, sy, eps, counters, reset,
+      stream);
 }

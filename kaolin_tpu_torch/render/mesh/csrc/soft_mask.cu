@@ -58,6 +58,9 @@
 // * It keeps a running product of (1 - p), as the reference CUDA kernel and
 //   the all-faces plain version do; the TPU kernel's exp(sum log(1 - p)) was
 //   a Mosaic workaround.
+// * Given the pair counters (tiles.cuh), a block adds its list's length
+//   times its pixels to compute; the backward's plan adds its faces' pixel
+//   ranges, the pixels whose cotangent the band pass reads.
 //
 // The backward is face-major, in four launches, with no atomics:
 // * soft_bwd_count_kernel, one thread a face: the exact pixel range of the
@@ -247,7 +250,11 @@ struct SoftFlush {
 
 __global__ void __launch_bounds__(kBoxThreads)
 soft_fwd_box_kernel(const float* __restrict__ fvi, float4* __restrict__ boxes,
-                    float4* __restrict__ groups, int F, float margin) {
+                    float4* __restrict__ groups, int F, float margin,
+                    unsigned long long* counters, int reset) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    zero_pairs(counters, reset);
+  }
   face_boxes(fvi, nullptr, boxes, groups, F, margin);
 }
 
@@ -260,6 +267,7 @@ soft_fwd_kernel(const float* __restrict__ fvi,      // (B, F, 3, 2), scaled
                 const float4* __restrict__ groups,  // (B, G)
                 const int* __restrict__ face_idx,   // (B, H, W) or null
                 float* __restrict__ allprob,        // (B, H, W)
+                unsigned long long* pairs,          // or null
                 int F, int H, int W, float sx, float sy, float margin,
                 float neg_sigmainv, float mm, float bad) {
   constexpr int NT = TILE * TILE * K;
@@ -309,8 +317,12 @@ soft_fwd_kernel(const float* __restrict__ fvi,      // (B, F, 3, 2), scaled
                          active,
                          tid % K,
                          1.f};
-  walk_tile_faces<NT>(boxes + static_cast<size_t>(b) * F, groups, F,
-                      tile_rect<TILE>(H, W, sx, sy), *s_list, flush);
+  const int listed =
+      walk_tile_faces<NT>(boxes + static_cast<size_t>(b) * F, groups, F,
+                          tile_rect<TILE>(H, W, sx, sy), *s_list, flush);
+  if (pairs != nullptr && tid == 0) {
+    atomicAdd(pairs, static_cast<unsigned long long>(listed) * n_pix);
+  }
   // the K partial products, multiplied in a fixed tree over the lanes
   float ap = flush.ap;
 #pragma unroll
@@ -363,8 +375,11 @@ __device__ __forceinline__ Range pixel_range(const Box& box, int H, int W,
 __global__ void soft_bwd_count_kernel(const float* __restrict__ fvi,
                                       int4* __restrict__ ranges,  // (B*F,)
                                       int BF, int H, int W, float sx,
-                                      float sy, float margin) {
+                                      float sy, float margin,
+                                      unsigned long long* counters,
+                                      int reset) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == 0) zero_pairs(counters, reset);
   if (i >= BF) return;
   float v[6];
 #pragma unroll
@@ -379,13 +394,14 @@ __global__ void soft_bwd_count_kernel(const float* __restrict__ fvi,
 // in one coalesced sweep; thread t then takes consecutive faces, so one
 // block-wide scan of the threads' sums numbers a tile's bands. Slots past
 // cap are not written: the plan then starts again with bands twice as
-// large.
+// large. Given `pairs`, the first pass adds up the ranges' pixels there.
 __global__ void __launch_bounds__(kPlanThreads)
 soft_bwd_plan_kernel(const int4* __restrict__ ranges,  // (B*F,)
                      int* __restrict__ first,          // (B*F,)
                      int* __restrict__ nbands,         // (B*F,)
                      int2* __restrict__ slots,         // (cap,)
                      int* __restrict__ meta,           // (2,)
+                     unsigned long long* pairs,        // or null
                      int BF, int cap) {
   __shared__ int s_nb[kPlanTile];
   __shared__ int s_warp[kPlanThreads / 32];
@@ -394,12 +410,16 @@ soft_bwd_plan_kernel(const int4* __restrict__ ranges,  // (B*F,)
   const int warp = tid >> 5;
   int band_px = kBandPx;
   int total;
+  unsigned long long visited = 0;
   for (;;) {
     total = 0;
+    const bool counting = pairs != nullptr && band_px == kBandPx;
     for (int t0 = 0; t0 < BF; t0 += kPlanTile) {
       const int nt = min(kPlanTile, BF - t0);
       for (int j = tid; j < nt; j += kPlanThreads) {
-        s_nb[j] = (ranges[t0 + j].w + band_px - 1) / band_px;
+        const int px = ranges[t0 + j].w;
+        s_nb[j] = (px + band_px - 1) / band_px;
+        if (counting) visited += px;
       }
       __syncthreads();
       const int per = (nt + kPlanThreads - 1) / kPlanThreads;
@@ -444,6 +464,13 @@ soft_bwd_plan_kernel(const int4* __restrict__ ranges,  // (B*F,)
   if (tid == 0) {
     meta[0] = total;
     meta[1] = band_px;
+  }
+  if (pairs != nullptr) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      visited += __shfl_down_sync(kFullWarp, visited, off);
+    }
+    if (lane == 0) atomicAdd(pairs, visited);
   }
 }
 
@@ -629,16 +656,18 @@ template <int TILE, int K>
 int launch_soft_fwd(const void* fvi, const void* face_idx, void* work,
                     void* allprob, int B, int F, int H, int W, float sx,
                     float sy, float margin, float neg_sigmainv, float mm,
-                    float bad, void* stream) {
+                    float bad, void* counters, int reset, void* stream) {
   if (B == 0) return static_cast<int>(cudaGetLastError());
   constexpr int NT = TILE * TILE * K;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(fvi);
   float4* boxes = static_cast<float4*>(work);
   float4* groups = boxes + static_cast<size_t>(B) * F;
+  unsigned long long* c = static_cast<unsigned long long*>(counters);
   if (F > 0) {
     soft_fwd_box_kernel<<<dim3((F + kBoxThreads - 1) / kBoxThreads, B),
-                          kBoxThreads, 0, st>>>(v, boxes, groups, F, margin);
+                          kBoxThreads, 0, st>>>(v, boxes, groups, F, margin,
+                                                c, reset);
   }
   const size_t smem = kList * sizeof(SoftFace) + sizeof(ListSmem<NT>) +
                       TILE * TILE * sizeof(int);
@@ -649,32 +678,36 @@ int launch_soft_fwd(const void* fvi, const void* face_idx, void* work,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B), NT, smem,
            st>>>(v, boxes, groups, static_cast<const int*>(face_idx),
-                 static_cast<float*>(allprob), F, H, W, sx, sy, margin,
-                 neg_sigmainv, mm, bad);
+                 static_cast<float*>(allprob), pair_counter(c, kSoftFwdPairs),
+                 F, H, W, sx, sy, margin, neg_sigmainv, mm, bad);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // work: (B * F + B * ceil(F / 32)) float4, the face and group boxes;
-// face_idx: (B, H, W) int32 or null.
+// face_idx: (B, H, W) int32 or null; counters: the three pair counters
+// (tiles.cuh) or null, zeroed first where reset is set (F > 0).
 extern "C" int kaolin_soft_mask_fwd(const void* fvi, const void* face_idx,
                                     void* work, void* allprob, int B, int F,
                                     int H, int W, float sx, float sy,
                                     float margin, float neg_sigmainv, float mm,
-                                    float bad, void* stream) {
+                                    float bad, void* counters, int reset,
+                                    void* stream) {
   return launch_soft_fwd<kSoftTile, kSoftSplit>(
       fvi, face_idx, work, allprob, B, F, H, W, sx, sy, margin, neg_sigmainv,
-      mm, bad, stream);
+      mm, bad, counters, reset, stream);
 }
 
 // work, int32 words: ranges (4 B*F), first (B*F), nbands (B*F), meta (2),
-// slots (2 cap), then cap x 6 float32 band sums.
+// slots (2 cap), then cap x 6 float32 band sums; counters: the three pair
+// counters (tiles.cuh) or null, zeroed first where reset is set.
 extern "C" int kaolin_soft_mask_bwd(const void* fvi, const void* ga,
                                     void* grad, void* work, int B, int F,
                                     int H, int W, int cap, float sx, float sy,
                                     float margin, float neg_sigmainv, float mm,
-                                    float k, float bad, void* stream) {
+                                    float k, float bad, void* counters,
+                                    int reset, void* stream) {
   const int BF = B * F;
   if (BF == 0) return static_cast<int>(cudaGetLastError());
   int blocks = 0;
@@ -688,11 +721,13 @@ extern "C" int kaolin_soft_mask_bwd(const void* fvi, const void* ga,
   int2* slots = reinterpret_cast<int2*>(meta + 2);
   float* partial = reinterpret_cast<float*>(slots + cap);
   const float* v = static_cast<const float*>(fvi);
+  unsigned long long* c = static_cast<unsigned long long*>(counters);
   soft_bwd_count_kernel<<<(BF + kFlatThreads - 1) / kFlatThreads,
                           kFlatThreads, 0, st>>>(v, ranges, BF, H, W, sx, sy,
-                                                 margin);
-  soft_bwd_plan_kernel<<<1, kPlanThreads, 0, st>>>(ranges, first, nbands,
-                                                   slots, meta, BF, cap);
+                                                 margin, c, reset);
+  soft_bwd_plan_kernel<<<1, kPlanThreads, 0, st>>>(
+      ranges, first, nbands, slots, meta, pair_counter(c, kSoftBwdPairs), BF,
+      cap);
   soft_bwd_kernel<<<blocks, kBandThreads, 0, st>>>(
       v, static_cast<const float*>(ga), ranges, slots, meta, partial, F, H, W,
       sx, sy, neg_sigmainv, mm, k, bad);

@@ -27,6 +27,15 @@
 // No face that holds a pixel of the tile is left out, and the faces come in
 // ascending id order, as a per-face loop over all faces visits them.
 // rasterization.tile_face_lists is the plain model of this cull.
+//
+// The pair counters. While torch.profiler runs, the wrappers pass the
+// three int64 counters of profiling.device_counters (cuda_rasterize.PAIRS,
+// in this order), and each main kernel adds the (pixel, face) pairs it
+// visited: a block of #1 or #2 its list's length times the pixels it
+// evaluates, #3's plan the pixels of its faces' ranges. The first launch of
+// a session passes reset, and its pre-pass zeroes all three before any
+// kernel adds, so no launch of its own zeroes them. Otherwise the pointer
+// is null and each block tests it once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,6 +48,25 @@ constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kGroup = 32;   // faces per group box: one warp of the pre-pass
 constexpr int kList = 256;   // faces whose data a block stages at once
 constexpr int kBoxThreads = 256;
+constexpr int kWinnerPairs = 0;    // the pair counters, by kernel
+constexpr int kSoftFwdPairs = 1;
+constexpr int kSoftBwdPairs = 2;
+constexpr int kPairCounters = 3;
+
+// Zero the pair counters where reset is set; one thread of a pre-pass.
+__device__ __forceinline__ void zero_pairs(unsigned long long* counters,
+                                           int reset) {
+  if (reset && counters != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kPairCounters; ++i) counters[i] = 0ull;
+  }
+}
+
+// The counter at `which`, or null where the counters are.
+__device__ __host__ __forceinline__ unsigned long long* pair_counter(
+    unsigned long long* counters, int which) {
+  return counters == nullptr ? nullptr : counters + which;
+}
 
 // Pixel-centre coordinates, x right and y up, rounded exactly as
 // rasterization._pixel_coords rounds them: sx = fl(multiplier / W) is
@@ -154,16 +182,18 @@ __device__ __forceinline__ int append_ordered(bool live, int x, int* list,
 }
 
 // Build the tile's ascending face list and hand it to flush(ids, n) kList
-// faces at a time, the rest at the end. flush is called by every thread and
-// must end with a barrier. boxes and groups are this batch element's.
+// faces at a time, the rest at the end → the list's length, the same in
+// every thread. flush is called by every thread and must end with a
+// barrier. boxes and groups are this batch element's.
 template <int NT, class Flush>
-__device__ __forceinline__ void walk_tile_faces(
+__device__ __forceinline__ int walk_tile_faces(
     const float4* __restrict__ boxes, const float4* __restrict__ groups, int F,
     const Box& rect, ListSmem<NT>& s, Flush& flush) {
   const int tid = threadIdx.x;
   const int G = (F + kGroup - 1) / kGroup;
   constexpr int kPerBatch = NT / kGroup;  // groups whose faces one pass reads
   int count = 0;
+  int listed = 0;
   for (int g0 = 0; g0 < G; g0 += NT) {
     const int g = g0 + tid;
     const bool near = g < G && boxes_meet(as_box(groups[g]), rect);
@@ -175,6 +205,7 @@ __device__ __forceinline__ void walk_tile_faces(
       count = append_ordered<NT>(live, f, s.ids, count, s.warp_count);
       while (count >= kList) {  // the same for the whole block
         flush(s.ids, kList);
+        listed += kList;
         const int rest = count - kList;  // < NT
         const int keep = tid < rest ? s.ids[kList + tid] : 0;
         __syncthreads();
@@ -185,6 +216,7 @@ __device__ __forceinline__ void walk_tile_faces(
     }
   }
   if (count > 0) flush(s.ids, count);
+  return listed + count;
 }
 
 }  // namespace kaolin_mesh

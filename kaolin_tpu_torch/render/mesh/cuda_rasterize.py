@@ -5,20 +5,40 @@ Its plain PyTorch version is
 :func:`kaolin_tpu_torch.render.mesh.rasterization.rasterize_search_plain`;
 :func:`~kaolin_tpu_torch.render.mesh.rasterization.rasterize` calls this
 wrapper for CUDA tensors and the plain version for CPU tensors.
+
+Counters (:mod:`kaolin_tpu_torch.utils.profiling`): ``LAUNCHES``, and while
+the profiler runs the (pixel, face) pairs the search visits,
+``render.mesh.winner.pairs`` (``PAIRS``, ``csrc/tiles.cuh``).
 """
 
 import ctypes
 
 import torch
 
-from kaolin_tpu_torch.utils import cuda_build
+from kaolin_tpu_torch.utils import cuda_build, profiling
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [_P]
+_ARGTYPES = [_P] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 \
+    + [_P, ctypes.c_int, _P]
 # faces per group box of the kernels' pre-pass (csrc/tiles.cuh, kGroup), and
 # the side of both mesh kernels' pixel tiles (kWinnerTile, kSoftTile)
 GROUP = 32
 TILE = 8
+# the mesh kernels' device counters, in the order csrc/tiles.cuh takes them:
+# the (pixel, face) pairs #1, #2 and #3 visit
+PAIRS = ("render.mesh.winner.pairs", "render.mesh.soft_mask_fwd.pairs",
+         "render.mesh.soft_mask_bwd.pairs")
+LAUNCHES = "render.mesh.winner.launches"
+profiling.count(LAUNCHES, 0)
+
+
+def pair_counters(b, f, device):
+    """(address, reset) of the pair counters for a launch over ``b`` x
+    ``f`` faces: (None, False) while the profiler is off or where there is
+    no face, so that no pre-pass runs to zero them."""
+    if b * f == 0:
+        return None, False
+    return profiling.device_counters(PAIRS, device)
 
 
 def box_work(b, f, device):
@@ -55,6 +75,7 @@ def rasterize_search_cuda(face_vertices_z, face_vertices_image, valid_mask,
                       device=face_vertices_z.device)
     work = box_work(b, f, out.device)
     fn = cuda_build.function("kaolin_rasterize_winner", _ARGTYPES)
+    counters, reset = pair_counters(b, f, out.device)
     with torch.cuda.device(face_vertices_z.device):
         status = fn(cuda_build.ptr(face_vertices_z),
                     cuda_build.ptr(face_vertices_image),
@@ -62,11 +83,8 @@ def rasterize_search_cuda(face_vertices_z, face_vertices_image, valid_mask,
                     cuda_build.ptr(work),
                     cuda_build.ptr(out),
                     b, f, height, width, multiplier / width,
-                    multiplier / height, eps,
+                    multiplier / height, eps, counters, int(reset),
                     cuda_build.stream(face_vertices_z))
     cuda_build.check(status, "kaolin_rasterize_winner")
-    rasterize_search_cuda.launches += 1
+    profiling.count(LAUNCHES)
     return out
-
-
-rasterize_search_cuda.launches = 0

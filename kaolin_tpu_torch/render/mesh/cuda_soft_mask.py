@@ -5,20 +5,31 @@ Their plain PyTorch versions are
 :func:`kaolin_tpu_torch.render.mesh.dibr.soft_mask_plain` (forward) and its
 autograd (backward); ``dibr._SoftMask`` calls these wrappers for CUDA
 tensors and the plain versions for CPU tensors.
+
+Counters (:mod:`kaolin_tpu_torch.utils.profiling`): the launches of each
+(``FWD_LAUNCHES``, ``FWD_WITH_FACE_IDX``, ``BWD_LAUNCHES``), and while the
+profiler runs the (pixel, face) pairs each visits,
+``render.mesh.soft_mask_fwd.pairs`` and ``render.mesh.soft_mask_bwd.pairs``
+(``cuda_rasterize.PAIRS``).
 """
 
 import ctypes
 
 import torch
 
-from kaolin_tpu_torch.render.mesh.cuda_rasterize import box_work
-from kaolin_tpu_torch.utils import cuda_build
+from kaolin_tpu_torch.render.mesh.cuda_rasterize import box_work, pair_counters
+from kaolin_tpu_torch.utils import cuda_build, profiling
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_FWD_ARGTYPES = [_P] * 4 + [_I] * 4 + [_F] * 6 + [_P]
-_BWD_ARGTYPES = [_P] * 4 + [_I] * 5 + [_F] * 7 + [_P]
+_FWD_ARGTYPES = [_P] * 4 + [_I] * 4 + [_F] * 6 + [_P, _I, _P]
+_BWD_ARGTYPES = [_P] * 4 + [_I] * 5 + [_F] * 7 + [_P, _I, _P]
+FWD_LAUNCHES = "render.mesh.soft_mask_fwd.launches"
+FWD_WITH_FACE_IDX = "render.mesh.soft_mask_fwd.launches_with_face_idx"
+BWD_LAUNCHES = "render.mesh.soft_mask_bwd.launches"
+for _name in (FWD_LAUNCHES, FWD_WITH_FACE_IDX, BWD_LAUNCHES):
+    profiling.count(_name, 0)
 
 
 def _scalars(sigmainv, boxlen, multiplier, height, width):
@@ -71,18 +82,19 @@ def soft_mask_fwd_cuda(face_vertices_image, sigmainv, boxlen, multiplier,
     out = torch.empty((b, height, width), dtype=torch.float32, device=device)
     work = box_work(b, f, device)
     fn = cuda_build.function("kaolin_soft_mask_fwd", _FWD_ARGTYPES)
+    counters, reset = pair_counters(b, f, device)
     with torch.cuda.device(device):
         status = fn(cuda_build.ptr(face_vertices_image),
                     None if face_idx is None else cuda_build.ptr(face_idx),
                     cuda_build.ptr(work), cuda_build.ptr(out), b, f, height,
                     width,
                     *_scalars(sigmainv, boxlen, multiplier, height, width),
-                    4.0 * multiplier * multiplier,
+                    4.0 * multiplier * multiplier, counters, int(reset),
                     cuda_build.stream(face_vertices_image))
     cuda_build.check(status, "kaolin_soft_mask_fwd")
-    soft_mask_fwd_cuda.launches += 1
+    profiling.count(FWD_LAUNCHES)
     if face_idx is not None:
-        soft_mask_fwd_cuda.launches_with_face_idx += 1
+        profiling.count(FWD_WITH_FACE_IDX)
     return out
 
 
@@ -103,19 +115,15 @@ def soft_mask_bwd_cuda(face_vertices_image, ga, sigmainv, boxlen, multiplier,
     work = torch.empty(6 * b * f + 2 + 8 * cap, dtype=torch.int32,
                        device=face_vertices_image.device)
     fn = cuda_build.function("kaolin_soft_mask_bwd", _BWD_ARGTYPES)
+    counters, reset = pair_counters(b, f, face_vertices_image.device)
     with torch.cuda.device(face_vertices_image.device):
         status = fn(cuda_build.ptr(face_vertices_image), cuda_build.ptr(ga),
                     cuda_build.ptr(grad), cuda_build.ptr(work), b, f, height,
                     width, cap,
                     *_scalars(sigmainv, boxlen, multiplier, height, width),
                     sigmainv / (multiplier * multiplier),
-                    4.0 * multiplier * multiplier,
+                    4.0 * multiplier * multiplier, counters, int(reset),
                     cuda_build.stream(face_vertices_image))
     cuda_build.check(status, "kaolin_soft_mask_bwd")
-    soft_mask_bwd_cuda.launches += 1
+    profiling.count(BWD_LAUNCHES)
     return grad
-
-
-soft_mask_fwd_cuda.launches = 0
-soft_mask_fwd_cuda.launches_with_face_idx = 0   # of those, given face_idx
-soft_mask_bwd_cuda.launches = 0

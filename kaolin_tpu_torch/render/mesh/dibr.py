@@ -14,6 +14,11 @@ which follow one rule for the gradient. ``knum_mode="first"``
 reproduces the reference kernel's truncation to each pixel's first ``knum``
 in-box faces and is plain PyTorch on every device, as it is plain XLA in
 the JAX package.
+
+Spans (:mod:`kaolin_tpu_torch.utils.profiling`, while the profiler runs):
+``render.mesh.dibr_rasterization`` around the whole wrapper, and
+``render.mesh.dibr_soft_mask`` with its ``.backward``, which is
+:class:`_SoftMask`'s backward.
 """
 
 import torch
@@ -30,6 +35,7 @@ from kaolin_tpu_torch.render.mesh.rasterization import (
     chunk_window,
     rasterize,
 )
+from kaolin_tpu_torch.utils import profiling
 from kaolin_tpu_torch.utils.backend import is_cuda
 
 __all__ = ["dibr_soft_mask", "dibr_rasterization", "soft_mask_plain"]
@@ -251,16 +257,19 @@ class _SoftMask(torch.autograd.Function):
             allprob = soft_mask_plain(fvi, *args, face_idx=face_idx)
         ctx.save_for_backward(fvi, allprob)
         ctx.args = args
+        ctx.span = profiling.current()
         return allprob
 
     @staticmethod
     def backward(ctx, grad_allprob):
-        fvi, allprob = ctx.saved_tensors
-        ga = (grad_allprob * allprob).contiguous()
-        if is_cuda(fvi):
-            grad = cuda_soft_mask.soft_mask_bwd_cuda(fvi, ga, *ctx.args)
-        else:
-            grad = _soft_mask_bwd_plain(fvi, ga, *ctx.args)
+        with profiling.span("render.mesh.dibr_soft_mask.backward",
+                            ctx.span):
+            fvi, allprob = ctx.saved_tensors
+            ga = (grad_allprob * allprob).contiguous()
+            if is_cuda(fvi):
+                grad = cuda_soft_mask.soft_mask_bwd_cuda(fvi, ga, *ctx.args)
+            else:
+                grad = _soft_mask_bwd_plain(fvi, ga, *ctx.args)
         return grad, None, None, None, None, None, None
 
 
@@ -282,14 +291,15 @@ def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,
     if knum_mode not in ("all", "first"):
         raise ValueError(f"unknown knum_mode {knum_mode!r}")
     check_options(height, width, tile_px=tile_px, impl=impl)
-    scaled = face_vertices_image * multiplier
-    if knum_mode == "first":
-        allprob = soft_mask_plain(scaled, sigmainv, boxlen, multiplier,
-                                  height, width, knum=int(knum))
-    else:
-        allprob = _SoftMask.apply(scaled, sigmainv, boxlen, multiplier,
-                                  height, width, selected_face_idx)
-    return torch.where(selected_face_idx >= 0, 1.0, 1.0 - allprob)
+    with profiling.span("render.mesh.dibr_soft_mask"):
+        scaled = face_vertices_image * multiplier
+        if knum_mode == "first":
+            allprob = soft_mask_plain(scaled, sigmainv, boxlen, multiplier,
+                                      height, width, knum=int(knum))
+        else:
+            allprob = _SoftMask.apply(scaled, sigmainv, boxlen, multiplier,
+                                      height, width, selected_face_idx)
+        return torch.where(selected_face_idx >= 0, 1.0, 1.0 - allprob)
 
 
 def dibr_rasterization(height, width, face_vertices_z, face_vertices_image,
@@ -308,15 +318,16 @@ def dibr_rasterization(height, width, face_vertices_z, face_vertices_image,
     passes "xla"). None of them has an effect in the port.
 
     Returns (image_features, soft_mask (B, H, W), face_idx (B, H, W))."""
-    check_name("rast_backend", rast_backend, BACKENDS + IMPLS)
-    valid_faces = face_normals_z >= 0.0
-    image_features, face_idx = rasterize(
-        height, width, face_vertices_z, face_vertices_image, face_features,
-        valid_faces=valid_faces, multiplier=multiplier, eps=eps,
-        tile_px=tile_px, tile_cap=tile_cap)
-    if multiplier is None:
-        multiplier = 1000.0
-    soft_mask = dibr_soft_mask(face_vertices_image, face_idx, sigmainv,
-                               boxlen, knum, multiplier, tile_px=tile_px,
-                               tile_cap=tile_cap)
+    with profiling.span("render.mesh.dibr_rasterization"):
+        check_name("rast_backend", rast_backend, BACKENDS + IMPLS)
+        valid_faces = face_normals_z >= 0.0
+        image_features, face_idx = rasterize(
+            height, width, face_vertices_z, face_vertices_image,
+            face_features, valid_faces=valid_faces, multiplier=multiplier,
+            eps=eps, tile_px=tile_px, tile_cap=tile_cap)
+        if multiplier is None:
+            multiplier = 1000.0
+        soft_mask = dibr_soft_mask(face_vertices_image, face_idx, sigmainv,
+                                   boxlen, knum, multiplier, tile_px=tile_px,
+                                   tile_cap=tile_cap)
     return image_features, soft_mask, face_idx

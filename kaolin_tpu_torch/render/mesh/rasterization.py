@@ -10,6 +10,10 @@ version :func:`rasterize_search_plain`. Both visit every face whose box holds
 the pixel, so both are exact at any face count and the port has no tile
 capacities. The winners' barycentrics and features are then re-computed
 from gathered vertices in plain PyTorch, and autograd gives the backward.
+
+Spans (:mod:`kaolin_tpu_torch.utils.profiling`, while the profiler runs):
+``render.mesh.rasterize.search`` and ``render.mesh.rasterize.interpolate``
+with its ``.backward``.
 """
 
 import math
@@ -17,6 +21,7 @@ import math
 import torch
 
 from kaolin_tpu_torch.render.mesh import cuda_rasterize
+from kaolin_tpu_torch.utils import profiling
 from kaolin_tpu_torch.utils.backend import is_cuda
 
 __all__ = ["rasterize", "rasterize_search_plain", "tile_face_lists",
@@ -384,12 +389,15 @@ def rasterize(height, width, face_vertices_z, face_vertices_image,
         valid_mask = valid_faces.bool()
 
     scaled = face_vertices_image * multiplier
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("render.mesh.rasterize.search"):
         face_idx = _rasterize_search(face_vertices_z.detach(),
                                      scaled.detach(), valid_mask, multiplier,
                                      eps, height, width)
-    interp = _interpolate_at_winners(face_idx, scaled, features, multiplier,
-                                     eps)
+    with profiling.span("render.mesh.rasterize.interpolate"):
+        interp = _interpolate_at_winners(face_idx, scaled, features,
+                                         multiplier, eps)
+        profiling.backward_span("render.mesh.rasterize.interpolate",
+                                (scaled, features), interp)
     if is_list:
         return list(torch.split(interp, feat_dims, dim=-1)), face_idx
     return interp, face_idx

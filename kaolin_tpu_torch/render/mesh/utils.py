@@ -4,7 +4,9 @@ Counterpart of ``kaolin_tpu/render/mesh/utils.py``. ``texture_mapping``
 samples as ``grid_sample(align_corners=False, padding_mode='border')``
 does, with four gathers and the bilinear weights written as the JAX package
 writes them (not ``F.grid_sample``), so the weights round as there; its UV
-clip splits the gradient at 0 and 1 as ``jnp.clip`` does.
+clip splits the gradient at 0 and 1 as ``jnp.clip`` does. Its spans
+(:mod:`kaolin_tpu_torch.utils.profiling`, while the profiler runs) are
+``render.mesh.texture_mapping`` and its ``.backward``.
 """
 
 import torch
@@ -15,6 +17,7 @@ from kaolin_tpu_torch.render.camera.legacy import (
     perspective_camera,
     rotate_translate_points,
 )
+from kaolin_tpu_torch.utils import profiling
 from kaolin_tpu_torch.utils.numerics import clip
 
 __all__ = ["texture_mapping", "spherical_harmonic_lighting",
@@ -62,14 +65,18 @@ def texture_mapping(texture_coordinates, texture_maps, mode="nearest"):
     (B, C, H', W'). Returns (B, H, W, C) or (B, N, C). Differentiable with
     respect to the texture and, in "bilinear" mode, the UVs; at a UV of
     exactly 0 or 1 the clip passes half the gradient, as in JAX."""
-    batch_size = texture_coordinates.shape[0]
-    num_channels = texture_maps.shape[1]
-    tc = texture_coordinates.reshape(batch_size, -1, 2)
-    tc = clip(tc, 0.0, 1.0) * 2.0 - 1.0
-    tc = tc * tc.new_tensor([1.0, -1.0])     # y up → image rows down
-    out = _grid_sample_2d(texture_maps, tc, mode)
-    return out.reshape(batch_size, *texture_coordinates.shape[1:-1],
-                       num_channels)
+    with profiling.span("render.mesh.texture_mapping"):
+        batch_size = texture_coordinates.shape[0]
+        num_channels = texture_maps.shape[1]
+        tc = texture_coordinates.reshape(batch_size, -1, 2)
+        tc = clip(tc, 0.0, 1.0) * 2.0 - 1.0
+        tc = tc * tc.new_tensor([1.0, -1.0])     # y up → image rows down
+        out = _grid_sample_2d(texture_maps, tc, mode)
+        out = out.reshape(batch_size, *texture_coordinates.shape[1:-1],
+                          num_channels)
+        profiling.backward_span("render.mesh.texture_mapping",
+                                (texture_coordinates, texture_maps), out)
+    return out
 
 
 def spherical_harmonic_lighting(imnormal, lights):

@@ -5,13 +5,15 @@ Their plain PyTorch versions are
 :func:`kaolin_tpu_torch.render.spc.raster.raster_tiles_plain` and
 :func:`~kaolin_tpu_torch.render.spc.raster.untile_plain`; the raster calls
 these wrappers for CUDA tensors and the plain versions for CPU tensors.
+Their launches are the counters ``RASTER_LAUNCHES`` and ``UNTILE_LAUNCHES``
+of :mod:`kaolin_tpu_torch.utils.profiling`.
 """
 
 import ctypes
 
 import torch
 
-from kaolin_tpu_torch.utils import cuda_build
+from kaolin_tpu_torch.utils import cuda_build, profiling
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -22,6 +24,10 @@ _UNTILE_ARGTYPES = [_P] * 4 + [_I] * 4 + [_P]
 MAX_TILE_PX = 16
 # the level-3 cells staged in shared memory
 _MAX_BOXES = 512
+RASTER_LAUNCHES = "render.spc.raster_tiles.launches"
+UNTILE_LAUNCHES = "render.spc.untile.launches"
+profiling.count(RASTER_LAUNCHES, 0)
+profiling.count(UNTILE_LAUNCHES, 0)
 
 
 def _tiles(height, width, tile_px):
@@ -95,7 +101,7 @@ def raster_tiles_cuda(tab, counts, dz, cam, l3boxes, units, uaabb, *, width,
                     batch, m, tile_px, tx_n, float(width), float(height),
                     cuda_build.stream(units))
     cuda_build.check(status, "kaolin_spc_raster_tiles")
-    raster_tiles_cuda.launches += 1
+    profiling.count(RASTER_LAUNCHES)
     return depth, ids
 
 
@@ -117,9 +123,5 @@ def untile_cuda(depth_t, hit_id, *, height, width, tile_px):
                     cuda_build.ptr(depth), cuda_build.ptr(ids), height,
                     width, tile_px, tx_n, cuda_build.stream(depth_t))
     cuda_build.check(status, "kaolin_spc_untile")
-    untile_cuda.launches += 1
+    profiling.count(UNTILE_LAUNCHES)
     return depth, ids
-
-
-raster_tiles_cuda.launches = 0
-untile_cuda.launches = 0

@@ -11,14 +11,16 @@ Each route's launch geometry is computed in C, beside its kernel;
 Counterpart of the Pallas probe ``gather_kernel`` of
 ``kaolin_tpu/utils/primitives_bench.py``. The semantics are those of
 ``jax.jit(lambda t, i: t[i])``: a negative index wraps once (``i + n``),
-then every index is clamped to ``[0, n − 1]``.
+then every index is clamped to ``[0, n − 1]``. Each route's launches are
+a counter of :mod:`kaolin_tpu_torch.utils.profiling` (``SMEM_LAUNCHES``,
+``L2_LAUNCHES``).
 """
 
 import ctypes
 
 import torch
 
-from kaolin_tpu_torch.utils import cuda_build
+from kaolin_tpu_torch.utils import cuda_build, profiling
 
 __all__ = ["table_gather", "table_gather_plain", "gather_route",
            "table_gather_smem_cuda", "table_gather_l2_cuda", "smem_grid",
@@ -29,6 +31,10 @@ __all__ = ["table_gather", "table_gather_plain", "gather_route",
 SMEM_MAX_FLOATS = (232_448 - 8) // 4
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_void_p]
+SMEM_LAUNCHES = "utils.table_gather_smem.launches"
+L2_LAUNCHES = "utils.table_gather_l2.launches"
+profiling.count(SMEM_LAUNCHES, 0)
+profiling.count(L2_LAUNCHES, 0)
 
 
 def gather_route(n_tab):
@@ -111,7 +117,7 @@ def table_gather_smem_cuda(table, idx):
                          f"one block's shared memory beside its mbarrier "
                          f"({SMEM_MAX_FLOATS})")
     out, launched = _launch("kaolin_gather_smem", table, idx)
-    table_gather_smem_cuda.launches += int(launched)
+    profiling.count(SMEM_LAUNCHES, int(launched))
     return out
 
 
@@ -127,12 +133,8 @@ def table_gather_l2_cuda(table, idx):
     persistence window (device-wide), sorting the indices (two more
     passes), a cluster's distributed shared memory (3.6 MB < 4 MB)."""
     out, launched = _launch("kaolin_gather_l2", table, idx)
-    table_gather_l2_cuda.launches += int(launched)
+    profiling.count(L2_LAUNCHES, int(launched))
     return out
-
-
-table_gather_smem_cuda.launches = 0
-table_gather_l2_cuda.launches = 0
 
 
 def table_gather(table, idx):

@@ -57,7 +57,7 @@ from kaolin_tpu_torch.render.mesh.rasterization import (
     rasterize,
     rasterize_search_plain,
 )
-from kaolin_tpu_torch.utils import cuda_build
+from kaolin_tpu_torch.utils import cuda_build, profiling
 from kaolin_tpu_torch.utils.interop import from_numpy_tree
 from tests.torch_parity import ROOT, grid_faces, warm_torch_exp  # noqa: F401
 from tests.torch_parity import torch_threads_per_worker  # noqa: F401
@@ -427,8 +427,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_soft_mask.soft_mask_bwd_cuda(fvi, torch.zeros(1, 8, 8), 7000.0,
                                           0.02, 1000.0, 8, 8)
-    assert cuda_soft_mask.soft_mask_fwd_cuda.launches == 0
-    assert cuda_soft_mask.soft_mask_bwd_cuda.launches == 0
+    assert profiling.counters()[cuda_soft_mask.FWD_LAUNCHES] == 0
+    assert profiling.counters()[cuda_soft_mask.BWD_LAUNCHES] == 0
 
 
 def test_soft_mask_fwd_cuda_refuses_bad_face_idx():
@@ -446,7 +446,9 @@ def test_soft_mask_fwd_cuda_refuses_bad_face_idx():
                            (good, ValueError, "CUDA")):
         with pytest.raises(err, match=what):
             fwd(fvi, 7000.0, 0.02, 1000.0, 8, 8, face_idx=bad)
-    assert fwd.launches == 0 and fwd.launches_with_face_idx == 0
+    counts = profiling.counters()
+    assert counts[cuda_soft_mask.FWD_LAUNCHES] == 0
+    assert counts[cuda_soft_mask.FWD_WITH_FACE_IDX] == 0
 
 
 def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):

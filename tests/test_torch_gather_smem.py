@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from kaolin_tpu_torch.utils import cuda_gather
+from kaolin_tpu_torch.utils import cuda_gather, profiling
 from tests.torch_parity import ROOT
 from tests.torch_parity import (  # noqa: F401
     torch_threads_per_worker,
@@ -84,11 +84,11 @@ def test_smem_wrapper_refuses_what_it_cannot_launch(n_tab, error):
     """On CPU tensors the card's wrapper raises (it never falls back to the
     plain version), as it does first for a table too large for a block's
     shared memory beside the mbarrier; nothing is launched."""
-    before = cuda_gather.table_gather_smem_cuda.launches
+    before = profiling.counters()[cuda_gather.SMEM_LAUNCHES]
     with pytest.raises(ValueError, match=error):
         cuda_gather.table_gather_smem_cuda(
             torch.zeros(n_tab), torch.zeros(8, dtype=torch.int32))
-    assert cuda_gather.table_gather_smem_cuda.launches == before
+    assert profiling.counters()[cuda_gather.SMEM_LAUNCHES] == before
 
 
 def test_route_limit_is_what_the_kernel_allots():

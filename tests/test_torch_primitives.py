@@ -240,8 +240,8 @@ def test_table_gather_cuda_wrappers_refuse_cpu_tensors():
         cuda_gather.table_gather_smem_cuda(torch.zeros(58_113), i)
     with pytest.raises(ValueError, match="not empty"):
         cuda_gather.table_gather_plain(torch.zeros(0), i)
-    assert cuda_gather.table_gather_smem_cuda.launches == 0
-    assert cuda_gather.table_gather_l2_cuda.launches == 0
+    assert profiling.counters()[cuda_gather.SMEM_LAUNCHES] == 0
+    assert profiling.counters()[cuda_gather.L2_LAUNCHES] == 0
 
 
 # -- the probe's entry point ----------------------------------------------

@@ -26,6 +26,7 @@ from kaolin_tpu_torch.render.mesh.rasterization import (
     rasterize,
     tile_face_lists,
 )
+from kaolin_tpu_torch.utils import profiling
 from kaolin_tpu_torch.utils.interop import from_numpy_tree
 from tests.torch_parity import (  # noqa: F401
     grid_faces,
@@ -182,7 +183,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         cuda_rasterize.rasterize_search_cuda(
             scene["fvz"], scene["fvi"] * 1000, scene["valid"], 1000, 1e-8,
             16, 16)
-    assert cuda_rasterize.rasterize_search_cuda.launches == 0
+    assert profiling.counters()[cuda_rasterize.LAUNCHES] == 0
 
 
 def _cull_case(case):

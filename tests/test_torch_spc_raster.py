@@ -50,6 +50,7 @@ from kaolin_tpu_torch.render.spc import (
     raster_first_hit,
     raster_first_hit_sequence,
 )
+from kaolin_tpu_torch.utils import profiling
 from kaolin_tpu_torch.utils.interop import from_numpy_tree
 from tests.torch_parity import ROOT
 from tests.torch_parity import (  # noqa: F401
@@ -401,8 +402,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(scenes):
     with pytest.raises(ValueError, match="CUDA"):
         cuda_raster.untile_cuda(depth_t, ids_t, height=32, width=32,
                                 tile_px=8)
-    assert cuda_raster.raster_tiles_cuda.launches == 0
-    assert cuda_raster.untile_cuda.launches == 0
+    assert profiling.counters()[cuda_raster.RASTER_LAUNCHES] == 0
+    assert profiling.counters()[cuda_raster.UNTILE_LAUNCHES] == 0
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))

@@ -87,7 +87,10 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    plain versions): face_idx equal, the soft mask within 1e-5, the loss
    within 1e-5 relative, each parameter's gradient within 1e-4 of its
    largest entry; ``texture_mapping`` card against CPU at the template's
-   UVs (the seam at u = 1, the rings at v = 0 and 1);
+   UVs (the seam at u = 1, the rings at v = 0 and 1); kernel #7 (the
+   texture kernels, which replace no TPU kernel) against its plain version
+   on the card at the benchmark cells' shapes, with per-view and
+   batch-of-one textures, both modes, and its pixel counters;
 5. the DIB-R path: ``config2_step`` (512², a 4992-face UV sphere, forward
    and backward, 5 steps) with every launch counter set to 0 before and
    read after (each soft-mask forward given the rasterizer's ids), its
@@ -96,8 +99,9 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    ``examples/torch_dibr_optimization.py`` (final loss < 0.30, |shift| <
    0.05); then 100 steps of the texture fit from its start, the counters
    set to 0 before and read after each step: #1-3 launch on every step,
-   the losses are finite, the silhouette term falls by at least half and
-   the pose error (angle and translation) falls; its peak memory; then the
+   and #7 once each way, the losses are finite, the silhouette term falls
+   by at least half and the pose error (angle and translation) falls; its
+   peak memory; then the
    camera tutorial (256²) and the bounding-box fit (4 views at 128², 153
    Adam steps) at full size, each asserting what its JAX counterpart
    asserts;
@@ -377,6 +381,27 @@ GRAD_TOL = 1e-3
 TEXFIT_PATH_STEPS = 100
 TEXFIT_TIMED = (20, 80)
 TEXFIT_GRAD_TOL = 1e-4
+# the texture kernels' cases: the benchmark's 8 views at 512², and the side
+# of each cell's one texture (texfit.v8 256², asset.v8 1,024²)
+TEXTURE_VIEWS = 8
+TEXTURE_SIDES = {"texfit.v8": 256, "asset.v8": 1024}
+# the kernels against their plain version on the card: the samples round op
+# for op as the plain version's (both without contraction), so within 1e-6
+# and in fact equal; the UVs' gradient, a sum over one pixel's own taps and
+# channels with no atomics, within 1e-5 of its largest entry (the kernel
+# sums them in another order). The texture's gradient adds by atomics in no
+# fixed order on both sides, so each entry is held to the float64 sum of
+# the same float32 products: the reference samples the float32 UVs with
+# only the texture and the cotangent in float64, so it picks the same taps
+# and weights. A float32 sum of n products, in any order, is within
+# (n + 1) x 2^-24 of the sum of their magnitudes; the plain version's
+# per-view sums and the views' sum after them stay within (n + B) x 2^-24
+# for B views. Each entry of both is held to (n + B + 2) x 2^-24 of its
+# terms' magnitudes (the float64 sum's own rounding is 2^-29 of that): one
+# pixel's add dropped, doubled or sent to another texel is thousands of
+# times that far off on a texel of tens of adds
+TEXTURE_VALUE_TOL, TEXTURE_UV_GRAD_TOL = 1e-6, 1e-5
+TEXTURE_SUM_ULP = 2.0 ** -24
 SPCRT_PARITY = (7, 128)          # level, resolution of card vs CPU
 SPCRT_LEVEL = 9
 SPCRT_RES = 512
@@ -513,8 +538,25 @@ KERNELS = {
         "source": "kaolin_tpu_torch/utils/csrc/gather.cu",
         "replaces": "kaolin_tpu/utils/primitives_bench.py:135",
     },
+    # kernel #7 replaces no TPU kernel: the JAX package samples textures
+    # with four plain gathers (no pallas_call)
+    "texture_fwd": {
+        "route": "cuda",
+        "source": "kaolin_tpu_torch/render/mesh/csrc/texture.cu",
+        "replaces": "none (kaolin_tpu/render/mesh/utils.py:_grid_sample_2d)",
+    },
+    "texture_bwd": {
+        "route": "cuda",
+        "source": "kaolin_tpu_torch/render/mesh/csrc/texture.cu",
+        "replaces": "none (kaolin_tpu/render/mesh/utils.py:_grid_sample_2d)",
+    },
 }
 DIBR_KERNELS = ("winner", "soft_mask_fwd", "soft_mask_bwd")
+TEXTURE_KERNELS = ("texture_fwd", "texture_bwd")
+# the texture maps of a material that easy_render's ``tex_sample`` samples,
+# each through one #7 forward a render
+SAMPLED_MAPS = ("normals_texture", "diffuse_texture", "specular_texture",
+                "metallic_texture", "roughness_texture")
 SPC_KERNELS = ("spc_raster", "spc_untile")
 GATHER_KERNELS = ("table_gather_smem", "table_gather_l2")
 # the kernels' names in a torch.profiler trace: the kernel whose launches
@@ -527,7 +569,9 @@ DEVICE_NAMES = {"winner": ("winner_kernel", "winner_box_kernel"),
                 "spc_raster": ("raster_tiles_kernel",),
                 "spc_untile": ("untile_kernel",),
                 "table_gather_smem": ("gather_smem_kernel",),
-                "table_gather_l2": ("gather_l2_kernel",)}
+                "table_gather_l2": ("gather_l2_kernel",),
+                "texture_fwd": ("texture_fwd_kernel",),
+                "texture_bwd": ("texture_bwd_kernel", "texture_zero_kernel")}
 # every line the full probe prints, in order
 PROBE_NAMES = (
     "gather1d_n65536_tab1048576", "gather1d_n1048576_tab1048576",
@@ -650,6 +694,11 @@ def dense_step_ops(d, n, m):
     return grad, hess, solve, search
 
 
+def fmt_ms(ms, spec=".4f"):
+    """A device ms as printed, or "not measured" where it is None."""
+    return "not measured" if ms is None else format(ms, spec)
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -739,9 +788,11 @@ class Smoke:
         from kaolin_tpu_torch.render.mesh import (
             cuda_rasterize,
             cuda_soft_mask,
+            cuda_texture,
             dibr,
             rasterization,
         )
+        from kaolin_tpu_torch.render.mesh import utils as mesh_utils
         from kaolin_tpu_torch.render.spc import cuda_raster, raster
         from kaolin_tpu_torch.utils import (
             cuda_build,
@@ -754,6 +805,7 @@ class Smoke:
         self.torch = torch
         self.device = "cuda"
         self.cr, self.cs = cuda_rasterize, cuda_soft_mask
+        self.ctex, self.mesh_utils = cuda_texture, mesh_utils
         self.dibr, self.rast = dibr, rasterization
         self.craster, self.sr = cuda_raster, raster
         self.cg, self.pb, self.profiling = (cuda_gather, primitives_bench,
@@ -824,7 +876,14 @@ class Smoke:
                 "spc_raster": self.craster.RASTER_LAUNCHES,
                 "spc_untile": self.craster.UNTILE_LAUNCHES,
                 "table_gather_smem": self.cg.SMEM_LAUNCHES,
-                "table_gather_l2": self.cg.L2_LAUNCHES}
+                "table_gather_l2": self.cg.L2_LAUNCHES,
+                "texture_fwd": self.ctex.FWD_LAUNCHES,
+                "texture_bwd": self.ctex.BWD_LAUNCHES}
+
+    def gather_fn(self, name):
+        """The table gather's route ``name`` (one of GATHER_KERNELS)."""
+        return {"table_gather_smem": self.cg.table_gather_smem_cuda,
+                "table_gather_l2": self.cg.table_gather_l2_cuda}[name]
 
     def launches(self):
         """Every kernel's launches so far, and the soft-mask forward's given
@@ -1309,6 +1368,198 @@ class Smoke:
                        f"seam at u = 1, rings at v = 0 and 1): values "
                        f"{errs[0]:.2e}, texture grad {errs[1]:.2e} (max "
                        f"{scale:.3e}), UV grad {errs[2]:.2e}")
+        self.texture_parity()
+
+    def texture_case(self, views, tex_side, seed, shared=True,
+                     per_view=False):
+        """Inputs of the texture kernels as the fit hands them over: UVs
+        (views, 512, 512, 2) as a slice of a (views, 512, 512, 3) feature
+        image, 0 outside a disc of ~29% of each view (the background), in
+        [-0.1, 1.1] inside with rows at exactly 0 and 1 in u and in v; the
+        output cotangent, 0 at the background and at 5% of the disc's
+        pixels, one channel 0 at 5% more, random elsewhere; a 3 x side²
+        texture leaf, expanded to every view (``shared``), one a view
+        (``per_view``) or given as a batch of one → dict."""
+        torch = self.torch
+        rng = np.random.RandomState(seed)
+        res = RES
+        yy, xx = np.mgrid[:res, :res].astype(np.float32)
+        feats = np.zeros((views, res, res, 3), np.float32)
+        cot = np.zeros((views, res, res, 3), np.float32)
+        for v in range(views):
+            cy, cx = rng.uniform(0.35, 0.65, 2) * res
+            disc = (yy - cy) ** 2 + (xx - cx) ** 2 < 0.29 * res * res / np.pi
+            n = int(disc.sum())
+            feats[v][disc, :2] = rng.uniform(-0.1, 1.1, (n, 2))
+            feats[v][disc, 2] = 1.0
+            cot[v][disc] = rng.randn(n, 3)
+            kill = rng.rand(n)
+            cot[v][disc] *= (kill >= 0.05)[:, None]
+            cot[v][disc, 1] *= (kill < 0.05) | (kill >= 0.10)
+        rows = np.nonzero(feats[..., 2].any(axis=(0, 2)))[0]
+        for k, (ch, val) in enumerate(((0, 0.0), (0, 1.0), (1, 0.0),
+                                       (1, 1.0))):
+            row = rows[len(rows) * (k + 1) // 5]
+            feats[:, row, :, ch] = np.where(feats[:, row, :, 2] > 0, val,
+                                            0.0)
+        tex = rng.uniform(0, 1, ((views if per_view else 1) * 3, tex_side,
+                                 tex_side)).astype(np.float32)
+        tex = tex.reshape(-1, 3, tex_side, tex_side) if per_view \
+            else tex.reshape(3, tex_side, tex_side)
+        return {"feats": torch.from_numpy(feats).cuda(),
+                "cot": torch.from_numpy(cot).cuda(),
+                "tex": torch.from_numpy(tex).cuda(), "shared": shared,
+                "per_view": per_view}
+
+    def texture_call(self, case, fn, mode, dtype=None, cot=None):
+        """``fn`` (texture_mapping, or its plain version on the card) on a
+        fresh copy of ``case``'s leaves, the texture in ``dtype`` where
+        given (the UVs stay float32), backward with ``cot`` (else the
+        case's cotangent) in the texture's dtype → (samples, UV gradient
+        or zeros, texture gradient)."""
+        torch = self.torch
+        dtype = dtype or torch.float32
+        feats = case["feats"].clone().requires_grad_(True)
+        uv = torch.split(feats, [2, 1], dim=-1)[0]
+        tex = case["tex"].to(dtype, copy=True).requires_grad_(True)
+        views = feats.shape[0]
+        if case["per_view"]:
+            batch = tex
+        elif case["shared"]:
+            batch = tex[None].expand(views, -1, -1, -1)
+        else:
+            batch = tex[None]
+        if fn is self.mesh_utils.texture_mapping_plain:
+            val = fn(uv.reshape(views, -1, 2), batch, mode).reshape(
+                *uv.shape[:-1], -1)
+        else:
+            val = fn(uv, batch, mode)
+        val.backward((case["cot"] if cot is None else cot).to(dtype))
+        grad_uv = (torch.zeros_like(uv) if feats.grad is None   # nearest
+                   else feats.grad[..., :2].clone())
+        return val.detach(), grad_uv, tex.grad
+
+    def texture_tap_counts(self, case, mode):
+        """The adds onto each entry of the texture's gradient from the
+        pixels with a non-zero cotangent (4 taps, or 1 in "nearest", in
+        every channel), the taps computed op for op as ``_grid_sample_2d``
+        and the kernels compute them → float64 of the texture leaf's shape
+        with 1 channel."""
+        torch = self.torch
+        feats, tex = case["feats"], case["tex"]
+        views = feats.shape[0]
+        h, w = tex.shape[-2:]
+        uv = feats[..., :2].reshape(views, -1, 2)
+        live = (case["cot"] != 0).any(-1).reshape(views, -1)
+        c = uv.clamp(0.0, 1.0) * 2.0 - 1.0
+        x = (c[..., 0] + 1.0) * (w / 2.0) - 0.5
+        y = (c[..., 1] * -1.0 + 1.0) * (h / 2.0) - 0.5
+        if mode == "nearest":
+            taps = [(torch.round(y).to(torch.int32).clamp(0, h - 1),
+                     torch.round(x).to(torch.int32).clamp(0, w - 1))]
+        else:
+            x0 = torch.floor(x).to(torch.int32)
+            y0 = torch.floor(y).to(torch.int32)
+            taps = [(yi.clamp(0, h - 1), xi.clamp(0, w - 1))
+                    for yi in (y0, y0 + 1) for xi in (x0, x0 + 1)]
+        slot = (torch.arange(views, device=uv.device)[:, None] * (h * w)
+                if case["per_view"] else 0)
+        idx = torch.cat([(slot + yi.long() * w + xi.long())[live]
+                         for yi, xi in taps])
+        n_tex = views if case["per_view"] else 1
+        counts = torch.bincount(idx, minlength=n_tex * h * w)
+        return counts.double().reshape(*tex.shape[:-3], 1, h, w)
+
+    def texture_parity(self):
+        """Kernel #7 against its plain version on the card at both cells'
+        shapes: 8 x 512² UVs with one shared 3 x 256² and 3 x 1,024²
+        texture (batch stride 0), a texture a view (8 x 3 x 256²), and a
+        batch of one with a 1,024² texture as easy_render passes it, in
+        both modes; UVs at exactly 0 and 1 and outside [0, 1], pixels with
+        a zero and a non-zero cotangent. Values within TEXTURE_VALUE_TOL
+        and the UVs' gradient within TEXTURE_UV_GRAD_TOL of the plain
+        version's; every entry of the texture's gradient, the kernel's and
+        the plain version's, within its float32 rounding bound of the
+        float64 sum of the same products (TEXTURE_SUM_ULP), which for the
+        shared texture is the sum over the views that the plain version's
+        ``expand`` takes (so added once, not 8 times; the norms' ratio
+        printed); one launch each way; and in a profiled backward the two pixel counters
+        against a count of the pixels and of those with a non-zero
+        cotangent."""
+        torch, tm = self.torch, self.mesh_utils
+        plain = tm.texture_mapping_plain
+        cases = [(f"{cell} shapes, shared {side}² texture", TEXTURE_VIEWS,
+                  side, {}) for cell, side in TEXTURE_SIDES.items()]
+        cases += [("a 256² texture a view", TEXTURE_VIEWS, 256,
+                   {"per_view": True}),
+                  ("a batch of one, 1,024² texture", 1, 1024,
+                   {"shared": False})]
+        worst = {"texture_fwd": 0.0, "texture_bwd": 0.0}
+        for i, (label, views, side, kw) in enumerate(cases):
+            case = self.texture_case(views, side, 20 + i, **kw)
+            live = int((case["cot"] != 0).any(-1).sum())
+            for mode in ("bilinear", "nearest"):
+                got, n = self.drive(TEXTURE_KERNELS, lambda: self.texture_call(
+                    case, tm.texture_mapping, mode))
+                want = self.texture_call(case, plain, mode)
+                f64 = torch.float64
+                exact = self.texture_call(case, plain, mode, f64)
+                mag = self.texture_call(case, plain, mode, f64,
+                                        case["cot"].abs())[2]
+                adds = self.texture_tap_counts(case, mode)
+                bound = (adds + views + 2) * TEXTURE_SUM_ULP * mag
+                off = {k: (g[2].double() - exact[2]).abs()
+                       for k, g in (("kernel", got), ("plain", want))}
+                within = {k: bool((o <= bound).all()) for k, o in off.items()}
+                share = {k: float((o / bound.clamp_min(1e-300)).max())
+                         for k, o in off.items()}
+                val_err = float((got[0] - want[0]).abs().max())
+                equal = bool(torch.equal(got[0], want[0]))
+                scale = [float(w.abs().max()) for w in want[1:]]
+                errs = [float((g - w).abs().max()) for g, w in
+                        zip(got[1:], want[1:])]
+                ratio = float(got[2].norm() / want[2].norm())
+                worst["texture_fwd"] = max(worst["texture_fwd"], val_err)
+                worst["texture_bwd"] = max(worst["texture_bwd"], errs[1])
+                self.check(val_err <= TEXTURE_VALUE_TOL
+                           and errs[0] <= TEXTURE_UV_GRAD_TOL
+                           * max(scale[0], 1.0) and all(within.values())
+                           and (mode == "bilinear") == (scale[0] > 0)
+                           and n == {"texture_fwd": 1, "texture_bwd": 1},
+                           f"texture kernel {mode} [{label}], {live} live of "
+                           f"{views * RES * RES} pixels: values max |diff| "
+                           f"{val_err:.2e} (bitwise equal {equal}), UV grad "
+                           f"{errs[0]:.2e} (max {scale[0]:.3e}), texture "
+                           f"grad {errs[1]:.2e} from the plain version's "
+                           f"(max {scale[1]:.3e}); from the float64 sum of "
+                           f"the same products: kernel "
+                           f"{float(off['kernel'].max()):.2e}, plain "
+                           f"{float(off['plain'].max()):.2e}, at most "
+                           f"{share['kernel']:.4f} and {share['plain']:.4f} "
+                           f"of an entry's bound (up to "
+                           f"{int(adds.max())} adds on an entry); norm "
+                           f"ratio {ratio:.7f}; launches {n}")
+            counted = self.texture_pixel_counters(case)
+            self.check(counted == (views * RES * RES, live),
+                       f"texture backward's pixel counters [{label}]: "
+                       f"{counted} against {views * RES * RES} pixels, "
+                       f"{live} with a non-zero cotangent")
+        for k, err in worst.items():
+            self.record_err(k, err)
+
+    def texture_pixel_counters(self, case):
+        """The backward's two device counters over one profiled bilinear
+        call → (pixels, pixels_added)."""
+        torch = self.torch
+        self.texture_call(case, self.mesh_utils.texture_mapping, "bilinear")
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]):
+            self.texture_call(case, self.mesh_utils.texture_mapping,
+                              "bilinear")
+            torch.cuda.synchronize()
+        got = self.profiling.counters()
+        return tuple(got.get(k) for k in self.ctex.PIXELS)
 
     def phase_texfit_path(self):
         """The texture fit from the example's start, 100 steps at 512²,
@@ -1327,7 +1578,7 @@ class Smoke:
         params = ex.initial_params(scene)
         opt = ex.make_optimizer(params)
         start = [float(x) for x in ex.pose_error(scene, params)]
-        losses, sil, counts, with_idx = [], [], [], []
+        losses, sil, counts, with_idx, tex_counts = [], [], [], [], []
         for i in range(TEXFIT_PATH_STEPS):
             (loss, terms), n = self.drive(
                 DIBR_KERNELS, lambda i=i: ex.texfit_step(scene, params, opt,
@@ -1336,6 +1587,7 @@ class Smoke:
             sil.append(float(terms["silhouette"]))
             counts.append(n)
             with_idx.append(self.driven["soft_mask_fwd_with_face_idx"])
+            tex_counts.append({k: self.driven[k] for k in TEXTURE_KERNELS})
         host_s = time.perf_counter() - t0
         end = [float(x) for x in ex.pose_error(scene, params)]
         peak = torch.cuda.max_memory_allocated() - base
@@ -1349,6 +1601,14 @@ class Smoke:
                        f"{k} {sum(c[k] for c in counts)}"
                        for k in DIBR_KERNELS)
                    + "), the forward given the rasterizer's ids each time")
+        once = {k: 1 for k in TEXTURE_KERNELS}
+        self.check(all(c == once for c in tex_counts),
+                   f"texture fit: every one of {TEXFIT_PATH_STEPS} steps "
+                   f"sampled its texture through kernel #7, one launch each "
+                   f"way (step 0 {tex_counts[0]}, last {tex_counts[-1]})")
+        for k in TEXTURE_KERNELS:
+            self.results[k]["launches"] = tex_counts[-1][k]
+            self.per_step[k] = tex_counts[-1][k]
         n = len(losses)
         self.check(all(np.isfinite(losses)),
                    "texture fit losses finite: " + ", ".join(
@@ -1412,6 +1672,7 @@ class Smoke:
             record=False)
         self.texfit.update(step_ms=step_ms, busy=busy, kernel_ms=kernel_ms)
         self.texfit_scatters(scene, params)
+        self.texture_timing()
         print(f"texture fit step at {RES}x{RES}, B=2, 4992 faces, a "
               f"256x256 texture: steps {a}-{b} of one run, median event to "
               f"event {step_ms:.4f} ms ({1e3 / step_ms:.1f} steps/s); "
@@ -1462,6 +1723,85 @@ class Smoke:
             print(f"texture fit's {label}: forward and backward "
                   f"{total:.4f} device ms, {scatter:.4f} of it in the "
                   f"backward's scatter-add [{self.card}]", flush=True)
+
+    def texture_timing(self):
+        """Kernel #7 at both cells' shapes (8 x 512² UVs sliced from a
+        feature image, one shared texture, bilinear), forward and backward
+        apart: its device ms in a profile (the zero-fill counted in the
+        backward's), the CUDA-event ms of one call against its plain
+        version's (plain, kernel, kernel, plain) and against
+        ``torch.nn.functional.grid_sample``'s (border padding,
+        align_corners False; the library yardstick, timed here and never
+        called by the port), and the bytes bound. The kernel table's row
+        is texfit.v8's."""
+        torch, tm = self.torch, self.mesh_utils
+        grid_sample = torch.nn.functional.grid_sample
+        for cell, side in TEXTURE_SIDES.items():
+            case = self.texture_case(TEXTURE_VIEWS, side, 40)
+            feats = case["feats"].requires_grad_(True)
+            tex = case["tex"].requires_grad_(True)
+            uv = torch.split(feats, [2, 1], dim=-1)[0]
+            batch = tex[None].expand(TEXTURE_VIEWS, -1, -1, -1)
+            with torch.no_grad():
+                grid = (uv.clamp(0, 1) * 2 - 1) * uv.new_tensor([1.0, -1.0])
+            grid.requires_grad_(True)
+            cot = case["cot"]
+            calls = {   # name: (forward, inputs, cotangent)
+                "kernel": (lambda: tm.texture_mapping(uv, batch, "bilinear"),
+                           (feats, tex), cot),
+                "plain": (lambda: tm.texture_mapping_plain(
+                    uv.reshape(TEXTURE_VIEWS, -1, 2), batch, "bilinear"),
+                    (feats, tex), cot.reshape(TEXTURE_VIEWS, -1, 3)),
+                "library": (lambda: grid_sample(
+                    batch, grid, mode="bilinear", padding_mode="border",
+                    align_corners=False), (tex, grid),
+                    cot.permute(0, 3, 1, 2))}
+            ms = {}
+            for name, (fwd, inputs, g) in calls.items():
+                out = fwd()
+
+                def bwd(out=out, inputs=inputs, g=g):
+                    return torch.autograd.grad(out, inputs, g,
+                                               retain_graph=True)
+                ms[name] = {"fwd": fwd, "bwd": bwd}
+            times = {}
+            for way in ("fwd", "bwd"):
+                k_ms, p_ms = self.compare_times(ms["kernel"][way],
+                                                ms["plain"][way], 20, 5)
+                lib_ms = statistics.median(self.time_ms(ms["library"][way],
+                                                        20))
+                lib_dev = self.device_ms(f"grid_sample {way} {cell}",
+                                         ms["library"][way])
+                times[way] = [None, k_ms, p_ms, lib_ms, lib_dev]
+            # the kernel's forward and backward in one trace (3 launches a
+            # call): the forward alone, 1 launch a call, once came back from
+            # the profiler without device time in three traces in a row
+            for way in times:
+                times[way][0] = self.device_ms(
+                    f"texture kernel {cell}",
+                    lambda: (ms["kernel"]["fwd"](), ms["kernel"]["bwd"]()),
+                    names=DEVICE_NAMES[f"texture_{way}"],
+                    alone=ms["kernel"][way])
+            p = TEXTURE_VIEWS * RES * RES
+            tex_bytes = 3 * side * side * 4
+            nbytes = {"fwd": p * 8 + tex_bytes + p * 12,
+                      "bwd": p * 12 + p * 8 + tex_bytes + p * 8 + tex_bytes}
+            for way, (dev, k_ms, p_ms, lib_ms, lib_dev) in times.items():
+                bound = nbytes[way] / HBM_BYTES_S * 1e3
+                print(f"texture kernel {way} [{cell}: {TEXTURE_VIEWS} x "
+                      f"{RES}² UVs, 3 x {side}² shared texture]: device "
+                      f"{fmt_ms(dev)} ms, event {k_ms:.4f} ms, plain "
+                      f"{p_ms:.4f} ms, grid_sample event {lib_ms:.4f} ms "
+                      f"(device {fmt_ms(lib_dev)}); bound {bound:.6f} ms "
+                      f"({nbytes[way]} bytes), share "
+                      f"{fmt_ms(dev and bound / dev)} [{self.card}]",
+                      flush=True)
+                if cell == "texfit.v8":
+                    k = f"texture_{way}"
+                    self.results[k].update(device_ms=dev, ms=k_ms,
+                                           plain_ms=p_ms, library_ms=lib_dev)
+                    self.set_bound(k, nbytes[way], 0,
+                                   f"{cell}'s shapes, each byte once")
 
     # -- the SPC raster ----------------------------------------------------
     def config3(self):
@@ -3262,6 +3602,18 @@ class Smoke:
         finally:
             rast._rasterize_search = search
 
+    @staticmethod
+    def maps_sampled(mesh):
+        """#7's forward launches in one ``render_mesh`` of ``mesh`` (which
+        has UVs): one a texture map its materials hold."""
+        return sum(getattr(m, a, None) is not None for m in mesh.materials
+                   for a in SAMPLED_MAPS)
+
+    def texture_launches(self, n, fwd, bwd=0):
+        """Whether the launches ``n`` hold exactly ``fwd`` #7 forwards and
+        ``bwd`` backwards."""
+        return (n["texture_fwd"], n["texture_bwd"]) == (fwd, bwd)
+
     def check_winner_at(self, label, render):
         """``render`` once keeping #1's inputs, then #1 on them against
         ``rasterize_search_plain`` on the same CUDA tensors: the winner ids
@@ -3380,21 +3732,26 @@ class Smoke:
         """The full render on the card, each piece driven with every launch
         counter set to 0 just before and read just after: the render at
         512² (ten passes, finite) and under 32 environment lobes launch #1
-        once and #2-6 never; the fit's 100 steps (each sets the vertices,
-        renders, backward, Adam) launch #1 on every step and #2-6 never,
-        every loss finite and the last below half the first; DefTet at its
+        once, #7's forward once a texture map of the scene's materials
+        (easy_render's ``tex_sample``) and no other kernel; the fit's 100
+        steps (each sets the vertices, renders, backward, Adam) launch #1
+        and #7 both ways once a map on every step and nothing else, every
+        loss finite and the last below half the first; DefTet at its
         defaults at 512² (knum 300, face_chunk 1,024, pixel_chunk 8,192)
         with depths non-increasing along knum wherever face_idx ≥ 0 and
         hits packed first; the three tutorials at full size, each with its
         own checks, launching #1 and nothing else."""
         torch, ex, r = self.torch, self.render_ex, self.render
         names = list(self.counters())
-        others = [k for k in names if k != "winner"]
+        others = [k for k in names if k not in ("winner", *TEXTURE_KERNELS)]
 
-        def only_winner(n, times=1):
-            return n["winner"] == times and not any(n[k] for k in others)
+        def only_winner(n, maps, backward=False):
+            return (n["winner"] == 1 and not any(n[k] for k in others)
+                    and self.texture_launches(n, maps,
+                                              maps if backward else 0))
 
         mesh = ex.scene("cuda")
+        maps = self.maps_sampled(mesh)
         with torch.no_grad():
             passes, n = self.drive(names, lambda: ex.render(mesh))
             env, n_env = self.drive(names, lambda: ex.env_render(mesh))
@@ -3402,11 +3759,13 @@ class Smoke:
                      for v in (*passes.values(), *env.values()))
         covered = int((passes["face_idx"] >= 0).sum())
         self.check(len(passes) == 10 and finite and covered > 0
-                   and only_winner(n) and only_winner(n_env),
+                   and only_winner(n, maps) and only_winner(n_env, maps),
                    f"render at {RENDER_RES}x{RENDER_RES}: {len(passes)} "
                    f"passes, {covered} covered pixels, finite; launches "
-                   f"{n}; under {ex.NUM_SG} lobes {n_env}")
+                   f"{n} ({maps} texture maps); under {ex.NUM_SG} lobes "
+                   f"{n_env}")
         state = ex.fit_setup("cuda", RENDER_RES)
+        fit_maps = self.maps_sampled(state["mesh"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses, counts = [], []
@@ -3416,8 +3775,9 @@ class Smoke:
             counts.append(n)
         r["fit_s"] = time.perf_counter() - t0
         r["losses"] = losses
-        self.check(all(only_winner(c) for c in counts),
-                   f"fit: every one of {RENDER_STEPS} steps launched #1 once "
+        self.check(all(only_winner(c, fit_maps, True) for c in counts),
+                   f"fit: every one of {RENDER_STEPS} steps launched #1 once, "
+                   f"#7 {fit_maps} times each way ({fit_maps} texture maps) "
                    "and #2-6 never (totals " + ", ".join(
                        f"{k} {sum(c[k] for c in counts)}" for k in names)
                    + ")")
@@ -3447,7 +3807,8 @@ class Smoke:
             mod = load_example(name)
             t0 = time.perf_counter()
             _, n = self.drive(names, lambda: mod.main("cuda"))
-            self.check(n["winner"] > 0 and not any(n[k] for k in others),
+            self.check(n["winner"] > 0 and not any(n[k] for k in others)
+                       and self.texture_launches(n, 0),
                        f"{name} at full size passed its checks in "
                        f"{time.perf_counter() - t0:.2f} s; launches {n}")
 
@@ -3753,7 +4114,9 @@ class Smoke:
         asset with its 1,024² maps written as OBJ, GLB, PLY and OFF and
         imported (the imports equal what was written, the GLB's within
         1e-6); the OBJ and GLB imports rendered at 512², finite, #1 once
-        each and #2-6 never, and #1's winner ids for each against its plain
+        each, #7's forward once a texture map of the import's materials
+        (easy_render's ``tex_sample``) and no other kernel, and #1's winner
+        ids for each against its plain
         version on the same CUDA tensors; the OBJ's render against the
         CPU's render of the CPU's import of the same file (face_idx equal,
         every pass within 1e-5 of its max|x|); 2^20 gaussians exported, imported,
@@ -3771,7 +4134,7 @@ class Smoke:
 
         torch, ex, r = self.torch, self.asset_ex, self.io
         names = list(self.counters())
-        others = [k for k in names if k != "winner"]
+        others = [k for k in names if k not in ("winner", *TEXTURE_KERNELS)]
         with tempfile.TemporaryDirectory() as d:
             t0 = time.perf_counter()
             paths, a = ex.write_asset(d)
@@ -3794,12 +4157,14 @@ class Smoke:
                     finite = all(bool(torch.isfinite(v.float()).all())
                                  for v in passes.values())
                     covered = int((passes["face_idx"] >= 0).sum())
+                    maps = self.maps_sampled(meshes[fmt])
                     self.check(finite and covered > 0 and n["winner"] == 1
-                               and not any(n[k] for k in others),
+                               and not any(n[k] for k in others)
+                               and self.texture_launches(n, maps),
                                f"{fmt.upper()} import rendered at "
                                f"{RENDER_RES}²: {len(passes)} passes, "
                                f"{covered} covered pixels, finite; launches "
-                               f"{n}")
+                               f"{n} ({maps} texture maps)")
                     self.check_winner_at(
                         f"the {fmt.upper()} import at {RENDER_RES}²",
                         lambda: ex.render_asset(meshes[fmt]))
@@ -4210,22 +4575,24 @@ class Smoke:
         imported (no launch; the ``.usdc`` import bit for bit, the
         ``.usda`` within 5e-6 relative; the dispatcher's mesh equal to
         ``io.usd.import_mesh``'s); the ``.usdc`` import rendered at 512²
-        (#1 once, #2-6 never; #1's winner ids against its plain version on
-        the same CUDA tensors; face_idx equal to the OBJ import's render of
-        the same geometry); 2^20 gaussians through a ``.usdc`` bit for bit;
-        the 100-step fit logged by ``Timelapse`` every 10 steps (#1 once
-        a render and a step; 11 checkpoints; the last within 5e-6 relative
-        of the fit's vertices; the files and dash3d's wire bytes from the
-        card's tensors equal to those from CPU copies); the turntable's 16
-        renders (#1 16 times; a frame's winner ids against the plain
-        version; its cameras within 1e-6 of a CPU visualizer's after the
-        same events)."""
+        (#1 once, #7's forward once a texture map of its materials, no other
+        kernel; #1's winner ids against its plain version on the same CUDA
+        tensors; face_idx equal to the OBJ import's render of the same
+        geometry); 2^20 gaussians through a ``.usdc`` bit for bit; the
+        100-step fit logged by ``Timelapse`` every 10 steps (#1 once a
+        render and a step, #7's forward once a texture map a render and a
+        step and its backward once a map a step; 11 checkpoints; the last
+        within 5e-6 relative of the fit's vertices; the files and dash3d's
+        wire bytes from the card's tensors equal to those from CPU copies);
+        the turntable's 16 renders (#1 16 times, #7's forward once a map a
+        render; a frame's winner ids against the plain version; its cameras
+        within 1e-6 of a CPU visualizer's after the same events)."""
         import filecmp
         import tempfile
 
         torch, ex, r = self.torch, self.usd_ex, self.usd
         names = list(self.counters())
-        others = [k for k in names if k != "winner"]
+        others = [k for k in names if k not in ("winner", *TEXTURE_KERNELS)]
         with tempfile.TemporaryDirectory() as d, \
                 self.native_calls("phase_usd_path"):
             a = ex.asset_arrays()
@@ -4270,11 +4637,14 @@ class Smoke:
                 covered = int((passes["face_idx"] >= 0).sum())
                 finite = all(bool(torch.isfinite(v.float()).all())
                              for v in passes.values())
+                maps = self.maps_sampled(mesh)
                 self.check(finite and covered > 0 and n["winner"] == 1
-                           and not any(n[k] for k in others),
+                           and not any(n[k] for k in others)
+                           and self.texture_launches(n, maps),
                            f".usdc import rendered at {RENDER_RES}²: "
                            f"{len(passes)} passes, {covered} covered "
-                           f"pixels, finite; launches {n}")
+                           f"pixels, finite; launches {n} ({maps} texture "
+                           "maps)")
                 self.check_winner_at(f"the .usdc import at {RENDER_RES}²",
                                      lambda: ex.render(mesh))
                 obj = self.kio.import_mesh(
@@ -4305,6 +4675,8 @@ class Smoke:
                        f"back to the card in {r['gauss_s']:.2f} s: bit for "
                        f"bit {exact}; launches {n}")
             del g, back
+        # the fit is torch_easy_render.py's, on its scene
+        fit_maps = self.maps_sampled(self.render_ex.scene("cuda"))
         with tempfile.TemporaryDirectory() as d:
             logdir = os.path.join(d, "card")
             t0 = time.perf_counter()
@@ -4327,6 +4699,9 @@ class Smoke:
                     for k in ("card", "host")}
             self.check(n["winner"] == ex.FIT_STEPS + 1
                        and not any(n[k] for k in others)
+                       and self.texture_launches(
+                           n, fit_maps * (ex.FIT_STEPS + 1),
+                           fit_maps * ex.FIT_STEPS)
                        and times == [float(t) for t in range(
                            0, ex.FIT_STEPS + 1, ex.LOG_EVERY)]
                        and parser.num_mesh_items() == 1
@@ -4343,12 +4718,14 @@ class Smoke:
                        f"card's tensors byte-equal to those from CPU copies "
                        f"{not mismatch and not errors}; dash3d's wire bytes "
                        f"({len(wire['card'][1])} + {len(wire['card'][2])}) "
-                       f"equal {wire['card'] == wire['host']}; launches {n}")
+                       f"equal {wire['card'] == wire['host']}; launches {n} "
+                       f"({fit_maps} texture maps)")
         viz = ex.turntable(mesh)
         _, n = self.drive(names, lambda: ex.drive(viz))
         cam_err = self.usd_cameras(viz.camera,
                                    self.cpu_turntable(RENDER_RES).camera)
         self.check(n["winner"] == ex.RENDERS and not any(n[k] for k in others)
+                   and self.texture_launches(n, maps * ex.RENDERS)
                    and viz.canvas.last_image.shape == (RENDER_RES,
                                                        RENDER_RES, 3)
                    and cam_err <= USD_TOL["camera"],
@@ -5859,7 +6236,7 @@ class Smoke:
         print(f"timing on {self.card}", flush=True)
         for name, n_tab in GATHER_TABLES.items():
             table, idx = self.gather_case(n_tab, GATHER_IDX)
-            fn = self.counters()[name]
+            fn = self.gather_fn(name)
             k_ms, p_ms = self.compare_times(
                 lambda: fn(table, idx),
                 lambda: self.cg.table_gather_plain(table, idx), 50, 20)
@@ -5905,11 +6282,26 @@ class Smoke:
         self.torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps
 
-    def device_ms(self, label, fn, reps=20):
+    def device_ms(self, label, fn, reps=20, names=None, alone=None):
         """Device ms per call of ``fn``, warm: every kernel and copy it
-        launches."""
-        return sum(us for _, us in self.device_events(label, fn, reps)) \
-            / reps / 1e3
+        launches, or those whose names hold one of ``names``. Where the
+        profiler gives no device time (a trace of one or two short
+        launches a call, inside a full run, now and then comes back
+        without any), None: the device time is not measured. The
+        CUDA-event ms of ``reps`` calls of ``alone`` (else ``fn``) back to
+        back over ``reps``, which the host's launches overlap, is then
+        printed as an event time, and kept nowhere as a device time."""
+        try:
+            events = self.device_events(label, fn, reps)
+        except RuntimeError as err:
+            one = alone or fn
+            ms = statistics.median(self.time_ms(
+                lambda: [one() for _ in range(reps)], 5)) / reps
+            print(f"{err}: device time not measured; event time {ms:.4f} "
+                  f"ms a call over {reps} calls back to back", flush=True)
+            return None
+        return sum(us for n, us in events if names is None
+                   or any(x in n for x in names)) / reps / 1e3
 
     def profile_path(self, label, names, fn, n=PROFILE_STEPS, record=True):
         """Device busy ms a step of ``fn``, its idle share against the host
@@ -5995,7 +6387,7 @@ class Smoke:
         share is taken cold, against a bound in HBM bytes."""
         for name, n_tab in GATHER_TABLES.items():
             table, idx = self.gather_case(n_tab, GATHER_IDX)
-            fn = self.counters()[name]
+            fn = self.gather_fn(name)
             ms = self.gather_readings(f"{name}, {n_tab} floats", {
                 "kernel": lambda: fn(table, idx),
                 "table[idx]": lambda: table[idx],
@@ -6018,7 +6410,7 @@ class Smoke:
         faster = {}
         for n_tab in GATHER_SWEEP:
             table, idx = self.gather_case(n_tab, GATHER_IDX)
-            fns = {name: lambda fn=self.counters()[name]: fn(table, idx)
+            fns = {name: lambda fn=self.gather_fn(name): fn(table, idx)
                    for name in GATHER_KERNELS}
             turns = [self.gather_readings(
                 f"route sweep, {n_tab} floats, turn {k}",
@@ -6026,16 +6418,25 @@ class Smoke:
                 for k in range(3)]
             cold, kept = {}, {}
             for name in fns:
-                readings = [t[name] for t in turns]
-                cold[name] = statistics.median(c for c, _ in readings)
+                readings = [t[name] for t in turns
+                            if t[name][0] is not None]   # cold measured
+                below = [w is not None and c < w for c, w in readings]
+                cold[name] = statistics.median(
+                    [c for c, _ in readings] or [None])
                 kept[name] = statistics.median(
-                    [c for c, w in readings if c >= w]
-                    or [c for c, _ in readings])
+                    [c for (c, _), b in zip(readings, below) if not b]
+                    or [c for c, _ in readings] or [None])
                 print(f"route sweep, {n_tab} floats, {name}: cold median "
                       f"{cold[name]}, leaving out cold below warm "
-                      f"{kept[name]} ({sum(c < w for c, w in readings)} "
-                      f"of {len(readings)} left out) [{self.card}]",
-                      flush=True)
+                      f"{kept[name]} ({sum(below)} of {len(readings)} left "
+                      f"out; {3 - len(readings)} cold and "
+                      f"{sum(w is None for _, w in readings)} warm readings "
+                      f"not measured) [{self.card}]", flush=True)
+            if None in cold.values():
+                faster[n_tab] = None
+                print(f"route sweep, {n_tab} floats: a route has no cold "
+                      f"reading; not compared [{self.card}]", flush=True)
+                continue
             ratio = cold["table_gather_l2"] / cold["table_gather_smem"]
             kept_ratio = kept["table_gather_l2"] / kept["table_gather_smem"]
             faster[n_tab] = "smem" if ratio >= 1 else "l2"
@@ -6051,7 +6452,9 @@ class Smoke:
         print(f"route sweep: cold, the shared-memory route is no slower "
               f"from {min(wins, default=None)} floats up to "
               f"{max(GATHER_SWEEP)}; the rule takes it up to "
-              f"{self.cg.SMEM_MAX_FLOATS} [{self.card}]")
+              f"{self.cg.SMEM_MAX_FLOATS}; not compared at "
+              f"{[n for n in GATHER_SWEEP if faster[n] is None]} "
+              f"[{self.card}]")
 
     def cold_ms(self, label, fn, reps=COLD_REPS, attempts=5):
         """Device ms of one call of ``fn`` with L2 cold: a 256 MB scratch
@@ -6062,7 +6465,8 @@ class Smoke:
         trace of the flush alone came back without device time inside a
         full run). The profiler now and then drops a call's events: only the
         calls with as many device events as most calls have count, and at
-        least ``COLD_MIN`` of them."""
+        least ``COLD_MIN`` of them. None, printed "not measured", where no
+        trace of ``attempts`` holds that many."""
         torch = self.torch
         cuda = torch.autograd.DeviceType.CUDA
         if getattr(self, "_flush", None) is None:
@@ -6100,7 +6504,9 @@ class Smoke:
                 return statistics.median(whole) / 1e3
             print(f"{label}: {len(whole)} whole cold calls of {reps} in the "
                   "trace; tracing again", flush=True)
-        raise RuntimeError(f"{label}: no cold reading in {attempts} traces")
+        print(f"{label}: no cold reading in {attempts} traces: cold device "
+              "time not measured", flush=True)
+        return None
 
     def gather_readings(self, label, fns):
         """Each of ``fns`` (name → a call at the probe's shape) cold and
@@ -6111,8 +6517,8 @@ class Smoke:
             out[name] = (self.cold_ms(f"{label} {name} cold", fn),
                          self.device_ms(f"{label} {name} warm", fn))
             print(f"{label}, {GATHER_IDX} indices: {name} cold "
-                  f"{out[name][0]:.4f}, warm {out[name][1]:.4f} device ms "
-                  f"[{self.card}]", flush=True)
+                  f"{fmt_ms(out[name][0])}, warm {fmt_ms(out[name][1])} "
+                  f"device ms [{self.card}]", flush=True)
         return out
 
     def profile_collision(self):
@@ -6148,8 +6554,10 @@ class Smoke:
         self.col.update(eager_busy=busy["eager"],
                         graph_busy=busy["graph replay"], detection_ms=det)
         print(f"collision_10k detection alone (grid, from the start state): "
-              f"{det:.4f} device ms, {det / busy['eager']:.3f} of an eager "
-              f"step's busy time, {det / busy['graph replay']:.3f} of a "
+              f"{fmt_ms(det)} device ms, "
+              f"{fmt_ms(det and det / busy['eager'], '.3f')} of an eager "
+              f"step's busy time, "
+              f"{fmt_ms(det and det / busy['graph replay'], '.3f')} of a "
               f"replay's [{self.card}]", flush=True)
 
     # -- bounds ------------------------------------------------------------
@@ -6318,11 +6726,12 @@ class Smoke:
                            f"a {n_tab}-float table once, {n} indices read "
                            f"and values written")
             r = self.results[name]
+            cold = r["device_ms"] and r["bound_ms"] / r["device_ms"]
+            warm = r["device_ms_warm"] and r["bound_ms"] / r["device_ms_warm"]
             print(f"{name}: the random reads' L2 sector traffic {n} x "
                   f"{L2_SECTOR} B = {n * L2_SECTOR} bytes (for understanding,"
-                  f" not the bound); share cold "
-                  f"{r['bound_ms'] / r['device_ms']:.4f}, warm "
-                  f"{r['bound_ms'] / r['device_ms_warm']:.4f} [{self.card}]")
+                  f" not the bound); share cold {fmt_ms(cold)}, warm "
+                  f"{fmt_ms(warm)} [{self.card}]")
 
     def phase_bounds(self):
         torch = self.torch
@@ -6407,17 +6816,19 @@ class Smoke:
         # than their library call, largest factor first; then by launches
         # per step x (device ms - bound ms)
         r = self.results
-        slower = sorted((k for k in r if r[k]["library_ms"] is not None
+        timed = [k for k in r if r[k]["device_ms"] is not None]
+        slower = sorted((k for k in timed if r[k]["library_ms"] is not None
                          and r[k]["device_ms"] > r[k]["library_ms"]),
                         key=lambda k: -r[k]["device_ms"] / r[k]["library_ms"])
-        rest = sorted((k for k in r if k not in slower),
+        rest = sorted((k for k in timed if k not in slower),
                       key=lambda k: -self.per_step[k]
                       * (r[k]["device_ms"] - r[k]["bound_ms"]))
-        for i, k in enumerate(slower + rest, 1):
-            lib = r[k]["library_ms"]
-            print(f"order {i}: {k}: device {r[k]['device_ms']:.4f} ms, bound "
+        untimed = [k for k in r if k not in timed]
+        for i, k in enumerate(slower + rest + untimed, 1):
+            lib, dev = r[k]["library_ms"], r[k]["device_ms"]
+            print(f"order {i}: {k}: device {fmt_ms(dev)} ms, bound "
                   f"{r[k]['bound_ms']:.6f} ms ({r[k]['bound_by']}), share "
-                  f"{r[k]['bound_ms'] / r[k]['device_ms']:.4f}, library "
+                  f"{fmt_ms(dev and r[k]['bound_ms'] / dev)}, library "
                   + ("none" if lib is None else f"{lib:.4f} ms")
                   + f", {self.per_step[k]:g} launches per step [{self.card}]")
 

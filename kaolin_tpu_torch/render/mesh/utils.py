@@ -2,14 +2,30 @@
 
 Counterpart of ``kaolin_tpu/render/mesh/utils.py``. ``texture_mapping``
 samples as ``grid_sample(align_corners=False, padding_mode='border')``
-does, with four gathers and the bilinear weights written as the JAX package
-writes them (not ``F.grid_sample``), so the weights round as there; its UV
-clip splits the gradient at 0 and 1 as ``jnp.clip`` does. Its spans
-(:mod:`kaolin_tpu_torch.utils.profiling`, while the profiler runs) are
-``render.mesh.texture_mapping`` and its ``.backward``.
+does. On a CUDA tensor it runs the hand-written kernel pair of
+:mod:`.cuda_texture` (``csrc/texture.cu``), which replaces no TPU kernel:
+the JAX package samples with four plain gathers, and in the port those
+gathers and their scatter-add backward were the DIB-R fit's largest device
+time, at about 0.5% of their bytes bound (31 and 41 µs a step at the fit's
+8 x 512² UVs with a 3 x 256² and a 3 x 1,024² texture on an H100).
+On a CPU tensor it runs the plain version :func:`texture_mapping_plain`:
+four gathers, with the bilinear weights written as the JAX package writes
+them (not ``F.grid_sample``), so the weights round as there, and the kernel
+rounds the samples as the plain version does, bit for bit. Both split the
+UV clip's gradient at 0 and 1 as ``jnp.clip`` does. The kernel's backward
+skips a pixel whose output gradient is exactly 0 in every channel: for
+finite UVs and texture its adds would all be ±0, which change no sum.
+
+A texture batch with stride 0, one texture expanded to every view, is read
+as that one texture (:func:`_one_texture`), so that its gradient is
+summed once over the views, into one (C, H', W') tensor, and not through
+``expand``'s backward. Its spans (:mod:`kaolin_tpu_torch.utils.profiling`,
+while the profiler runs) are ``render.mesh.texture_mapping`` and its
+``.backward``.
 """
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from kaolin_tpu_torch.ops.mesh import face_normals as compute_face_normals
 from kaolin_tpu_torch.ops.mesh import index_vertices_by_faces
@@ -17,11 +33,13 @@ from kaolin_tpu_torch.render.camera.legacy import (
     perspective_camera,
     rotate_translate_points,
 )
+from kaolin_tpu_torch.render.mesh import cuda_texture
 from kaolin_tpu_torch.utils import profiling
+from kaolin_tpu_torch.utils.backend import is_cuda
 from kaolin_tpu_torch.utils.numerics import clip
 
-__all__ = ["texture_mapping", "spherical_harmonic_lighting",
-           "prepare_vertices"]
+__all__ = ["texture_mapping", "texture_mapping_plain",
+           "spherical_harmonic_lighting", "prepare_vertices"]
 
 
 def _gather(flat, yi, xi, width):
@@ -58,24 +76,93 @@ def _grid_sample_2d(image, coords, mode="bilinear"):
     return out.transpose(1, 2)
 
 
+def texture_mapping_plain(uv, texture, mode="nearest"):
+    """The plain version of the texture kernels: UVs (B, N, 2), a texture
+    (1 or B, C, H', W') → samples (B, N, C), differentiable by autograd."""
+    tc = clip(uv, 0.0, 1.0) * 2.0 - 1.0
+    tc = tc * tc.new_tensor([1.0, -1.0])     # y up → image rows down
+    return _grid_sample_2d(texture.expand(uv.shape[0], -1, -1, -1), tc, mode)
+
+
+class _TextureMapping(torch.autograd.Function):
+    """Samples (B, N, C) of a texture (1 or B, C, H', W') at UVs (B, N, 2)
+    on the card: the forward and backward kernels of :mod:`.cuda_texture`.
+    The gradient of a texture of batch 1 is one (1, C, H', W') tensor, the
+    sum over every view. The backward kernel's gradients are not
+    differentiable: a second derivative through it raises."""
+
+    @staticmethod
+    def forward(ctx, uv, texture, mode):
+        ctx.save_for_backward(uv, texture)
+        ctx.mode = mode
+        return cuda_texture.texture_fwd_cuda(uv, texture, mode)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        uv, texture = ctx.saved_tensors
+        grad_uv, grad_tex = cuda_texture.texture_bwd_cuda(
+            uv, texture, grad_out.contiguous(), ctx.mode,
+            *ctx.needs_input_grad[:2])
+        return grad_uv, grad_tex, None
+
+
+def _one_texture(texture_maps):
+    """The tensor that a texture batch with stride 0 was expanded from,
+    where it holds exactly the one texture every view reads (so that
+    ``base.view(1, C, H', W')`` is it) and a gradient of the batch reaches
+    it through the views' own backward, else None. Reading that tensor in
+    place of the expand sums the views' gradients once, in the layer,
+    instead of in ``expand``'s backward over a (B, C, H', W') gradient.
+
+    Refused: a batch whose gradient would not reach the base (views made
+    under ``no_grad``, or a batch that requires grad of a base that does
+    not), and a base of another dtype, size or layout."""
+    if texture_maps.shape[0] < 2 or texture_maps.stride(0) != 0:
+        return None
+    base, first = texture_maps._base, texture_maps[:1]
+    if base is None or base.dtype != texture_maps.dtype \
+            or base.requires_grad != texture_maps.requires_grad \
+            or (texture_maps.requires_grad and texture_maps.grad_fn is None) \
+            or base.numel() != first.numel() or not base.is_contiguous() \
+            or not first.is_contiguous() \
+            or base.data_ptr() != first.data_ptr():
+        return None
+    return base
+
+
 def texture_mapping(texture_coordinates, texture_maps, mode="nearest"):
     """Sample texture maps at OpenGL-style (y up, [0, 1]) UV coords.
 
     texture_coordinates: (B, H, W, 2) or (B, N, 2); texture_maps:
     (B, C, H', W'). Returns (B, H, W, C) or (B, N, C). Differentiable with
     respect to the texture and, in "bilinear" mode, the UVs; at a UV of
-    exactly 0 or 1 the clip passes half the gradient, as in JAX."""
+    exactly 0 or 1 the clip passes half the gradient, as in JAX.
+
+    CUDA tensors go through the texture kernels, which take float32 and
+    raise on anything else; CPU tensors through
+    :func:`texture_mapping_plain`. A batch of one texture expanded to every
+    view (stride 0) is read as that texture on either device."""
     with profiling.span("render.mesh.texture_mapping"):
         batch_size = texture_coordinates.shape[0]
         num_channels = texture_maps.shape[1]
-        tc = texture_coordinates.reshape(batch_size, -1, 2)
-        tc = clip(tc, 0.0, 1.0) * 2.0 - 1.0
-        tc = tc * tc.new_tensor([1.0, -1.0])     # y up → image rows down
-        out = _grid_sample_2d(texture_maps, tc, mode)
+        uv = texture_coordinates.reshape(batch_size, -1, 2)
+        base = _one_texture(texture_maps)
+        texture = (texture_maps if base is None
+                   else base.view(1, *texture_maps.shape[1:]))
+        if is_cuda(uv):
+            if cuda_texture.pair_stride(uv) is None:
+                uv = uv.contiguous()
+            if not texture[0].is_contiguous():
+                texture = texture.contiguous()
+            out = _TextureMapping.apply(uv, texture, mode)
+        else:
+            out = texture_mapping_plain(uv, texture, mode)
         out = out.reshape(batch_size, *texture_coordinates.shape[1:-1],
                           num_channels)
         profiling.backward_span("render.mesh.texture_mapping",
-                                (texture_coordinates, texture_maps), out)
+                                (texture_coordinates, texture_maps, base),
+                                out)
     return out
 
 

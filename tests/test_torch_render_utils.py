@@ -2,7 +2,9 @@
 ``spherical_harmonic_lighting``, ``prepare_vertices``) and the JAX
 rasterizer's capacity API (``suggest_tile_cap``, ``tile_overflow_report``)
 against kaolin_tpu's, on the CPU; and two of the repo's golden images
-rendered by the port.
+rendered by the port. The texture kernels' wrappers (``cuda_texture``):
+their argument checks, their launch counters, and ``texture_mapping``'s
+reading of a texture expanded to every view as the one texture.
 
 The same seeded numpy inputs go to both packages. Texture values agree
 within 1e-6 (the sampling takes JAX's gathers and weights in its order),
@@ -25,8 +27,10 @@ from kaolin_tpu.utils.testing import assert_images_close
 from kaolin_tpu_torch.ops.mesh import face_normals, index_vertices_by_faces
 from kaolin_tpu_torch.render import mesh as tmesh
 from kaolin_tpu_torch.render.camera import Camera
+from kaolin_tpu_torch.render.mesh import cuda_texture
 from kaolin_tpu_torch.render.mesh import rasterization as trast
 from kaolin_tpu_torch.render.mesh import utils as tutils
+from kaolin_tpu_torch.utils import profiling
 from kaolin_tpu_torch.utils.numerics import clip
 from tests.render.golden_corpus import GOLDEN_DIR
 from tests.torch_parity import load_example, warm_torch_exp  # noqa: F401
@@ -111,6 +115,191 @@ def test_uv_clip_splits_the_gradient_at_0_and_1_as_jax():
     close(ut.grad, g_j, atol=GRAD_TOL)
     assert np.all(ut.grad.numpy()[0, :4][[0, 1, 2, 3], [0, 0, 1, 1]] == 0)
     assert np.all(ut.grad.numpy()[0, 4:] != 0)
+
+
+def _bad_texture_inputs():
+    """(label, uv, texture, mode, error) that the texture kernels' checks
+    refuse: each with one thing wrong, on the CPU."""
+    uv = torch.rand(2, 6, 2)
+    tex = torch.rand(1, 3, 4, 5)
+    return [
+        ("uv float64", uv.double(), tex, "bilinear", TypeError),
+        ("texture int32", uv, tex.int(), "bilinear", TypeError),
+        ("uv (2, 6, 3)", torch.rand(2, 6, 3), tex, "bilinear", ValueError),
+        ("uv (2, 12)", uv.reshape(2, 12), tex, "bilinear", ValueError),
+        ("texture (3, 4, 5)", uv, tex[0], "bilinear", ValueError),
+        ("texture batch 3", uv, tex.expand(3, -1, -1, -1), "bilinear",
+         ValueError),
+        ("mode", uv, tex, "bicubic", ValueError),
+        ("uv on the CPU", uv, tex, "bilinear", ValueError),
+        ("uv on the CPU, nearest", uv, tex, "nearest", ValueError),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_bad_texture_inputs())))
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_texture_kernel_checks_raise(case, direction):
+    """The wrappers refuse a wrong dtype, shape, mode or device before any
+    launch, forward and backward, on any device: the checks of type and
+    shape come before the device's."""
+    label, uv, tex, mode, error = _bad_texture_inputs()[case]
+    with pytest.raises(error):
+        if direction == "forward":
+            cuda_texture.texture_fwd_cuda(uv, tex, mode)
+        else:
+            grad = torch.zeros(uv.shape[0], uv.shape[1], tex.shape[1])
+            cuda_texture.texture_bwd_cuda(uv, tex, grad, mode)
+
+
+def test_texture_kernel_launch_counters_listed():
+    """Both launch counters are in the registry from the wrapper's import,
+    at 0 where no card ran them; the backward's two pixel counters are
+    device counters, listed only while the profiler runs."""
+    got = profiling.counters()
+    assert got[cuda_texture.FWD_LAUNCHES] == 0
+    assert got[cuda_texture.BWD_LAUNCHES] == 0
+    assert not set(cuda_texture.PIXELS) & set(got)
+    tutils.texture_mapping(torch.rand(2, 4, 2, requires_grad=True),
+                           torch.rand(2, 3, 4, 4), "bilinear").sum().backward()
+    got = profiling.counters()
+    assert got[cuda_texture.FWD_LAUNCHES] == got[cuda_texture.BWD_LAUNCHES] \
+        == 0
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("views", [1, 3])
+def test_one_texture_expanded_to_every_view(mode, views):
+    """A texture expanded to every view (batch stride 0) is read as the
+    tensor it was expanded from: values, the UV gradient and the texture's
+    gradient equal the plain version's on the expanded batch (whose
+    gradient ``expand``'s backward sums over the views), and the gradient
+    reaches the texture through no ``ExpandBackward0`` of the caller's.
+    Per-view textures, a batch of one, and an expand of a texture that is
+    not contiguous are read as given."""
+    uv = uv_cases().reshape(2, -1, 2)
+    uv = np.concatenate([uv] * 2)[:views]
+    w = torch.from_numpy(RNG.randn(*uv.shape[:-1], 3).astype(np.float32))
+    got, want = {}, {}
+    for out, route in ((got, True), (want, False)):
+        u = torch.tensor(uv, requires_grad=True)
+        t = torch.tensor(TEX[0], requires_grad=True)
+        batch = t[None].expand(views, -1, -1, -1)
+        if route:
+            val = tutils.texture_mapping(u, batch, mode)
+            reached = batch.grad_fn in _nodes(val.grad_fn)
+        else:
+            val = tutils.texture_mapping_plain(u, batch, mode)
+        (w * val).sum().backward()
+        out.update(val=val.detach(), gt=t.grad,
+                   gu=u.grad if u.grad is not None else torch.zeros(1))
+    for k in got:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+    assert reached == (views == 1)
+    assert tutils._one_texture(batch) is (t if views > 1 else None)
+    per_view = torch.from_numpy(TEX)
+    assert tutils._one_texture(per_view) is None
+    strided = torch.from_numpy(TEX[0]).transpose(1, 2)[None].expand(2, -1,
+                                                                    -1, -1)
+    assert tutils._one_texture(strided) is None
+
+
+def _expanded(case, views=3):
+    """A leaf texture (3, H', W') and a batch of ``views`` read from it
+    with stride 0, made as ``case`` names → (leaf, batch)."""
+    if case == "dtype view":    # float32 over the bits of an int32 tensor
+        bits = torch.from_numpy(TEX[0].view(np.int32).copy())
+        t = bits.view(torch.float32)
+        return t, t[None].expand(views, -1, -1, -1)
+    t = torch.tensor(TEX[0], requires_grad=True)
+    if case == "no_grad":
+        with torch.no_grad():
+            batch = t[None].expand(views, -1, -1, -1)
+    elif case == "detached, then made to require grad":
+        batch = t.detach()[None].expand(views, -1, -1, -1).requires_grad_()
+    else:   # "detached after the expand"
+        batch = t[None].expand(views, -1, -1, -1).detach()
+    return t, batch
+
+
+@pytest.mark.parametrize("case", ["no_grad",
+                                  "detached, then made to require grad",
+                                  "detached after the expand", "dtype view"])
+def test_one_texture_refusals(case):
+    """A stride-0 batch whose gradient would not reach the tensor it was
+    expanded from through its own backward (made under ``no_grad``, or
+    detached from it) is not read as that tensor; a base is only ever
+    taken in the batch's dtype. In each case ``texture_mapping`` gives the
+    plain version's values and gradients on the batch as given, and a
+    gradient reaches the leaf and the batch exactly where it does there."""
+    t, batch = _expanded(case)
+    base = tutils._one_texture(batch)
+    if case == "dtype view":
+        assert base is None or base.dtype == batch.dtype
+    else:
+        assert base is None
+    uv = torch.from_numpy(uv_cases().reshape(1, -1, 2))
+    w = torch.from_numpy(RNG.randn(3, uv.shape[1], 3).astype(np.float32))
+    got, want = {}, {}
+    for out, fn in ((got, tutils.texture_mapping),
+                    (want, tutils.texture_mapping_plain)):
+        t, batch = _expanded(case)
+        u = uv.expand(3, -1, -1).clone().requires_grad_(True)
+        val = fn(u, batch, "bilinear")
+        (w * val).sum().backward()
+        out.update(val=val.detach(), gu=u.grad, gt=t.grad, gb=batch.grad)
+    for k in got:
+        if want[k] is None:
+            assert got[k] is None, k
+        else:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+def test_texture_mapping_backward_once_differentiable():
+    """The kernels' backward gives gradients with no graph: a second
+    derivative through ``_TextureMapping`` raises instead of coming out
+    as missing or zero. Run through the autograd Function itself, with a
+    stand-in for the card's kernels (their output is what the wrappers
+    return: plain tensors made outside autograd)."""
+    uv = torch.rand(2, 5, 2, requires_grad=True)
+    tex = torch.rand(1, 3, 4, 4, requires_grad=True)
+    fwd, bwd = cuda_texture.texture_fwd_cuda, cuda_texture.texture_bwd_cuda
+
+    def plain_fwd(u, t, mode):
+        with torch.no_grad():
+            return tutils.texture_mapping_plain(u, t, mode)
+
+    def plain_bwd(u, t, g, mode, need_uv=True, need_texture=True):
+        with torch.enable_grad():
+            u, t = u.detach().requires_grad_(), t.detach().requires_grad_()
+            out = tutils.texture_mapping_plain(u, t, mode)
+            return torch.autograd.grad(out, (u, t), g)
+
+    cuda_texture.texture_fwd_cuda = plain_fwd
+    cuda_texture.texture_bwd_cuda = plain_bwd
+    try:
+        out = tutils._TextureMapping.apply(uv, tex, "bilinear")
+        gu, gt = torch.autograd.grad(out.square().sum(), (uv, tex),
+                                     create_graph=True)
+        want = torch.autograd.grad(
+            tutils.texture_mapping_plain(uv, tex, "bilinear").square().sum(),
+            (uv, tex))
+        torch.testing.assert_close(gt, want[1], rtol=1e-6, atol=1e-6)
+        with pytest.raises(RuntimeError, match="once_differentiable"):
+            gu.sum().backward()
+    finally:
+        cuda_texture.texture_fwd_cuda = fwd
+        cuda_texture.texture_bwd_cuda = bwd
+
+
+def _nodes(root):
+    seen, todo = {root}, [root]
+    while todo:
+        node = todo.pop()
+        for nxt, _ in node.next_functions:
+            if nxt is not None and nxt not in seen:
+                seen.add(nxt)
+                todo.append(nxt)
+    return seen
 
 
 def test_spherical_harmonic_lighting():

@@ -138,15 +138,18 @@ def _layer_nodes(root, stop):
 
 def test_texture_backward_span_holds_the_texture_nodes_only():
     """``render.mesh.texture_mapping.backward`` holds exactly the nodes
-    ``texture_mapping`` made (its four ``GatherBackward0`` among them):
-    not the caller's expand of the texture, not the rasterizer's split
-    and not the soft mask's backward."""
+    ``texture_mapping`` made (its four ``GatherBackward0`` among them),
+    down to the texture leaf that the caller expanded and the layer reads
+    once: not the caller's expand, which no gradient passes, not the
+    rasterizer's split and not the soft mask's backward."""
     keep = {}
-    records, events = _traced_step(_scene(), keep)
+    s = _scene()
+    records, events = _traced_step(s, keep)
     span, = [r for r in records
              if r.name == "render.mesh.texture_mapping.backward"]
     ends = {keep["uv"].grad_fn, keep["tex"].grad_fn}
-    want = _layer_nodes(keep["out"].grad_fn, lambda n: n in ends)
+    want = _layer_nodes(keep["out"].grad_fn, lambda n: n in ends or getattr(
+        n, "variable", None) is s["tex"])
     got = Counter(e.name() for e in _inside(events, span)
                   if NODE.match(e.name()))
     assert got == want

@@ -90,7 +90,10 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    UVs (the seam at u = 1, the rings at v = 0 and 1); kernel #7 (the
    texture kernels, which replace no TPU kernel) against its plain version
    on the card at the benchmark cells' shapes, with per-view and
-   batch-of-one textures, both modes, and its pixel counters;
+   batch-of-one textures, both modes, and its pixel counters; kernel #8
+   (the re-gather, which replaces no TPU kernel) against its plain version
+   on both DIB-R cells' own data: its output bit for bit, its gradients
+   within their float32 sum bound, its launches and pixel counters;
 5. the DIB-R path: ``config2_step`` (512², a 4992-face UV sphere, forward
    and backward, 5 steps) with every launch counter set to 0 before and
    read after (each soft-mask forward given the rasterizer's ids), its
@@ -99,7 +102,7 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    ``examples/torch_dibr_optimization.py`` (final loss < 0.30, |shift| <
    0.05); then 100 steps of the texture fit from its start, the counters
    set to 0 before and read after each step: #1-3 launch on every step,
-   and #7 once each way, the losses are finite, the silhouette term falls
+   and #7 and #8 once each way, the losses are finite, the silhouette term falls
    by at least half and the pose error (angle and translation) falls; its
    peak memory; then the
    camera tutorial (256²) and the bounding-box fit (4 views at 128², 153
@@ -402,6 +405,24 @@ TEXTURE_SIDES = {"texfit.v8": 256, "asset.v8": 1024}
 # times that far off on a texel of tens of adds
 TEXTURE_VALUE_TOL, TEXTURE_UV_GRAD_TOL = 1e-6, 1e-5
 TEXTURE_SUM_ULP = 2.0 ** -24
+# kernel #8 against its plain version on the card, on each DIB-R cell's own
+# data after REGATHER_STEPS steps of the fit: the forward rounds op for op
+# as the plain version (both without contraction), so bit for bit. Each
+# gradient entry is a float32 sum of n per-pixel terms in an order that
+# changes from launch to launch, held to the float64 sum of the same terms
+# (chip_smoke.regather_bwd_rule from the float32 barycentrics both sides
+# share): a sum of n terms in any order is within (n + 1) x 2^-24 of the
+# sum of their magnitudes. A feature term is one float32 product, exact to
+# 2^-24; a coordinate term is itself a float32 evaluation of D + 9 steps
+# (the D products and sums against the features, the divisions by the
+# norm, the two products and the difference), within (D + 9) x 2^-24 of
+# the same evaluation on magnitudes. So each entry within
+# (n + REGATHER_CHAIN + D) x 2^-24 of its terms' magnitudes, for both the
+# kernel and the plain version, whose autograd sums the same terms in its
+# own order
+REGATHER_STEPS = 10
+REGATHER_CHAIN = 12
+REGATHER_SEED = 2147483999
 SPCRT_PARITY = (7, 128)          # level, resolution of card vs CPU
 SPCRT_LEVEL = 9
 SPCRT_RES = 512
@@ -550,9 +571,22 @@ KERNELS = {
         "source": "kaolin_tpu_torch/render/mesh/csrc/texture.cu",
         "replaces": "none (kaolin_tpu/render/mesh/utils.py:_grid_sample_2d)",
     },
+    # kernel #8 replaces no TPU kernel: the JAX package re-gathers the
+    # winners with one take_along_axis (no pallas_call)
+    "regather_fwd": {
+        "route": "cuda",
+        "source": "kaolin_tpu_torch/render/mesh/csrc/regather.cu",
+        "replaces": "none (kaolin_tpu/render/mesh/rasterization.py:359)",
+    },
+    "regather_bwd": {
+        "route": "cuda",
+        "source": "kaolin_tpu_torch/render/mesh/csrc/regather.cu",
+        "replaces": "none (kaolin_tpu/render/mesh/rasterization.py:359)",
+    },
 }
 DIBR_KERNELS = ("winner", "soft_mask_fwd", "soft_mask_bwd")
 TEXTURE_KERNELS = ("texture_fwd", "texture_bwd")
+REGATHER_KERNELS = ("regather_fwd", "regather_bwd")
 # the texture maps of a material that easy_render's ``tex_sample`` samples,
 # each through one #7 forward a render
 SAMPLED_MAPS = ("normals_texture", "diffuse_texture", "specular_texture",
@@ -571,7 +605,10 @@ DEVICE_NAMES = {"winner": ("winner_kernel", "winner_box_kernel"),
                 "table_gather_smem": ("gather_smem_kernel",),
                 "table_gather_l2": ("gather_l2_kernel",),
                 "texture_fwd": ("texture_fwd_kernel",),
-                "texture_bwd": ("texture_bwd_kernel", "texture_zero_kernel")}
+                "texture_bwd": ("texture_bwd_kernel", "texture_zero_kernel"),
+                "regather_fwd": ("regather_fwd_kernel",),
+                "regather_bwd": ("regather_bwd_kernel",
+                                 "regather_zero_kernel")}
 # every line the full probe prints, in order
 PROBE_NAMES = (
     "gather1d_n65536_tab1048576", "gather1d_n1048576_tab1048576",
@@ -678,6 +715,74 @@ def dense_tile_faces():
                         rng.uniform(-1000, 1000, (48, 2))])
     fvi = c[:, None] + rng.uniform(-20, 20, (2048, 3, 2))
     return with_depth(fvi[None].astype(np.float32), 6), 64, 64
+
+
+def regather_bwd_rule(face_idx, scaled, features, grad_out, multiplier, eps,
+                      need_scaled=True, need_features=True, dtype=None,
+                      absolute=False):
+    """Kernel #8's backward (``regather_bwd_kernel``) in plain PyTorch →
+    (grad_scaled (B, F, 3, 2) or None, grad_features (B, F, 3, D) or None).
+
+    A missed pixel, and a hit whose ``grad_out`` is 0 in every channel, add
+    nothing; every other pixel's coordinate and feature gradients come
+    from its barycentrics in the inputs' precision, rounded as the forward
+    rounds them, and then in ``dtype`` (the inputs' where None), summed by
+    ``index_add_``. ``absolute``: each gradient with every term taken by
+    its magnitude (the sum of the magnitudes of the products at each
+    step), the scale of a rounding bound."""
+    import torch
+
+    from kaolin_tpu_torch.render.mesh.rasterization import _pixel_coords
+
+    b, h, w = face_idx.shape
+    f, d = scaled.shape[1], features.shape[-1]
+    dtype = dtype or scaled.dtype
+    g = grad_out.reshape(b, h * w, d)
+    ids = face_idx.reshape(b, h * w).long()
+    bi, pi = torch.nonzero((ids >= 0) & (g != 0).any(-1), as_tuple=True)
+    fi = ids[bi, pi]
+    v = scaled[bi, fi]                                        # (n, 3, 2)
+    px, py = _pixel_coords(h, w, multiplier, scaled.dtype, scaled.device)
+    px, py = px.reshape(-1)[pi], py.reshape(-1)[pi]
+    ax, ay = v[:, 0, 0] - px, v[:, 0, 1] - py
+    bx, by = v[:, 1, 0] - px, v[:, 1, 1] - py
+    cx, cy = v[:, 2, 0] - px, v[:, 2, 1] - py
+    norm = ((bx * cy - by * cx) + (cx * ay - cy * ax)) + (ax * by - ay * bx)
+    norm = norm + torch.where(norm >= 0, eps, -eps)
+    wk = torch.stack([bx * cy - by * cx, cx * ay - cy * ax,
+                      ax * by - ay * bx], -1) / norm[:, None]   # (n, 3)
+    fe, gg = features[bi, fi].to(dtype), g[bi, pi].to(dtype)
+    ax, ay, bx, by, cx, cy, norm, wk = (t.to(dtype) for t in (
+        ax, ay, bx, by, cx, cy, norm, wk))
+    if absolute:
+        fe, gg, wk, norm = fe.abs(), gg.abs(), wk.abs(), norm.abs()
+        ax, ay, bx, by, cx, cy = (t.abs() for t in (ax, ay, bx, by, cx, cy))
+
+    def minus(x, y):
+        return x + y if absolute else x - y
+
+    rows = bi * f + fi
+    grad_scaled = grad_features = None
+    if need_scaled:
+        gw = (gg[:, None, :] * fe).sum(-1)                    # (n, 3)
+        gnorm = (gw * wk).sum(-1) / norm
+        gW = gw / norm[:, None] + (gnorm if absolute else -gnorm)[:, None]
+        g0, g1, g2 = gW.unbind(-1)
+        terms = torch.stack([minus(g2 * by, g1 * cy), minus(g1 * cx, g2 * bx),
+                             minus(g0 * cy, g2 * ay), minus(g2 * ax, g0 * cx),
+                             minus(g1 * ay, g0 * by), minus(g0 * bx, g1 * ax)],
+                            -1)
+        grad_scaled = torch.zeros((b * f, 6), dtype=dtype,
+                                  device=scaled.device)
+        grad_scaled.index_add_(0, rows, terms)
+        grad_scaled = grad_scaled.reshape(b, f, 3, 2)
+    if need_features:
+        terms = (wk[:, :, None] * gg[:, None, :]).reshape(-1, 3 * d)
+        grad_features = torch.zeros((b * f, 3 * d), dtype=dtype,
+                                    device=scaled.device)
+        grad_features.index_add_(0, rows, terms)
+        grad_features = grad_features.reshape(b, f, 3, d)
+    return grad_scaled, grad_features
 
 
 def dense_step_ops(d, n, m):
@@ -787,6 +892,7 @@ class Smoke:
         from kaolin_tpu_torch.render.camera import Camera
         from kaolin_tpu_torch.render.mesh import (
             cuda_rasterize,
+            cuda_regather,
             cuda_soft_mask,
             cuda_texture,
             dibr,
@@ -806,6 +912,7 @@ class Smoke:
         self.device = "cuda"
         self.cr, self.cs = cuda_rasterize, cuda_soft_mask
         self.ctex, self.mesh_utils = cuda_texture, mesh_utils
+        self.creg = cuda_regather
         self.dibr, self.rast = dibr, rasterization
         self.craster, self.sr = cuda_raster, raster
         self.cg, self.pb, self.profiling = (cuda_gather, primitives_bench,
@@ -878,7 +985,9 @@ class Smoke:
                 "table_gather_smem": self.cg.SMEM_LAUNCHES,
                 "table_gather_l2": self.cg.L2_LAUNCHES,
                 "texture_fwd": self.ctex.FWD_LAUNCHES,
-                "texture_bwd": self.ctex.BWD_LAUNCHES}
+                "texture_bwd": self.ctex.BWD_LAUNCHES,
+                "regather_fwd": self.creg.FWD_LAUNCHES,
+                "regather_bwd": self.creg.BWD_LAUNCHES}
 
     def gather_fn(self, name):
         """The table gather's route ``name`` (one of GATHER_KERNELS)."""
@@ -1170,8 +1279,8 @@ class Smoke:
             idx = self.rast.rasterize_search_plain(
                 inputs["face_vertices_z"], scaled.detach(),
                 inputs["face_normals_z"] >= 0, 1000, 1e-8, res, res)
-        img = self.rast._interpolate_at_winners(idx, scaled, feats, 1000,
-                                                1e-8)
+        img = self.rast.interpolate_at_winners_plain(idx, scaled, feats, 1000,
+                                                     1e-8)
         allprob = self.dibr.soft_mask_plain(scaled, 7000, 0.02, 1000.0, res,
                                             res)
         soft = torch.where(idx >= 0, 1.0, 1.0 - allprob)
@@ -1561,6 +1670,224 @@ class Smoke:
         got = self.profiling.counters()
         return tuple(got.get(k) for k in self.ctex.PIXELS)
 
+    def regather_fit_case(self, cell, seed, steps=REGATHER_STEPS):
+        """The re-gather's inputs and its output's gradient as the DIB-R fit
+        hands them over in ``cell`` (the benchmark's configuration and
+        traffic, from ``seed``) after ``steps`` steps → dict (face_idx,
+        scaled, features, cot, multiplier, eps)."""
+        from portbench import harness
+        from portbench.fits import dibr as fit
+
+        _, _, cfg, mix = harness.cell(harness.benchmark(), cell)
+        state = fit.build(cfg, fit.make_inputs(cfg, mix, seed, "cuda"),
+                          "cuda")
+        for _ in range(steps):
+            fit.step(state)
+        kept = {}
+        real = self.rast._interpolate_at_winners
+
+        def keep(face_idx, scaled, features, multiplier, eps):
+            out = real(face_idx, scaled, features, multiplier, eps)
+            out.retain_grad()
+            kept.update(face_idx=face_idx, scaled=scaled.detach(),
+                        features=features.detach(), out=out,
+                        multiplier=multiplier, eps=eps)
+            return out
+
+        self.rast._interpolate_at_winners = keep
+        try:
+            image, soft, _, _ = fit.render(state["scene"], state["params"])
+            fit.losses(state["scene"], state["params"], image, soft)[0] \
+                .backward()
+        finally:
+            self.rast._interpolate_at_winners = real
+        kept["cot"] = kept.pop("out").grad.detach()
+        return kept
+
+    def regather_call(self, case, fn, cot, feature_grad):
+        """``fn`` (``_interpolate_at_winners`` or its plain version) on
+        fresh leaves of ``case``, backward with ``cot`` → (output, the
+        gradient of scaled, of the features or None)."""
+        scaled = case["scaled"].clone().requires_grad_(True)
+        feats = case["features"].clone().requires_grad_(feature_grad)
+        out = fn(case["face_idx"], scaled, feats, case["multiplier"],
+                 case["eps"])
+        out.backward(cot)
+        return out.detach(), scaled.grad, feats.grad
+
+    def regather_bound(self, case, cot, feature_grad):
+        """The float64 sums of each gradient's terms and their bounds
+        (REGATHER_CHAIN): [(reference, bound)] for the coordinates' and,
+        where asked, the features' gradient."""
+        torch = self.torch
+        idx, d = case["face_idx"], case["features"].shape[-1]
+        args = (idx, case["scaled"], case["features"], cot,
+                case["multiplier"], case["eps"], True, feature_grad)
+        exact = regather_bwd_rule(*args, dtype=torch.float64)
+        mag = regather_bwd_rule(*args, dtype=torch.float64, absolute=True)
+        b, f = case["scaled"].shape[:2]
+        live = (idx >= 0) & (cot != 0).any(-1)
+        rows = (torch.arange(b, device=idx.device)[:, None, None] * f
+                + idx.long())[live]
+        adds = torch.bincount(rows, minlength=b * f).double().reshape(
+            b, f, 1, 1)
+        out = [(exact[0], (adds + REGATHER_CHAIN + d) * TEXTURE_SUM_ULP
+                * mag[0])]
+        if feature_grad:
+            out.append((exact[1], (adds + 2) * TEXTURE_SUM_ULP * mag[1]))
+        return out
+
+    def phase_regather_parity(self):
+        """Kernel #8 against its plain version on the card, at both DIB-R
+        cells' shapes on the fit's own data (``regather_fit_case``): the
+        forward bit for bit; the backward with the fit's own cotangent
+        (the features need no gradient there) and with a seeded one, 0 at
+        5% of the hits, asked for the features' gradient too; each
+        gradient entry, the kernel's and the plain version's, within its
+        bound of the float64 sum of its terms (REGATHER_CHAIN); one forward
+        and two backward launches a call (the profiler's names); the pixel
+        counters of a profiled backward against the pixels and the live
+        ones; then the device ms of the plain version and of the kernel,
+        each way, their event ms (plain, kernel, kernel, plain) and the
+        bytes bound. The kernel table's row is texfit.v8's."""
+        torch = self.torch
+        plain = self.rast.interpolate_at_winners_plain
+        worst = {"regather_fwd": 0.0, "regather_bwd": 0.0}
+        for cell in TEXTURE_SIDES:
+            case = self.regather_fit_case(cell, REGATHER_SEED)
+            idx, d = case["face_idx"], case["features"].shape[-1]
+            b, f = case["scaled"].shape[:2]
+            hits = idx >= 0
+            rng = torch.Generator(device="cuda").manual_seed(REGATHER_SEED)
+            seeded = torch.randn(case["cot"].shape, device="cuda",
+                                 generator=rng)
+            keep = torch.rand(idx.shape, device="cuda", generator=rng) >= 0.05
+            seeded = seeded * (keep | ~hits)[..., None]
+            for label, cot, feature_grad in (("the fit's cotangent",
+                                              case["cot"], False),
+                                             ("a seeded cotangent", seeded,
+                                              True)):
+                got, n = self.drive(
+                    REGATHER_KERNELS, lambda: self.regather_call(
+                        case, self.rast._interpolate_at_winners, cot,
+                        feature_grad))
+                want = self.regather_call(case, plain, cot, feature_grad)
+                equal = bool(torch.equal(got[0], want[0]))
+                val_err = float((got[0] - want[0]).abs().max())
+                within, share = [], []
+                for k, (exact, bound) in enumerate(self.regather_bound(
+                        case, cot, feature_grad)):
+                    for side in (got, want):
+                        off = (side[1 + k].double() - exact).abs()
+                        within.append(bool((off <= bound).all()))
+                        share.append(float((off / bound.clamp_min(1e-300))
+                                           .max()))
+                errs = [float((g - w).abs().max()) for g, w in
+                        zip(got[1:], want[1:]) if w is not None]
+                scale = [float(w.abs().max()) for w in want[1:]
+                         if w is not None]
+                live = int((hits & (cot != 0).any(-1)).sum())
+                worst["regather_fwd"] = max(worst["regather_fwd"], val_err)
+                worst["regather_bwd"] = max(worst["regather_bwd"], errs[0])
+                self.check(equal and all(within)
+                           and (got[2] is None) == (not feature_grad)
+                           and n == {"regather_fwd": 1, "regather_bwd": 1},
+                           f"re-gather kernel [{cell}, {b} x {RES}² pixels, "
+                           f"{f} faces, D = {d}, {label}]: values bitwise "
+                           f"equal {equal} (max |diff| {val_err:.2e}); "
+                           f"{int(hits.sum())} hits, {live} live; gradients' "
+                           f"max |diff| from the plain version's {errs} (max "
+                           f"{scale}); kernel and plain within the bound of "
+                           f"the float64 sums {within}, at most "
+                           + ", ".join(f"{x:.4f}" for x in share)
+                           + f" of an entry's bound; launches {n}")
+            counted, names = self.regather_launches(case)
+            live = int((hits & (case["cot"] != 0).any(-1)).sum())
+            self.check(counted == (b * RES * RES, live)
+                       and names == {"fwd": ["regather_fwd_kernel"],
+                                     "bwd": ["regather_bwd_kernel",
+                                             "regather_zero_kernel"]},
+                       f"re-gather backward's pixel counters [{cell}]: "
+                       f"{counted} against {b * RES * RES} pixels, {live} "
+                       f"live ({100 * live / (b * RES * RES):.1f}%); device "
+                       f"launches a call {names}")
+            self.regather_timing(cell, case)
+            del case
+            torch.cuda.empty_cache()
+        for k, err in worst.items():
+            self.record_err(k, err)
+
+    def regather_launches(self, case):
+        """A profiled call each way → ((pixels, pixels_added) of the
+        backward's device counters, {"fwd", "bwd": the sorted names of the
+        device launches of one call, each kernel of #8 by its short
+        name})."""
+        args = (case["face_idx"], case["scaled"], case["features"])
+        rest = (case["multiplier"], case["eps"])
+        calls = {"fwd": lambda: self.creg.regather_fwd_cuda(*args, *rest),
+                 "bwd": lambda: self.creg.regather_bwd_cuda(
+                     *args, case["cot"], *rest, True, False)}
+        short = ("regather_fwd_kernel", "regather_bwd_kernel",
+                 "regather_zero_kernel")
+        names = {way: sorted(next((k for k in short if k in n), n)
+                             for n, _ in self.device_events(
+                                 f"re-gather {way}", fn, 1))
+                 for way, fn in calls.items()}
+        got = self.profiling.counters()
+        return tuple(got.get(k) for k in self.creg.PIXELS), names
+
+    def regather_timing(self, cell, case):
+        """Kernel #8 on a cell's own data, the backward as the fit asks for
+        it (no features' gradient): each way's device ms (the zero-fill
+        counted in the backward's), the CUDA-event ms of one call against
+        its plain version's (plain, kernel, kernel, plain), the plain
+        version's device ms, and the bytes bound: each byte once, the ids,
+        the hit faces' coordinates and features, the output (forward) or
+        its gradient and the coordinates' gradient (backward)."""
+        torch = self.torch
+        plain = self.rast.interpolate_at_winners_plain
+        idx, feats = case["face_idx"], case["features"]
+        rest = (case["multiplier"], case["eps"])
+        scaled = case["scaled"].clone().requires_grad_(True)
+        out = plain(idx, scaled, feats, *rest)
+        fns = {
+            "fwd": (lambda: self.creg.regather_fwd_cuda(
+                idx, case["scaled"], feats, *rest),
+                lambda: plain(idx, scaled, feats, *rest)),
+            "bwd": (lambda: self.creg.regather_bwd_cuda(
+                idx, case["scaled"], feats, case["cot"], *rest, True, False),
+                lambda: torch.autograd.grad(out, (scaled,), case["cot"],
+                                            retain_graph=True))}
+        b, f = case["scaled"].shape[:2]
+        d = feats.shape[-1]
+        pixels = idx.numel()
+        winners = int(torch.unique(
+            (torch.arange(b, device=idx.device)[:, None, None] * f
+             + idx.long())[idx >= 0]).numel())
+        nbytes = {"fwd": pixels * 4 + winners * (24 + 12 * d)
+                  + pixels * d * 4,
+                  "bwd": pixels * 4 + pixels * d * 4
+                  + winners * (24 + 12 * d) + b * f * 24}
+        for way, (kernel, plain_fn) in fns.items():
+            dev = self.device_ms(f"re-gather kernel {way} {cell}", kernel,
+                                 names=DEVICE_NAMES[f"regather_{way}"])
+            plain_dev = self.device_ms(f"re-gather plain {way} {cell}",
+                                       plain_fn)
+            k_ms, p_ms = self.compare_times(kernel, plain_fn, 20, 5)
+            bound = nbytes[way] / HBM_BYTES_S * 1e3
+            print(f"re-gather kernel {way} [{cell}: {b} x {RES}² pixels, "
+                  f"{f} faces, {winners} hit, D = {d}]: device "
+                  f"{fmt_ms(dev)} ms, event {k_ms:.4f} ms; plain device "
+                  f"{fmt_ms(plain_dev)} ms, event {p_ms:.4f} ms; bound "
+                  f"{bound:.6f} ms ({nbytes[way]} bytes), share "
+                  f"{fmt_ms(dev and bound / dev)} [{self.card}]", flush=True)
+            if cell == "texfit.v8":
+                k = f"regather_{way}"
+                self.results[k].update(device_ms=dev, ms=k_ms, plain_ms=p_ms,
+                                       library_ms=None)
+                self.set_bound(k, nbytes[way], 0,
+                               f"{cell}'s own data, each byte once")
+
     def phase_texfit_path(self):
         """The texture fit from the example's start, 100 steps at 512²,
         B = 2, each step driven with every launch counter set to 0 just
@@ -1587,7 +1914,8 @@ class Smoke:
             sil.append(float(terms["silhouette"]))
             counts.append(n)
             with_idx.append(self.driven["soft_mask_fwd_with_face_idx"])
-            tex_counts.append({k: self.driven[k] for k in TEXTURE_KERNELS})
+            tex_counts.append({k: self.driven[k]
+                               for k in (*TEXTURE_KERNELS, *REGATHER_KERNELS)})
         host_s = time.perf_counter() - t0
         end = [float(x) for x in ex.pose_error(scene, params)]
         peak = torch.cuda.max_memory_allocated() - base
@@ -1601,12 +1929,13 @@ class Smoke:
                        f"{k} {sum(c[k] for c in counts)}"
                        for k in DIBR_KERNELS)
                    + "), the forward given the rasterizer's ids each time")
-        once = {k: 1 for k in TEXTURE_KERNELS}
+        once = {k: 1 for k in (*TEXTURE_KERNELS, *REGATHER_KERNELS)}
         self.check(all(c == once for c in tex_counts),
                    f"texture fit: every one of {TEXFIT_PATH_STEPS} steps "
-                   f"sampled its texture through kernel #7, one launch each "
-                   f"way (step 0 {tex_counts[0]}, last {tex_counts[-1]})")
-        for k in TEXTURE_KERNELS:
+                   f"sampled its texture through kernel #7 and re-gathered "
+                   f"its winners through kernel #8, one launch each way "
+                   f"(step 0 {tex_counts[0]}, last {tex_counts[-1]})")
+        for k in (*TEXTURE_KERNELS, *REGATHER_KERNELS):
             self.results[k]["launches"] = tex_counts[-1][k]
             self.per_step[k] = tex_counts[-1][k]
         n = len(losses)
@@ -3611,8 +3940,11 @@ class Smoke:
 
     def texture_launches(self, n, fwd, bwd=0):
         """Whether the launches ``n`` hold exactly ``fwd`` #7 forwards and
-        ``bwd`` backwards."""
-        return (n["texture_fwd"], n["texture_bwd"]) == (fwd, bwd)
+        ``bwd`` backwards, and one #8 forward a winner search, with at most
+        as many backwards."""
+        return ((n["texture_fwd"], n["texture_bwd"]) == (fwd, bwd)
+                and n["regather_fwd"] == n["winner"]
+                and n["regather_bwd"] <= n["regather_fwd"])
 
     def check_winner_at(self, label, render):
         """``render`` once keeping #1's inputs, then #1 on them against
@@ -3743,7 +4075,8 @@ class Smoke:
         own checks, launching #1 and nothing else."""
         torch, ex, r = self.torch, self.render_ex, self.render
         names = list(self.counters())
-        others = [k for k in names if k not in ("winner", *TEXTURE_KERNELS)]
+        others = [k for k in names
+                  if k not in ("winner", *TEXTURE_KERNELS, *REGATHER_KERNELS)]
 
         def only_winner(n, maps, backward=False):
             return (n["winner"] == 1 and not any(n[k] for k in others)
@@ -4134,7 +4467,8 @@ class Smoke:
 
         torch, ex, r = self.torch, self.asset_ex, self.io
         names = list(self.counters())
-        others = [k for k in names if k not in ("winner", *TEXTURE_KERNELS)]
+        others = [k for k in names
+                  if k not in ("winner", *TEXTURE_KERNELS, *REGATHER_KERNELS)]
         with tempfile.TemporaryDirectory() as d:
             t0 = time.perf_counter()
             paths, a = ex.write_asset(d)
@@ -4592,7 +4926,8 @@ class Smoke:
 
         torch, ex, r = self.torch, self.usd_ex, self.usd
         names = list(self.counters())
-        others = [k for k in names if k not in ("winner", *TEXTURE_KERNELS)]
+        others = [k for k in names
+                  if k not in ("winner", *TEXTURE_KERNELS, *REGATHER_KERNELS)]
         with tempfile.TemporaryDirectory() as d, \
                 self.native_calls("phase_usd_path"):
             a = ex.asset_arrays()
@@ -7159,9 +7494,10 @@ class Smoke:
 
     @contextlib.contextmanager
     def plain_calls(self):
-        """Count the calls of the three plain versions inside."""
+        """Count the calls of the four plain versions inside."""
         calls = {}
         saved = [(self.rast, "rasterize_search_plain"),
+                 (self.rast, "interpolate_at_winners_plain"),
                  (self.dibr, "soft_mask_plain"),
                  (self.dibr, "_soft_mask_bwd_plain")]
         originals = [getattr(m, n) for m, n in saved]
@@ -7179,10 +7515,11 @@ class Smoke:
     def phase_parallel_path(self):
         """``kaolin_tpu_torch.parallel`` on an NCCL group of world size 1:
         sharded DIB-R of config 2's 8 views at 512² bit for bit the
-        unsharded call, forward and backward, through #1-3 and no plain
-        version; the MLP step at ``create_with_mlp``'s widths card vs CPU;
-        the scene batch of config 1's widths, padded, against each scene's
-        own steps; 8 demo scenes with contact; sharded chamfer."""
+        unsharded call, forward and backward, through #1-3 and #8's forward
+        and no plain version; the MLP step at ``create_with_mlp``'s widths
+        card vs CPU; the scene batch of config 1's widths, padded, against
+        each scene's own steps; 8 demo scenes with contact; sharded
+        chamfer."""
         import torch.distributed as dist
         mesh = self.parallel_mesh()
         try:
@@ -7212,8 +7549,8 @@ class Smoke:
             return outs, x.grad
 
         with self.plain_calls() as calls:
-            (got, g_got), launches = self.drive(DIBR_KERNELS,
-                                                lambda: run(True))
+            (got, g_got), launches = self.drive(
+                (*DIBR_KERNELS, "regather_fwd"), lambda: run(True))
         want, g_want = run(False)
         same = (all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
                 and torch.equal(got[1], want[1])
@@ -7493,6 +7830,7 @@ class Smoke:
                       self.phase_camera_defaults, self.phase_sim_parity,
                       self.phase_collision_parity,
                       self.phase_train_parity, self.phase_texfit_parity,
+                      self.phase_regather_parity,
                       self.phase_main_path, self.phase_texfit_path,
                       self.phase_tutorials,
                       self.phase_spc_main_path, self.phase_spcrt_parity,

@@ -44,16 +44,6 @@ for _name in (FWD_LAUNCHES, BWD_LAUNCHES):
     profiling.count(_name, 0)
 
 
-def _check_tensor(t, name, dim, dtype=torch.float32):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != dim:
-        raise ValueError(f"{name} must have {dim} dimensions, got shape "
-                         f"{tuple(t.shape)}")
-
-
 def pair_stride(uv):
     """The stride in floats between the (B, N, 2) ``uv``'s pairs where
     they are contiguous and evenly spaced across views and pixels, as the
@@ -77,8 +67,8 @@ def check_inputs(uv, texture, mode):
     device, then the device, then the layout."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    _check_tensor(uv, "uv", 3)
-    _check_tensor(texture, "texture", 4)
+    cuda_build.check_tensor(uv, "uv", 3, torch.float32)
+    cuda_build.check_tensor(texture, "texture", 4, torch.float32)
     b, n = uv.shape[:2]
     bt, c, h, w = texture.shape
     if uv.shape[2] != 2:

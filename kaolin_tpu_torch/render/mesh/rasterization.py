@@ -9,7 +9,10 @@ hand-written kernel (:mod:`.cuda_rasterize`), on a CPU tensor its plain
 version :func:`rasterize_search_plain`. Both visit every face whose box holds
 the pixel, so both are exact at any face count and the port has no tile
 capacities. The winners' barycentrics and features are then re-computed
-from gathered vertices in plain PyTorch, and autograd gives the backward.
+from their vertices: on a CUDA tensor by the re-gather kernels
+(:mod:`.cuda_regather`, through :class:`_Regather`), on a CPU tensor by
+their plain version :func:`interpolate_at_winners_plain`, which autograd
+differentiates.
 
 Spans (:mod:`kaolin_tpu_torch.utils.profiling`, while the profiler runs):
 ``render.mesh.rasterize.search`` and ``render.mesh.rasterize.interpolate``
@@ -19,8 +22,9 @@ with its ``.backward``.
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from kaolin_tpu_torch.render.mesh import cuda_rasterize
+from kaolin_tpu_torch.render.mesh import cuda_rasterize, cuda_regather
 from kaolin_tpu_torch.utils import profiling
 from kaolin_tpu_torch.utils.backend import is_cuda
 
@@ -291,10 +295,12 @@ def _rasterize_search(face_vertices_z, face_vertices_image, valid_mask,
                                   valid_mask, multiplier, eps, height, width)
 
 
-def _interpolate_at_winners(face_idx, scaled, features, multiplier, eps):
+def interpolate_at_winners_plain(face_idx, scaled, features, multiplier,
+                                 eps):
     """Differentiable re-computation at the winners: one gather of the
     winners' scaled vertices and features from a (B, F, 6 + 3D) table, then
-    barycentric interpolation → (B, H, W, D), 0 on a miss."""
+    barycentric interpolation → (B, H, W, D), 0 on a miss. The plain version
+    of the re-gather kernels (:mod:`.cuda_regather`)."""
     b, height, width = face_idx.shape
     f = scaled.shape[1]
     d = features.shape[-1]
@@ -313,6 +319,44 @@ def _interpolate_at_winners(face_idx, scaled, features, multiplier, eps):
               + w1[..., None] * sel_feat[..., 1, :]
               + w2[..., None] * sel_feat[..., 2, :])
     return torch.where(hit, interp, 0.0)
+
+
+class _Regather(torch.autograd.Function):
+    """The winners' interpolated features (B, H, W, D) on the card: the
+    forward and backward kernels of :mod:`.cuda_regather`. The backward
+    gives the features' gradient only where it is asked for; its gradients
+    are not differentiable: a second derivative through it raises."""
+
+    @staticmethod
+    def forward(ctx, face_idx, scaled, features, multiplier, eps):
+        ctx.save_for_backward(face_idx, scaled, features)
+        ctx.multiplier, ctx.eps = multiplier, eps
+        return cuda_regather.regather_fwd_cuda(face_idx, scaled, features,
+                                               multiplier, eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        face_idx, scaled, features = ctx.saved_tensors
+        grad_scaled, grad_features = cuda_regather.regather_bwd_cuda(
+            face_idx, scaled, features, grad_out.contiguous(),
+            ctx.multiplier, ctx.eps, *ctx.needs_input_grad[1:3])
+        return None, grad_scaled, grad_features, None, None
+
+
+def _interpolate_at_winners(face_idx, scaled, features, multiplier, eps):
+    """The winners' barycentric interpolation of ``features`` (B, F, 3, D)
+    at ``face_idx`` (B, H, W) from the ``scaled`` vertices (B, F, 3, 2) →
+    (B, H, W, D), 0 on a miss: the re-gather kernels for CUDA tensors
+    (a batch of features expanded from one is read as it is), the plain
+    version for CPU tensors."""
+    if is_cuda(scaled):
+        if features.shape[0] > 0 and not features[0].is_contiguous():
+            features = features.contiguous()
+        return _Regather.apply(face_idx.contiguous(), scaled.contiguous(),
+                               features, multiplier, eps)
+    return interpolate_at_winners_plain(face_idx, scaled, features,
+                                        multiplier, eps)
 
 
 BACKENDS = ("brute", "binned")
@@ -379,7 +423,7 @@ def rasterize(height, width, face_vertices_z, face_vertices_image,
     is_list = isinstance(face_features, (list, tuple))
     feats = list(face_features) if is_list else [face_features]
     feat_dims = [x.shape[-1] for x in feats]
-    features = torch.cat(feats, dim=-1)
+    features = feats[0] if len(feats) == 1 else torch.cat(feats, dim=-1)
 
     b, f = face_vertices_z.shape[:2]
     if valid_faces is None:

@@ -141,6 +141,18 @@ def check(status, name):
         raise RuntimeError(f"{name}: CUDA error {status}: {msg}")
 
 
+def check_tensor(t, name, dim, dtype):
+    """Check a kernel's input on any device: a tensor of one dtype and
+    rank."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{name} must have {dim} dimensions, got shape "
+                         f"{tuple(t.shape)}")
+
+
 def require(t, name, shape, dtype):
     """Check what a kernel takes: a contiguous CUDA tensor of one dtype and
     shape."""

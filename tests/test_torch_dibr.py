@@ -454,7 +454,8 @@ def test_soft_mask_fwd_cuda_refuses_bad_face_idx():
 def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
     names = sorted(p.name for p in cuda_build.sources())
     assert names == ["gather.cu", "raster.cu", "rasterize.cu",
-                     "soft_mask.cu", "status.cu", "texture.cu"]
+                     "regather.cu", "soft_mask.cu", "status.cu",
+                     "texture.cu"]
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     path = cuda_build.library_path()
     assert path.parts[-4:-2] == ("build", "kaolin_tpu_torch")

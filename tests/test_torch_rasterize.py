@@ -7,6 +7,14 @@ be equal; images agree to 1e-6, and gradients to 1e-5 after division by
 max(1, max|gradient|). The fvi gradients reach several hundred, where one
 float32 ulp is above 1e-5, and the two frameworks sum their per-pixel terms
 in different orders (measured: 4e-7 of the largest entry).
+
+The re-gather kernels' wrappers (``cuda_regather``): their argument checks
+and launch counters, and ``_Regather``, the autograd Function the card
+runs, with its two kernels swapped for plain functions that follow their
+rule (the forward is the plain version; the backward adds nothing from a
+miss or from a pixel whose cotangent is 0, and its gradients come from the
+winners' barycentrics analytically: ``chip_smoke.regather_bwd_rule``),
+held to autograd through the plain re-gather.
 """
 
 import jax
@@ -19,8 +27,9 @@ from kaolin_tpu.render.mesh.rasterization import (
     _pixel_coords as _pixel_coords_jax,
     rasterize as rasterize_jax,
 )
-from chip_smoke import adversarial_faces, with_depth
-from kaolin_tpu_torch.render.mesh import cuda_rasterize
+from chip_smoke import adversarial_faces, regather_bwd_rule, with_depth
+from kaolin_tpu_torch.render.mesh import cuda_rasterize, cuda_regather
+from kaolin_tpu_torch.render.mesh import rasterization as trast
 from kaolin_tpu_torch.render.mesh.rasterization import (
     _pixel_coords,
     rasterize,
@@ -307,3 +316,177 @@ def test_chunk_windows_compute_what_the_whole_image_computes(case,
     err = float((windowed[4] - full[4]).abs().max() / full[4].abs().max())
     assert err <= 1e-6, err
     assert bool((windowed[0] >= 0).any())
+
+
+def _regather_inputs(case, d, seed=0):
+    """(face_idx (B, H, W), scaled (B, F, 3, 2), features (B, F, 3, D),
+    cotangent (B, H, W, D)) of a re-gather case: ``random`` (200 faces at
+    72x100, about half the pixels missed) or ``grid`` (the planar grid at
+    32², every face shared by the pixels of its cell). The cotangent is
+    random everywhere, misses included, but 0 in every channel at a tenth
+    of the hits and along one pixel row."""
+    scene = random_scene(seed, 2, 200, feat_dim=d) if case == "random" \
+        else grid_scene(feat_dim=d)
+    h, w = (72, 100) if case == "random" else (32, 32)
+    t = from_numpy_tree(scene, "cpu")
+    scaled = t["fvi"] * 1000.0
+    idx = trast.rasterize_search_plain(t["fvz"], scaled, t["valid"], 1000,
+                                       1e-8, h, w)
+    rng = np.random.RandomState(seed + 1)
+    g = rng.randn(*idx.shape, d).astype(np.float32)
+    g[(rng.rand(*idx.shape) < 0.1) & (idx.numpy() >= 0)] = 0.0
+    g[:, h // 2] = 0.0
+    return idx, scaled, t["feats"], torch.from_numpy(g)
+
+
+def _plain_regather(monkeypatch):
+    """``cuda_regather``'s two wrappers swapped for plain functions that
+    follow the kernels' rule → the list of the gradients each backward is
+    asked for."""
+    asked = []
+
+    def fwd(face_idx, scaled, features, multiplier, eps):
+        with torch.no_grad():
+            return trast.interpolate_at_winners_plain(
+                face_idx, scaled, features, multiplier, eps)
+
+    def bwd(face_idx, scaled, features, grad_out, multiplier, eps,
+            need_scaled=True, need_features=True):
+        asked.append((need_scaled, need_features))
+        return regather_bwd_rule(face_idx, scaled, features, grad_out,
+                                 multiplier, eps, need_scaled, need_features)
+
+    monkeypatch.setattr(cuda_regather, "regather_fwd_cuda", fwd)
+    monkeypatch.setattr(cuda_regather, "regather_bwd_cuda", bwd)
+    return asked
+
+
+@pytest.mark.parametrize("case,d,feature_grad,expanded", [
+    ("random", 1, True, False), ("random", 3, False, False),
+    ("random", 11, True, False), ("grid", 3, True, False),
+    ("random", 3, True, True), ("random", 11, False, True)])
+def test_regather_function_follows_the_plain_version(case, d, feature_grad,
+                                                     expanded, monkeypatch):
+    """``_Regather`` with the kernels' rule in place of the kernels, against
+    autograd through ``interpolate_at_winners_plain``: values bit for bit,
+    and the gradients of ``scaled`` and of the features within 1e-5 of
+    their largest entry (the rule sums per face in another order) at D of
+    1, 3 and 11, with misses and hits whose cotangent is 0 (they add
+    nothing), faces shared by neighbouring pixels, features that require
+    grad or not (the backward is asked for theirs only where they do), and
+    a batch of features expanded from one view (its gradient reaches the
+    view through the caller's expand)."""
+    idx, scaled, feats, g = _regather_inputs(case, d)
+    if expanded:
+        feats = feats[:1]
+    asked = _plain_regather(monkeypatch)
+    got, want = {}, {}
+    for out, route in ((got, True), (want, False)):
+        s = scaled.clone().requires_grad_(True)
+        leaf = feats.clone().requires_grad_(feature_grad)
+        batch = leaf.expand(2, -1, -1, -1) if expanded else leaf
+        if route:
+            val = trast._Regather.apply(idx, s, batch, 1000, 1e-8)
+        else:
+            val = trast.interpolate_at_winners_plain(idx, s, batch, 1000,
+                                                     1e-8)
+        val.backward(g)
+        out.update(val=val.detach(), gs=s.grad, gf=leaf.grad)
+    assert asked == [(True, feature_grad)]
+    assert torch.equal(got["val"], want["val"])
+    assert bool((idx < 0).any()) and bool((idx >= 0).any())
+    for k in ("gs", "gf"):
+        if not feature_grad and k == "gf":
+            assert got[k] is None and want[k] is None
+            continue
+        scale = float(want[k].abs().max())
+        assert scale > 0
+        torch.testing.assert_close(got[k], want[k], rtol=0,
+                                   atol=1e-5 * scale)
+
+
+def test_regather_rule_skips_what_adds_nothing():
+    """The kernels' rule takes nothing from a missed pixel or from a hit
+    whose cotangent is 0, however large the cotangent at the misses: the
+    gradients equal those of the cotangent zeroed there, bit for bit."""
+    idx, scaled, feats, g = _regather_inputs("random", 3)
+    live = (idx >= 0)[..., None] & (g != 0).any(-1, keepdim=True)
+    loud = torch.where(idx[..., None] >= 0, g, 1e30)
+    got = regather_bwd_rule(idx, scaled, feats, loud, 1000, 1e-8)
+    want = regather_bwd_rule(idx, scaled, feats, g * live, 1000, 1e-8)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_regather_backward_once_differentiable(monkeypatch):
+    """The kernels' backward gives gradients with no graph: a second
+    derivative through ``_Regather`` raises instead of coming out as
+    missing or zero."""
+    idx, scaled, feats, g = _regather_inputs("grid", 3)
+    s = scaled.clone().requires_grad_(True)
+    _plain_regather(monkeypatch)
+    out = trast._Regather.apply(idx, s, feats, 1000, 1e-8)
+    (gs,) = torch.autograd.grad((out * g).square().sum(), (s,),
+                                create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        gs.sum().backward()
+
+
+def _bad_regather_inputs():
+    """(label, face_idx, scaled, features, error) that the re-gather
+    kernels' checks refuse: each with one thing wrong, on the CPU."""
+    idx = torch.zeros(2, 4, 5, dtype=torch.int32)
+    scaled = torch.rand(2, 6, 3, 2)
+    feats = torch.rand(2, 6, 3, 3)
+    return [
+        ("face_idx int64", idx.long(), scaled, feats, TypeError),
+        ("scaled float64", idx, scaled.double(), feats, TypeError),
+        ("features float64", idx, scaled, feats.double(), TypeError),
+        ("face_idx (2, 20)", idx.reshape(2, 20), scaled, feats, ValueError),
+        ("scaled (2, 6, 6)", idx, scaled.reshape(2, 6, 6), feats,
+         ValueError),
+        ("features (2, 6, 9)", idx, scaled, feats.reshape(2, 6, 9),
+         ValueError),
+        ("scaled (2, 6, 2, 3)", idx, scaled.reshape(2, 6, 2, 3), feats,
+         ValueError),
+        ("features of 5 faces", idx, scaled, feats[:, :5], ValueError),
+        ("scaled batch 1", idx, scaled[:1], feats[:1], ValueError),
+        ("on the CPU", idx, scaled, feats, ValueError),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_bad_regather_inputs())))
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_regather_kernel_checks_raise(case, direction):
+    """The wrappers refuse a wrong dtype, rank or shape, or CPU tensors,
+    before any launch, forward and backward: the checks of type and shape
+    come before the device's, so each raises here on the CPU."""
+    label, idx, scaled, feats, error = _bad_regather_inputs()[case]
+    with pytest.raises(error):
+        if direction == "forward":
+            cuda_regather.regather_fwd_cuda(idx, scaled, feats, 1000, 1e-8)
+        else:
+            grad = torch.zeros(*idx.shape, feats.shape[-1])
+            cuda_regather.regather_bwd_cuda(idx, scaled, feats, grad, 1000,
+                                            1e-8)
+    got = profiling.counters()
+    assert got[cuda_regather.FWD_LAUNCHES] == 0
+    assert got[cuda_regather.BWD_LAUNCHES] == 0
+
+
+def test_regather_launch_counters_listed():
+    """Both launch counters are in the registry from the wrapper's import,
+    at 0 where no card ran them, also after a CPU rasterization and its
+    backward (the plain version); the backward's two pixel counters are
+    device counters, listed only while the profiler runs."""
+    got = profiling.counters()
+    assert got[cuda_regather.FWD_LAUNCHES] == 0
+    assert got[cuda_regather.BWD_LAUNCHES] == 0
+    assert not set(cuda_regather.PIXELS) & set(got)
+    t = from_numpy_tree(random_scene(1, 1, 20), "cpu")
+    fvi = t["fvi"].requires_grad_(True)
+    img, _ = rasterize(16, 24, t["fvz"], fvi, t["feats"],
+                       valid_faces=t["valid"])
+    img.sum().backward()
+    got = profiling.counters()
+    assert got[cuda_regather.FWD_LAUNCHES] == \
+        got[cuda_regather.BWD_LAUNCHES] == 0

@@ -184,6 +184,40 @@ def test_regather_backward_span_holds_the_regather_nodes_only():
     assert len(_inside(gathers, span)) + len(_inside(gathers, tex)) == 5
 
 
+def test_regather_backward_span_holds_the_kernels_node(monkeypatch):
+    """On the card the re-gather is one autograd node, ``_Regather``'s.
+    With its kernels swapped for the plain version and the kernels' rule
+    (``chip_smoke.regather_bwd_rule``) and the card's route taken for the
+    re-gather alone, ``render.mesh.rasterize.interpolate.backward`` holds
+    that node and the one backward call, and no node of another layer."""
+    from chip_smoke import regather_bwd_rule
+    from kaolin_tpu_torch.render.mesh import cuda_regather, rasterization
+
+    calls = []
+
+    def fwd(face_idx, scaled, features, multiplier, eps):
+        with torch.no_grad():
+            return rasterization.interpolate_at_winners_plain(
+                face_idx, scaled, features, multiplier, eps)
+
+    def bwd(*args):
+        calls.append(profiling._clock())
+        return regather_bwd_rule(*args)
+
+    monkeypatch.setattr(cuda_regather, "regather_fwd_cuda", fwd)
+    monkeypatch.setattr(cuda_regather, "regather_bwd_cuda", bwd)
+    # the re-gather's (B, F, 3, 2) vertices take the card's route; the
+    # search's (B, F, 3) depths stay on the plain one
+    monkeypatch.setattr(rasterization, "is_cuda", lambda t: t.dim() == 4)
+    records, events = _traced_step(_scene())
+    span, = [r for r in records
+             if r.name == "render.mesh.rasterize.interpolate.backward"]
+    got = Counter(e.name() for e in _inside(events, span)
+                  if NODE.match(e.name()))
+    assert got == Counter({"_RegatherBackward": 1})
+    assert len(calls) == 1 and span.start_ns <= calls[0] <= span.end_ns
+
+
 def test_a_second_session_starts_afresh(tmp_path):
     """A profiler run after a call that found it off starts with an empty
     buffer; :func:`profiling.trace` starts one of its own and writes its

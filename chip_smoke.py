@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's fourteen paths on one NVIDIA GPU and check them:
-the DIB-R inverse-rendering step, the DIB-R pose-and-texture fit (config 2
-as written, ``examples/torch_dibr_texture_fit.py``, with the two ported
-camera and bounding-box tutorials), the SPC first-hit raster, config 3 as
-written (mesh → SPC at level 9, ``unbatched_raytrace`` at 512² and an
-nglod-style fit, ``examples/torch_spc_raytrace.py``), the primitive-cost
-probe with its table-gather kernel, the Simplicits sim step (config 1),
-Simplicits contact (``bench.py``'s ``collision_10k``) and Simplicits
-training, config 1's easy-API path from a closed mesh
+"""Check the PyTorch port on one NVIDIA GPU and fill its kernel table:
+build the CUDA kernels, hold each against its plain PyTorch version on the
+card and the card against the port's CPU, run each of the port's fourteen
+paths with its checks, then time each kernel beside its plain version,
+profile it and give it its bound. Whole paths are not timed here: their
+rates are the benchmark's (``portbench``; ``PERF.md``)::
+
+    python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> \
+        --trace <0|1>
+
+The paths: the DIB-R inverse-rendering step, the DIB-R pose-and-texture
+fit (config 2 as written, ``examples/torch_dibr_texture_fit.py``, with the
+two ported camera and bounding-box tutorials), the SPC first-hit raster,
+config 3 as written (mesh → SPC at level 9, ``unbatched_raytrace`` at 512²
+and an nglod-style fit, ``examples/torch_spc_raytrace.py``), the
+primitive-cost probe with its table-gather kernel, the Simplicits sim step
+(config 1), Simplicits contact (``bench.py``'s ``collision_10k``) and
+Simplicits training, config 1's easy-API path from a closed mesh
 (``examples/torch_simplicits_train.py``), and config 4, the FlexiCubes
 SDF fit at res 64 in its bench and topology forms
 (``examples/torch_flexicubes_sdf.py``), with the DMTet tutorial
@@ -33,11 +42,14 @@ fit logged by ``Timelapse`` and served as dash3d's wire bytes, the
 Jupyter turntable's 16 renders, and ``check_sign`` through the native host
 library, built by g++). Config 3 as written, the three Simplicits paths,
 configs 4 and 5 and the I/O around the asset are plain PyTorch: the JAX
-package has no kernel there.
+package has no kernel there. Then the Newton bridge and
+``kaolin_tpu_torch.parallel`` on a group of world size 1.
 
     python3 chip_smoke.py
 
-Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
+Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``); the card's
+peak rates and #1-3's names in a trace are read from the benchmark's
+``portbench/roofline``. Phases:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    TF32 off for matmuls and cuDNN;
@@ -90,10 +102,10 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    UVs (the seam at u = 1, the rings at v = 0 and 1); kernel #7 (the
    texture kernels, which replace no TPU kernel) against its plain version
    on the card at the benchmark cells' shapes, with per-view and
-   batch-of-one textures, both modes, and its pixel counters; kernel #8
-   (the re-gather, which replaces no TPU kernel) against its plain version
-   on both DIB-R cells' own data: its output bit for bit, its gradients
-   within their float32 sum bound, its launches and pixel counters;
+   batch-of-one textures and both modes; kernel #8 (the re-gather, which
+   replaces no TPU kernel) against its plain version on both DIB-R cells'
+   own data: its output bit for bit, its gradients within their float32
+   sum bound, its launches a call and their names in a trace;
 5. the DIB-R path: ``config2_step`` (512², a 4992-face UV sphere, forward
    and backward, 5 steps) with every launch counter set to 0 before and
    read after (each soft-mask forward given the rasterizer's ids), its
@@ -157,7 +169,7 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    = eager within 1e-4 of max|z|), one step with the grid forced against
    the auto choice, and the densifier at its defaults (level 8, 86 views
    at 256²): no fallback, the interior filled, every sample inside the
-   box; ``phase_gauss_timing`` after phase_flexi_timing); then the full
+   box); then the full
    render (``phase_render_parity``: the card against the port's CPU, the
    two-material scene at 512² with face_idx equal and every pass within
    1e-5 of its max|x|, one fit step at 256² with its gradients within 1e-4
@@ -169,7 +181,8 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    launch #1 once and #2-6 never, the fit's 100 steps launch #1 on every
    step and its loss halves, DefTet at its defaults at 512² gives depths
    non-increasing along knum, and the three tutorials pass their checks at
-   full size; ``phase_render_timing`` after phase_gauss_timing); then the
+   full size, and #1's winner ids at the 81,408-face render's shape equal
+   to its plain version's on the same CUDA tensors); then the
    asset from disk (``phase_io_parity``: on a small copy of the asset,
    card vs CPU, its OBJ and GLB imports rendered at 64² with face_idx
    equal and every pass within 1e-5 of its max|x|, the OBJ import against
@@ -185,8 +198,7 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    trip (positions and SH bit for bit, quaternions as the import
    normalizes them, opacities and scales within 1e-6 relative), the
    dataset's 4 spawned workers equal to its serial loop, GraphConv, the
-   meshes tutorial; ``phase_io_timing`` after
-   phase_render_timing); then the asset through USD
+   meshes tutorial); then the asset through USD
    (``examples/torch_usd_asset.py``; ``phase_usd_parity``: the native
    host library built by g++ from ``kaolin_tpu_torch/native/csrc``, every
    LZ4 block and every native ``check_sign`` of the USD phases counted in
@@ -209,7 +221,7 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    bytes written from the card's tensors equal to those from CPU copies);
    the turntable's 16 renders (#1 16 times, a frame's winner ids against
    the plain version, its cameras within 1e-6 of a CPU visualizer's after
-   the same events); ``phase_usd_timing`` after phase_io_timing);
+   the same events);
 7. the table gather's two routes (shared memory, L2) held bit for bit
    against ``table_gather_plain``: the probe's shape, 2^14 and 2^20
    tables, 58,110 and 58,111 floats (either side of the route rule),
@@ -229,81 +241,48 @@ Imports ``kaolin_tpu_torch`` only (no jax, no ``kaolin_tpu``). Phases:
    counters set to 0 before and read after (the path has no kernel): the
    mean height falls and stays above the floor, nothing is NaN, no graph
    step runs again eagerly, and the two end within 1e-4 of max|z|; a scene
-   with a kinematic object, moved mid-run, graph against eager; their
-   steps/s (eager ``run_sim_step``, one graph replay, ``run_sim_steps(150)``
-   eager and from the graph) are timed after the kernels, from a graph
+   with a kinematic object, moved mid-run, graph against eager; a graph
    captured after earlier graphs were freed and replayed after their
-   memory was filled with NaN (fault F14), held against eager from the same
-   start; then ``collision_10k`` at full size (10,712 contact particles,
-   the grid): steps and capacity checks until a 20-step window needs no
-   resize, then 20 steps eager and 20 from the graph from one start,
-   counters set to 0 before and read after (no kernel may launch): finite,
-   the flags 0, pairs found, every cube above the floor, no graph step run
-   again eagerly, graph against eager within 1e-4 of max|B z|; its steps/s
-   (eager ``run_sim_step``, one replay, ``run_sim_steps(20)``); then the
-   training path, counters set to 0 before and read after (no kernel may
-   launch): the torus's interior from 100,000 candidates (its share within
-   2% of the torus's volume share of its box), 1,000 Adam steps at full
-   width (the loss falls, the weights are finite), the bake at 1,000 points
-   (396 DOFs) and 30 sim steps eager and from the graph (falling, above
-   the floor, graph = eager within 1e-4 of max|B z|), ``create_with_rkpm``
-   at config 1's points (33 handles, 256 nodes) and 10 steps of it; the
-   differentiable step's gradient (graft scene) card vs CPU within 1e-3 of
-   max|g|, finite and not zero; the training step's steps/s (steps 100-300
-   of one run), ``check_sign``, FPS, ``create_with_rkpm`` and one
-   differentiable config-1 step forward and backward; config 4's bench
-   step, 50-step run, topology step, topology alone and DMTet step (CUDA
-   events, medians of 10, peak memory; their profiles in phase 10); config 3 as
-   written: ``unbatched_mesh_to_spc``, the dual and the trinkets, a depth
-   frame and a fit step (event ms, device busy, ops, idle share, the
-   largest ops, peak memory); config 5's 100-step window eager and from
-   the graph (ms/step), its step's and the LBS move's profile and bound,
-   the flood-fill densifier at level 6 with gs_to_voxelgrid's share, each
-   with its peak memory, and the parts of the level-8 carve that
-   phase_gauss_path timed (voxelization, the 86 views, bf_recon, the
-   query); the full render at 512² at 4,992 and 81,408 faces, under 32
-   environment lobes, the fit step and DefTet at its defaults (CUDA
-   events, device busy, idle share, the largest ops and #1's share, peak
-   memory, the render's and the step's bounds), and the 81,408-face
-   set-up once with #1's winner ids at its shape against the plain
-   version; the asset from disk: each format's import on the host
-   clock, the 512² renders of the OBJ and GLB
-   imports (CUDA events, device busy, idle share, the largest ops and
-   #1's share, peak memory), the 2^20-gaussian export, import and
-   transform, GraphConv's forward and backward with its bound, and the
-   dataset's spawned pool against its serial loop;
-9. time each kernel and each path against the plain versions with CUDA
-   events, in the order plain, kernel, kernel, plain; the texture fit's
-   step event to event over steps 20-80 of one run;
+   memory was filled with NaN (fault F14), held against eager from the
+   same start; then ``collision_10k`` at full size (10,712 contact
+   particles, the grid): steps and capacity checks until a 20-step window
+   needs no resize, then 20 steps eager and 20 from the graph from one
+   start, counters set to 0 before and read after (no kernel may launch):
+   finite, the flags 0, pairs found, every cube above the floor, no graph
+   step run again eagerly, graph against eager within 1e-4 of max|B z|;
+   then the training path, counters set to 0 before and read after (no
+   kernel may launch): the torus's interior from 100,000 candidates (its
+   share within 2% of the torus's volume share of its box), 1,000 Adam
+   steps at full width (the loss falls, the weights are finite), the bake
+   at 1,000 points (396 DOFs) and 30 sim steps eager and from the graph
+   (falling, above the floor, graph = eager within 1e-4 of max|B z|),
+   ``create_with_rkpm`` at config 1's points (33 handles, 256 nodes) and
+   10 steps of it; the differentiable step's gradient (graft scene) card
+   vs CPU within 1e-3 of max|g|, finite and not zero; the SPC and mesh
+   ops' device rule, the Newton bridge card vs CPU and as written,
+   ``kaolin_tpu_torch.parallel`` on a group of world size 1 and the
+   recipes;
+9. the kernel table: each kernel against its plain version with CUDA
+   events, in the order plain, kernel, kernel, plain (#1-3 at config 2's
+   shapes, #7 at both DIB-R cells' shapes beside ``grid_sample``, #4-5 at
+   config 3, #6 at the probe's shape; #8 in its parity phase, on the fit's
+   own data);
 10. ``torch.profiler`` (``kaolin_tpu_torch.utils.profiling.trace``) over 10
    config-2 steps and 10 config-3 frames after warm-up: each kernel's
-   device ms and launches per step or frame, each path's device-busy and
-   idle share; the gathers, ``table[idx]`` (``library_ms``) and the plain
-   versions at the probe's shapes, cold (a 256 MB fill before each call
-   evicts L2; the kernels line takes these) and warm; both gather routes
-   cold and warm on tables of 2^10 to 58,110 floats, to show where the
-   route rule belongs;
-   the config-1 sim step and the collision_10k step eager and as a graph
-   replay, and one training step: device busy, idle share and the largest
-   ops, and detection's share of the collision_10k step; config 4's two
-   steps and the DMTet step: device ops, busy, idle share, largest ops
-   (the texture fit's
-   step, with #1-3's device ms at its shapes, is profiled in its timing
-   phase);
-11. each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
-   and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), the
-   operations counted from this run's inputs, a term that depends on the
-   face alone once per face, for the soft-mask forward only the pairs at
-   pixels the rasterizer leaves uncovered (beside the all-pixel count),
-   and for the SPC tile kernel only the slab
-   tests the walk needs (every unit box walked, the leaves of the units a
-   ray enters nearer than its best, the level-3 boxes); then the kernels
-   in the order in which to make them faster; and the config-1 sim step's
-   bound, its dense products and factorizations over 67 TFLOP/s, at the
-   graph's 5 Newton iterations and at the eager path's measured count; the
-   collision_10k step's, the same products object by object plus the
-   contact terms at this run's contact count and the grid's pair tests;
-   the training step's, its MLP rows' and LBS products over 67 TFLOP/s.
+   device ms and launches per step or frame; the gathers, ``table[idx]``
+   (``library_ms``) and the plain versions at the probe's shapes, cold (a
+   256 MB fill before each call evicts L2; the kernels line takes these)
+   and warm; both gather routes cold and warm on tables of 2^10 to 58,110
+   floats, to show where the route rule belongs;
+11. each kernel's bound: the larger of the bytes it must move over the HBM
+   rate and its float32 operations over the float32 rate
+   (``portbench/roofline/peaks.json``), the operations counted from this
+   run's inputs, a term that depends on the face alone once per face, for
+   the soft-mask forward only the pairs at pixels the rasterizer leaves
+   uncovered (beside the all-pixel count), and for the SPC tile kernel
+   only the slab tests the walk needs (every unit box walked, the leaves
+   of the units a ray enters nearer than its best, the level-3 boxes);
+   then the kernels in the order in which to make them faster.
 
 Prints a JSON line with each kernel's launches, error, times and bound, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, without
@@ -355,7 +334,8 @@ PROFILE_STEPS = 10
 # within SIM_Z_TOL of max|z| (graph against eager)
 SIM_PARITY_STEPS = {"graft": 10, "config1": 3}
 SIM_Z_TOL = 1e-4
-SIM_TIMED_STEPS = 30
+# fault F14's check: single steps of a graph replayed over NaN-filled memory
+SIM_FILL_STEPS = 31
 # contact: three seeded scenes of 3 x 400 points for the broad phases; the
 # example's stack at 2 x 300 points over a 10 x 10 plate (5 states) and
 # make_demo_scene's scene (10 steps a broad phase, 5 for the sweep) for the
@@ -369,20 +349,16 @@ COLLISION_DEMO_STEPS = {"dense": 10, "grid": 10, "sweep": 5}
 # body to 80 points and 5 handles, the plate to 36 points (43 phantoms)
 COLLISION_DEMO_PAD = (80, 5, 36)
 COLLISION_STEPS = 20
-COLLISION_TIMED_STEPS = 10
-COLLISION_PROFILE_STEPS = 4
 # the training path (``examples/torch_simplicits_train.py`` at full width)
 TRAIN_PARITY_STEPS = 20
 TRAIN_LOSS_RTOL = 2e-3
 TRAIN_PATH_STEPS = 1000
 TRAIN_SIM_STEPS = 30
-TRAIN_TIMED = (100, 300)
 RKPM_CASE = dict(handles=33, nodes=256, steps=10)
 INTERIOR_TOL = 0.02
 CHECK_SIGN_MARGIN = 1e-5
 GRAD_TOL = 1e-3
 TEXFIT_PATH_STEPS = 100
-TEXFIT_TIMED = (20, 80)
 TEXFIT_GRAD_TOL = 1e-4
 # the texture kernels' cases: the benchmark's 8 views at 512², and the side
 # of each cell's one texture (texfit.v8 256², asset.v8 1,024²)
@@ -427,7 +403,6 @@ SPCRT_PARITY = (7, 128)          # level, resolution of card vs CPU
 SPCRT_LEVEL = 9
 SPCRT_RES = 512
 SPCRT_STEPS = 50
-SPCRT_TIMED = 10
 SPCRT_LOSS_RATIO = 0.7
 # config 3 as written at full width, as the JAX package gives it
 SPCRT_EXPECT = {"octree_bytes": 181_068, "leaves": 519_599,
@@ -448,7 +423,6 @@ SPCRT_SUMS = ("features", "w0")
 FLEXI_PARITY_RES = 16           # config 4 card vs CPU
 FLEXI_RES = 64
 FLEXI_STEPS = 50
-FLEXI_TIMED = 10
 # the JAX package's integers at step 1 of config 4 from its start field
 FLEXI_EXPECT = {"surf_cubes": 9240, "dual_vertices": 9240, "quads": 9238,
                 "faces": 36952, "vertex_slots": 1_810_624,
@@ -466,38 +440,29 @@ GAUSS_CARVE_VIEWS = np.array([   # tests/ops/test_gaussians.py's
     [2.3, 2.3, 2.3], [-2.3, -2.3, -2.3]], dtype=np.float32)
 RENDER_RES = 512                 # the full render (examples/torch_easy_render.py)
 RENDER_STEPS = 100
-RENDER_TIMED = 10
 RENDER_GRAD_RES = 256            # one fit step card vs CPU
 RENDER_DEFTET_PARITY = 128       # DefTet card vs CPU, knum 300
 RENDER_TOL = {"pass": 1e-5, "grad": 1e-4, "feature": 1e-6, "env": 1e-4}
-# float32 operations a covered pixel of the render does, counted from its
-# formulas for one SG light: the re-gather's barycentrics and 8 feature
-# channels (60), the UVs' remainder and the normals' sign (5), both
-# materials' bilinear samples of 7 texture channels (114), the bitangent
-# and the normal map (43), the material blends (24), the normalization and
-# view ray (23), the diffuse inner product (35) and the specular term (125)
-RENDER_PIXEL_OPS = 430
-ENV_LOBE_OPS = 70                # each further lobe: its two inner products
-ADAM_OPS = 12                    # a parameter's Adam update
 # the asset from disk (examples/torch_asset_render.py); card vs CPU on a
 # small copy of it
 IO_PARITY = dict(asset=(40, 64), tex=128, res=64, gaussians=4096)
 IO_TOL = {"pass": 1e-5, "gcn": 1e-5, "gcn_grad": 1e-4, "glb": 1e-6,
           "gauss": 1e-6, "act": 1e-6}
-IO_TIMED = 10
 # the asset through USD (examples/torch_usd_asset.py): card vs CPU on a
 # small copy; :g keeps 6 significant digits
 USD_PARITY = dict(asset=(24, 32), tex=64, res=64)
 USD_TOL = {"usda": 5e-6, "pass": 1e-5, "camera": 1e-6}
-USD_TIMED = 10
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 # the plane's body +z rotated onto +y (up_axis y)
 NEWTON_Q_UP_Y = (-float(np.sin(np.pi / 4)), 0.0, 0.0,
                  float(np.cos(np.pi / 4)))
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 operations/s
-# outside the tensor cores
-HBM_BYTES_S = 3.35e12
-FP32_OPS_S = 67e12
+# the card's peaks and the DIB-R kernels' trace names, as the benchmark
+# froze them (portbench/roofline): HBM bytes/s and float32 operations/s
+# outside the tensor cores (NVIDIA's H100 SXM data sheet)
+ROOFLINE = os.path.join(ROOT, "portbench", "roofline")
+with open(os.path.join(ROOFLINE, "peaks.json")) as _f:
+    _PEAKS = json.load(_f)
+HBM_BYTES_S, FP32_OPS_S = _PEAKS["hbm_bytes_per_s"], _PEAKS["fp32_ops_per_s"]
 # float32 operations per unit of work, counted from the plain versions:
 # rasterization._barycentrics per (pixel, face) pair in the closed box (9
 # subtractions, 6 products, 3 additions, 3 divisions)
@@ -594,21 +559,20 @@ SAMPLED_MAPS = ("normals_texture", "diffuse_texture", "specular_texture",
 SPC_KERNELS = ("spc_raster", "spc_untile")
 GATHER_KERNELS = ("table_gather_smem", "table_gather_l2")
 # the kernels' names in a torch.profiler trace: the kernel whose launches
-# are counted, then the helper launches whose time is the kernel's too
-DEVICE_NAMES = {"winner": ("winner_kernel", "winner_box_kernel"),
-                "soft_mask_fwd": ("soft_fwd_kernel", "soft_fwd_box_kernel"),
-                "soft_mask_bwd": ("soft_bwd_kernel", "soft_bwd_count_kernel",
-                                  "soft_bwd_plan_kernel",
-                                  "soft_bwd_sum_kernel"),
-                "spc_raster": ("raster_tiles_kernel",),
-                "spc_untile": ("untile_kernel",),
-                "table_gather_smem": ("gather_smem_kernel",),
-                "table_gather_l2": ("gather_l2_kernel",),
-                "texture_fwd": ("texture_fwd_kernel",),
-                "texture_bwd": ("texture_bwd_kernel", "texture_zero_kernel"),
-                "regather_fwd": ("regather_fwd_kernel",),
-                "regather_bwd": ("regather_bwd_kernel",
-                                 "regather_zero_kernel")}
+# are counted, then the helper launches whose time is the kernel's too;
+# #1-3's from portbench/roofline/device_names.json
+with open(os.path.join(ROOFLINE, "device_names.json")) as _f:
+    DEVICE_NAMES = {k: tuple(v) for k, v in json.load(_f).items()
+                    if k != "about"}
+DEVICE_NAMES.update({
+    "spc_raster": ("raster_tiles_kernel",),
+    "spc_untile": ("untile_kernel",),
+    "table_gather_smem": ("gather_smem_kernel",),
+    "table_gather_l2": ("gather_l2_kernel",),
+    "texture_fwd": ("texture_fwd_kernel",),
+    "texture_bwd": ("texture_bwd_kernel", "texture_zero_kernel"),
+    "regather_fwd": ("regather_fwd_kernel",),
+    "regather_bwd": ("regather_bwd_kernel", "regather_zero_kernel")})
 # every line the full probe prints, in order
 PROBE_NAMES = (
     "gather1d_n65536_tab1048576", "gather1d_n1048576_tab1048576",
@@ -785,20 +749,6 @@ def regather_bwd_rule(face_idx, scaled, features, grad_out, multiplier, eps,
     return grad_scaled, grad_features
 
 
-def dense_step_ops(d, n, m):
-    """A Newton iteration's float32 operations in a one-object sim step of
-    D dofs, N points and m line-search steps (``Smoke.sim_bound``'s count)
-    → (gradient, Hessian, solves, line search)."""
-    k = 2 * m + 2
-    grad = 4 * 2 * 12 * n * d + 2 * d * d
-    hess = 2 * 2 * 12 * n * d + 2 * n * d * (9 + 81) \
-        + 2 * d * d * 12 * n + 3 * d * d
-    solve = d ** 3 / 3 + 2 * d ** 3 / 3 + 4 * 2 * d * d
-    search = 2 * d * d + 2 * (k - 1) * d * d + k * (2 * 12 * n * d
-                                                   + 2 * d * d)
-    return grad, hess, solve, search
-
-
 def fmt_ms(ms, spec=".4f"):
     """A device ms as printed, or "not measured" where it is None."""
     return "not measured" if ms is None else format(ms, spec)
@@ -924,11 +874,8 @@ class Smoke:
         self.spc_ex = load_example("torch_spc_raster")
         self.sim_ex = load_example("torch_simplicits_drop")
         self.col_ex = load_example("torch_collision_stack")
-        self.col = {}   # collision_10k's scene and measurements
         self.train_ex = load_example("torch_simplicits_train")
-        self.train = {}   # the training path's measurements
         self.tex_ex = load_example("torch_dibr_texture_fit")
-        self.texfit = {}  # the texture fit's measurements
         self.rt_ex = load_example("torch_spc_raytrace")
         self.flexi_ex = load_example("torch_flexicubes_sdf")
         self.dmtet_ex = load_example("torch_tutorial_dmtet")
@@ -936,37 +883,28 @@ class Smoke:
         from kaolin_tpu_torch.ops import conversions, voxelgrid
         self.FlexiCubes = conversions.FlexiCubes
         self.conv, self.vgops, self.metrics = conversions, voxelgrid, metrics
-        self.flexi = {}   # config 4: its states and measurements
         self.gauss_ex = load_example("torch_simulatable_gaussians")
-        self.gauss = {}   # config 5: its scene and measurements
         self.render_ex = load_example("torch_easy_render")
-        self.render = {}  # the full render: its measurements
         # imported by name: the dataset's spawned workers unpickle its
         # preprocessing transform from it
         sys.path.insert(0, os.path.join(ROOT, "examples"))
         self.asset_ex = importlib.import_module("torch_asset_render")
         from kaolin_tpu_torch import io as kio
         self.kio = kio
-        self.io = {}      # the asset from disk: its measurements
         from kaolin_tpu_torch import native
         from kaolin_tpu_torch.io import usd
-        from kaolin_tpu_torch.io.usd import core as usd_core
         from kaolin_tpu_torch.io.usd import crate as usd_crate
         from kaolin_tpu_torch.native import build as native_build
         self.native, self.native_build = native, native_build
-        self.usd_io, self.usd_core, self.usd_crate = usd, usd_core, usd_crate
+        self.usd_io, self.usd_crate = usd, usd_crate
         self.usd_ex = load_example("torch_usd_asset")
         from kaolin_tpu_torch import visualize
         self.visualize = visualize
-        self.usd = {}     # the asset through USD: its measurements
         from kaolin_tpu_torch.render.spc import raytrace
         self.rt = raytrace
-        self.spcrt = {}   # config 3 as written: its scene and measurements
         from kaolin_tpu_torch.physics.common import Collision, optimization
         self.opt = optimization
         self.Collision = Collision
-        self.newton = optimization.newtons_method
-        self.sim = {}   # the sim step's measurements, for the bound
         self.failures = []
         self.results = {name: dict(meta) for name, meta in KERNELS.items()}
         self._config3 = None
@@ -1369,16 +1307,6 @@ class Smoke:
         print(f"soft_mask_fwd without face_idx (every pixel): kernel "
               f"{every:.4f} ms", flush=True)
 
-        inputs = self.from_numpy_tree(self.ex.config2_inputs(), "cuda")
-        fvi, feats = inputs["face_vertices_image"], inputs["face_features"]
-        k_ms, p_ms = self.compare_times(
-            lambda: self.ex.config2_grad(inputs, fvi, feats, RES),
-            lambda: self.ex.config2_grad(inputs, fvi, feats, RES,
-                                         loss_fn=self.plain_loss), 10, 3)
-        print(f"config-2 step (forward + backward) at {RES}x{RES}, 4992 "
-              f"faces: kernels {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"[{self.card}]", flush=True)
-
     # -- the DIB-R pose-and-texture fit (config 2 as written) -------------
     def texfit_state(self, scene):
         """A seeded state of the fit away from its start (offsets, texture,
@@ -1592,9 +1520,7 @@ class Smoke:
         float64 sum of the same products (TEXTURE_SUM_ULP), which for the
         shared texture is the sum over the views that the plain version's
         ``expand`` takes (so added once, not 8 times; the norms' ratio
-        printed); one launch each way; and in a profiled backward the two pixel counters
-        against a count of the pixels and of those with a non-zero
-        cotangent."""
+        printed); one launch each way."""
         torch, tm = self.torch, self.mesh_utils
         plain = tm.texture_mapping_plain
         cases = [(f"{cell} shapes, shared {side}² texture", TEXTURE_VIEWS,
@@ -1648,27 +1574,8 @@ class Smoke:
                            f"of an entry's bound (up to "
                            f"{int(adds.max())} adds on an entry); norm "
                            f"ratio {ratio:.7f}; launches {n}")
-            counted = self.texture_pixel_counters(case)
-            self.check(counted == (views * RES * RES, live),
-                       f"texture backward's pixel counters [{label}]: "
-                       f"{counted} against {views * RES * RES} pixels, "
-                       f"{live} with a non-zero cotangent")
         for k, err in worst.items():
             self.record_err(k, err)
-
-    def texture_pixel_counters(self, case):
-        """The backward's two device counters over one profiled bilinear
-        call → (pixels, pixels_added)."""
-        torch = self.torch
-        self.texture_call(case, self.mesh_utils.texture_mapping, "bilinear")
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]):
-            self.texture_call(case, self.mesh_utils.texture_mapping,
-                              "bilinear")
-            torch.cuda.synchronize()
-        got = self.profiling.counters()
-        return tuple(got.get(k) for k in self.ctex.PIXELS)
 
     def regather_fit_case(self, cell, seed, steps=REGATHER_STEPS):
         """The re-gather's inputs and its output's gradient as the DIB-R fit
@@ -1745,9 +1652,8 @@ class Smoke:
         5% of the hits, asked for the features' gradient too; each
         gradient entry, the kernel's and the plain version's, within its
         bound of the float64 sum of its terms (REGATHER_CHAIN); one forward
-        and two backward launches a call (the profiler's names); the pixel
-        counters of a profiled backward against the pixels and the live
-        ones; then the device ms of the plain version and of the kernel,
+        and two backward launches a call (the profiler's names); then the
+        device ms of the plain version and of the kernel,
         each way, their event ms (plain, kernel, kernel, plain) and the
         bytes bound. The kernel table's row is texfit.v8's."""
         torch = self.torch
@@ -1801,16 +1707,11 @@ class Smoke:
                            f"the float64 sums {within}, at most "
                            + ", ".join(f"{x:.4f}" for x in share)
                            + f" of an entry's bound; launches {n}")
-            counted, names = self.regather_launches(case)
-            live = int((hits & (case["cot"] != 0).any(-1)).sum())
-            self.check(counted == (b * RES * RES, live)
-                       and names == {"fwd": ["regather_fwd_kernel"],
-                                     "bwd": ["regather_bwd_kernel",
-                                             "regather_zero_kernel"]},
-                       f"re-gather backward's pixel counters [{cell}]: "
-                       f"{counted} against {b * RES * RES} pixels, {live} "
-                       f"live ({100 * live / (b * RES * RES):.1f}%); device "
-                       f"launches a call {names}")
+            names = self.regather_launches(case)
+            self.check(names == {"fwd": ["regather_fwd_kernel"],
+                                 "bwd": ["regather_bwd_kernel",
+                                         "regather_zero_kernel"]},
+                       f"re-gather device launches a call [{cell}]: {names}")
             self.regather_timing(cell, case)
             del case
             torch.cuda.empty_cache()
@@ -1818,10 +1719,9 @@ class Smoke:
             self.record_err(k, err)
 
     def regather_launches(self, case):
-        """A profiled call each way → ((pixels, pixels_added) of the
-        backward's device counters, {"fwd", "bwd": the sorted names of the
+        """A profiled call each way → {"fwd", "bwd": the sorted names of the
         device launches of one call, each kernel of #8 by its short
-        name})."""
+        name}."""
         args = (case["face_idx"], case["scaled"], case["features"])
         rest = (case["multiplier"], case["eps"])
         calls = {"fwd": lambda: self.creg.regather_fwd_cuda(*args, *rest),
@@ -1829,12 +1729,10 @@ class Smoke:
                      *args, case["cot"], *rest, True, False)}
         short = ("regather_fwd_kernel", "regather_bwd_kernel",
                  "regather_zero_kernel")
-        names = {way: sorted(next((k for k in short if k in n), n)
-                             for n, _ in self.device_events(
-                                 f"re-gather {way}", fn, 1))
-                 for way, fn in calls.items()}
-        got = self.profiling.counters()
-        return tuple(got.get(k) for k in self.creg.PIXELS), names
+        return {way: sorted(next((k for k in short if k in n), n)
+                            for n, _ in self.device_events(
+                                f"re-gather {way}", fn, 1))
+                for way, fn in calls.items()}
 
     def regather_timing(self, cell, case):
         """Kernel #8 on a cell's own data, the backward as the fit asks for
@@ -1919,8 +1817,6 @@ class Smoke:
         host_s = time.perf_counter() - t0
         end = [float(x) for x in ex.pose_error(scene, params)]
         peak = torch.cuda.max_memory_allocated() - base
-        self.texfit.update(path_s=host_s, peak=peak, per_step=counts[-1],
-                           losses=losses, sil=sil, start=start, end=end)
         every = all(all(c[k] > 0 for k in DIBR_KERNELS) for c in counts)
         self.check(every and with_idx == [c["soft_mask_fwd"] for c in counts],
                    f"texture fit: every one of {TEXFIT_PATH_STEPS} steps "
@@ -1973,85 +1869,6 @@ class Smoke:
             self.check(all(n[k] > 0 for k in kernels),
                        f"{name} at full size passed its checks in "
                        f"{time.perf_counter() - t0:.2f} s; launches {n}")
-
-    def phase_texfit_timing(self):
-        """The fit's step on the card: the median CUDA-event time event to
-        event over steps 20-80 of one run from the start; then
-        ``torch.profiler`` over 10 steps: device busy, idle share, the
-        largest ops and #1-#3's device ms at this path's shapes."""
-        torch, ex = self.torch, self.tex_ex
-        scene = ex.texfit_setup(ex.texfit_inputs(), "cuda", RES)
-        params = ex.initial_params(scene)
-        opt = ex.make_optimizer(params)
-        a, b = TEXFIT_TIMED
-        events = []
-        for i in range(b + 1):
-            if i >= a:
-                events.append(torch.cuda.Event(enable_timing=True))
-                events[-1].record()
-            if i < b:
-                ex.texfit_step(scene, params, opt, i)
-        torch.cuda.synchronize()
-        step_ms = statistics.median(x.elapsed_time(y) for x, y in
-                                    zip(events[:-1], events[1:]))
-        count = iter(range(b, 10 ** 6))
-        busy, kernel_ms = self.profile_path(
-            f"texture fit step ({RES}x{RES}, B=2)", DIBR_KERNELS,
-            lambda: ex.texfit_step(scene, params, opt, next(count)),
-            record=False)
-        self.texfit.update(step_ms=step_ms, busy=busy, kernel_ms=kernel_ms)
-        self.texfit_scatters(scene, params)
-        self.texture_timing()
-        print(f"texture fit step at {RES}x{RES}, B=2, 4992 faces, a "
-              f"256x256 texture: steps {a}-{b} of one run, median event to "
-              f"event {step_ms:.4f} ms ({1e3 / step_ms:.1f} steps/s); "
-              f"device busy {busy:.4f} ms; #1-3 "
-              + ", ".join(f"{k} {v:.4f}" for k, v in kernel_ms.items())
-              + f" device ms a step [{self.card}]", flush=True)
-
-    def texfit_scatters(self, scene, params):
-        """The fit's two gathers alone, forward and backward, on its data
-        (views 0 and 1 at the current state): the rasterizer's re-gather of
-        the winners' vertices and features, and ``texture_mapping``'s four
-        texel gathers at the rasterized UVs. Each one's device ms, and the
-        part of it in the colliding scatter-add of its backward."""
-        torch = self.torch
-        from kaolin_tpu_torch.render.mesh import (
-            prepare_vertices,
-            texture_mapping,
-        )
-        uvs = scene["face_uvs"].expand(2, -1, -1, -1)
-        feats = torch.cat([uvs, torch.ones_like(uvs[..., :1])], -1)
-        with torch.no_grad():
-            v = self.tex_ex.posed_vertices(scene["template"], params)
-            fvc, fvi, normals = prepare_vertices(
-                v[None], scene["faces"], scene["proj"],
-                camera_transform=scene["cams"][[0, 1]])
-            image, idx = self.rast.rasterize(RES, RES, fvc[..., 2], fvi,
-                                             feats,
-                                             valid_faces=normals[..., 2] >= 0)
-        scaled = (fvi * 1000.0).requires_grad_(True)
-        feats = feats.clone().requires_grad_(True)
-        uv = image[..., :2].clone().requires_grad_(True)
-        tex = params["texture"].detach().clone().requires_grad_(True)
-        cases = {
-            f"re-gather (2 x {RES}² winners, 4992 x 3 x 3 features)":
-                lambda: self.rast._interpolate_at_winners(
-                    idx, scaled, feats, 1000, 1e-8).sum().backward(),
-            f"texture_mapping (2 x {RES}² UVs, 3 x 256² texture)":
-                lambda: texture_mapping(
-                    uv, tex[None].expand(2, -1, -1, -1),
-                    "bilinear").sum().backward()}
-        for label, fn in cases.items():
-            events = self.device_events(label, fn, 10)
-            total = sum(us for _, us in events) / 10 / 1e3
-            scatter = sum(us for name, us in events
-                          if "scatter" in name and "ReduceAdd" in name) \
-                / 10 / 1e3
-            self.texfit[label] = (total, scatter)
-            print(f"texture fit's {label}: forward and backward "
-                  f"{total:.4f} device ms, {scatter:.4f} of it in the "
-                  f"backward's scatter-add [{self.card}]", flush=True)
 
     def texture_timing(self):
         """Kernel #7 at both cells' shapes (8 x 512² UVs sliced from a
@@ -2338,15 +2155,11 @@ class Smoke:
         self.check_oracle(rspc, inside, ti, ii, f"inside {SPC_RES}²")
 
     def phase_spc_timing(self):
-        torch = self.torch
         print(f"timing on {self.card}", flush=True)
         rspc, cam, caps = self.config3()
         b = self.spc_bins(rspc, cam, caps)
         dt, it = self.spc_tiles(True, rspc, b)
         size = b["size"]
-        bins_ms = statistics.median(self.time_ms(
-            lambda: self.spc_bins(rspc, cam, caps), 20))
-        print(f"SPC binning (plain torch) at config 3: {bins_ms:.4f} ms")
         pairs = {
             "spc_raster": (lambda: self.spc_tiles(True, rspc, b),
                            lambda: self.spc_tiles(False, rspc, b), 20, 3),
@@ -2361,19 +2174,6 @@ class Smoke:
             print(f"{name} at config 3 (L{SPC_LEVEL}, {SPC_RES}², caps "
                   f"{caps}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms",
                   flush=True)
-        tile_px, s_max, c_cap = caps
-        kw = dict(tile_px=tile_px, s_max=s_max, c_cap=c_cap)
-        k_ms, p_ms = self.compare_times(
-            lambda: self.sr.raster_first_hit(rspc, cam, **kw),
-            lambda: self.spc_plain_frame(rspc, cam, caps), 20, 3)
-        print(f"config-3 frame at {SPC_RES}²: kernels {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms [{self.card}]", flush=True)
-        seq_ms = statistics.median(self.time_ms(
-            lambda: self.sr.raster_first_hit_sequence(
-                rspc, [cam] * SPC_FRAMES, **kw), 3))
-        print(f"config-3 sequence of {SPC_FRAMES} frames at {SPC_RES}²: "
-              f"{seq_ms:.4f} ms, {seq_ms / SPC_FRAMES:.4f} ms/frame "
-              f"[{self.card}]", flush=True)
 
     # -- config 3 as written: mesh → SPC → raytrace ------------------------
     def rel_err(self, a, b):
@@ -2706,8 +2506,6 @@ class Smoke:
               f"{a['exp_ulps']:g} ulp, differing at {a['exp_differ']:.4f} of "
               f"the nuggets; alpha card vs CPU {a['rel']:.3g} relative; "
               f"max|I| / max|I - I*| {a['residual']:.4g}")
-        self.spcrt["parity"] = {"packed": worst, "nglod": errs, "own": own,
-                                "t_err": t_err, "sources": src}
 
     def phase_spcrt_path(self):
         """Config 3 as written at full width on the card, every launch
@@ -2781,7 +2579,6 @@ class Smoke:
               f"render, targets, {SPCRT_STEPS} steps): {wall:.2f} s host "
               f"wall, peak {peak / 2 ** 20:.1f} MiB above "
               f"{base / 2 ** 20:.1f} MiB held [{self.card}]", flush=True)
-        self.spcrt.update(scene=scene, views=views, state=state)
 
     def phase_spcrt_crosscheck(self):
         """Config 3's sphere shell (level 9, 512²) through the port's
@@ -2820,58 +2617,6 @@ class Smoke:
                    f"masks equal {same_mask} ({int(valid.sum())} hits), "
                    f"depths close {close}, {share:.4f} bit for bit, ids "
                    f"equal there {ids}")
-
-    def phase_spcrt_timing(self):
-        """Config 3 as written: ``unbatched_mesh_to_spc``, the dual and the
-        trinkets (CUDA events, medians of 3), a depth frame and a fit step
-        (CUDA events, median of 10; ``torch.profiler``: device busy, ops,
-        idle share, the largest ops), and each one's peak memory."""
-        torch, ex = self.torch, self.rt_ex
-        sp = self.spcrt
-        scene, views, state = sp["scene"], sp["views"], sp["state"]
-        from kaolin_tpu_torch.ops.conversions import unbatched_mesh_to_spc
-        from kaolin_tpu_torch.ops.spc import (unbatched_make_dual,
-                                              unbatched_make_trinkets)
-        fv = torch.from_numpy(ex.mesh_faces()).cuda()
-        ph, pyr = scene["point_hierarchy"], scene["pyramid"]
-        ms = {"mesh_to_spc": lambda: unbatched_mesh_to_spc(fv, SPCRT_LEVEL),
-              "dual": lambda: unbatched_make_dual(ph, pyr),
-              "trinkets": lambda: unbatched_make_trinkets(
-                  ph, pyr, scene["dual"], scene["pyramid_dual"])}
-        t = {k: statistics.median(self.time_ms(fn, 3))
-             for k, fn in ms.items()}
-        print(f"config 3 as written, set-up at L{SPCRT_LEVEL}: "
-              + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
-              + f" [{self.card}]", flush=True)
-        step = iter(range(SPCRT_STEPS, 10 ** 6))
-
-        def fit_step():
-            s = next(step) % ex.VIEWS
-            return ex.fit_step(scene, state["student"], state["optimizer"],
-                               views[s], state["targets"][s])
-        paths = {"depth frame": lambda: ex.depth_render(scene, views[0]),
-                 "fit step": fit_step}
-        for label, fn in paths.items():
-            event = statistics.median(self.time_ms(fn, SPCRT_TIMED))
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            fn()
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated() - base
-            busy = self.profile_path(f"config 3 as written, {label} "
-                                     f"({SPCRT_RES}²)", (), fn)
-            t[label] = {"event_ms": event, "busy_ms": busy,
-                        "peak_mib": peak / 2 ** 20}
-            print(f"config 3 as written, {label} at {SPCRT_RES}²: "
-                  f"{event:.4f} ms (CUDA events, median of {SPCRT_TIMED}), "
-                  f"device busy {busy:.4f} ms, peak {peak / 2 ** 20:.1f} MiB "
-                  f"above {base / 2 ** 20:.1f} MiB held [{self.card}]",
-                  flush=True)
-        sp["timing"] = t
-        for key in ("scene", "views", "state"):   # 2.5 GB the card can use
-            del sp[key]
-        torch.cuda.empty_cache()
 
     # -- config 4: FlexiCubes, DMTet, the conversions and the metrics -----
     def flexi_inputs(self, res=FLEXI_PARITY_RES):
@@ -3206,8 +2951,6 @@ class Smoke:
         counts = {k: int(x) for k, x in ints.items()
                   if x.dim() == 0 and k.endswith(("surf_cubes", "quads"))}
         print("  counts: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
-        self.flexi["parity"] = {"float": max(ferr.values()),
-                                "grad": max(gerr.values())}
 
     def flexi_step_on(self, form, field, device):
         """One step of ``form`` from ``field`` (numpy) on ``device`` →
@@ -3328,7 +3071,6 @@ class Smoke:
                    f"marching cubes of the fitted field at res {FLEXI_RES} "
                    f"card = CPU ({mc_cpu[0].shape[0]} vertices, "
                    f"{mc_cpu[1].shape[0]} faces)")
-        self.flexi.update(path_wall=wall, path_peak=peak, dmtet=d)
 
     def flexi_kink(self, state):
         """At the fitted field the topology form's vertices sit on the
@@ -3353,62 +3095,6 @@ class Smoke:
               f"vertices on the other side of radius {fx.TARGET_R} on the "
               f"card ({near} within 1e-6 of it); gradient card vs CPU "
               f"{self.grad_err(gc, gh):.3g} of max|g|")
-
-    def phase_flexi_timing(self):
-        """Config 4 and DMTet on the card: the bench form's step (forward,
-        backward, Adam) and its 50-step run, the topology form's step and
-        its topology alone, the DMTet step; CUDA events, medians of 10 (the
-        50-step run: of 3) after a warm-up; each one's peak memory. The
-        states stay for ``phase_profile``."""
-        torch, fx, dm = self.torch, self.flexi_ex, self.dmtet_ex
-        bench = fx.setup(FLEXI_RES, "cuda")
-        topo = fx.setup(FLEXI_RES, "cuda")
-        dmt = dm.setup("cuda")
-        steps = {"bench step": lambda: fx.bench_step(bench),
-                 "topology step": lambda: fx.topology_step(topo),
-                 "topology alone": lambda: topo["fc"].precompute_topology(
-                     topo["sdf"], topo["cube_idx"], FLEXI_RES),
-                 "DMTet step": lambda: dm.step(dmt)}
-        t = {}
-        for label, fn in steps.items():
-            event = statistics.median(self.time_ms(fn, FLEXI_TIMED))
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            fn()
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated() - base
-            t[label] = {"event_ms": event, "peak_mib": peak / 2 ** 20}
-            print(f"config 4, {label}: {event:.4f} ms (CUDA events, median "
-                  f"of {FLEXI_TIMED}), peak {peak / 2 ** 20:.1f} MiB above "
-                  f"{base / 2 ** 20:.1f} MiB held [{self.card}]", flush=True)
-        run = statistics.median(self.time_ms(
-            lambda: fx.run("bench", bench, FLEXI_STEPS), 3))
-        t["bench run"] = {"event_ms": run}
-        share = (t["topology alone"]["event_ms"]
-                 / t["topology step"]["event_ms"])
-        print(f"config 4 bench form, {FLEXI_STEPS} steps: {run:.4f} ms "
-              f"({run / FLEXI_STEPS:.4f} ms a step; CUDA events, median of "
-              f"3); the topology's share of a topology step {share:.3f} "
-              f"[{self.card}]", flush=True)
-        self.flexi.update(timing=t, states=(bench, topo, dmt))
-
-    def profile_flexi(self):
-        """Config 4's two steps and the DMTet step under the profiler:
-        device ops a step, busy, idle share and the largest ops."""
-        fx, dm = self.flexi_ex, self.dmtet_ex
-        bench, topo, dmt = self.flexi.pop("states")
-        busy = {
-            "bench": self.profile_path(
-                f"config 4 bench step (res {FLEXI_RES})", (),
-                lambda: fx.bench_step(bench)),
-            "topology": self.profile_path(
-                f"config 4 topology step (res {FLEXI_RES})", (),
-                lambda: fx.topology_step(topo)),
-            "dmtet": self.profile_path(f"DMTet step (res {dm.RES})", (),
-                                       lambda: dm.step(dmt))}
-        self.flexi["busy"] = busy
-        self.torch.cuda.empty_cache()
 
     # -- config 5: the simulatable-3DGS scene -------------------------------
     def gauss_shells(self):
@@ -3726,8 +3412,7 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        with self.densifier_warnings() as warned, \
-                self.carve_split() as split:
+        with self.densifier_warnings() as warned:
             pts = sample_points_in_volume(*shell)
         torch.cuda.synchronize()
         carve_s = time.perf_counter() - t0
@@ -3743,167 +3428,13 @@ class Smoke:
               f"from 86 views at 256², jitter, no subsample): "
               f"{pts.shape[0]} points in {carve_s:.3f} s host wall, peak "
               f"{carve_peak / 2 ** 20:.1f} MiB above {base / 2 ** 20:.1f} "
-              f"MiB held; of it " + "; ".join(
-                  f"{k} {v:.3f} s" for k, v in split.items())
-              + f" [{self.card}]", flush=True)
+              f"MiB held [{self.card}]", flush=True)
         self.check(not warned and share > 0.5 * uniform and inside
-                   and pts.device.type == "cuda" and split["views"] > 0,
+                   and pts.device.type == "cuda",
                    f"config-5 level-8 carve: {len(warned)} fallback "
                    f"warnings, interior share (r < 0.25 dmax) {share:.4f} "
                    f"above half of a uniform fill's {uniform:.4f}, every "
                    f"sample inside the gaussians' box {inside}")
-        self.gauss.update(scene=scene, idx=idx, start=start, xyz=xyz,
-                          carve_s=carve_s, carve_peak=carve_peak,
-                          path_peak=peak, split=split)
-
-    @contextlib.contextmanager
-    def carve_split(self):
-        """The densifier's carve timed in its parts while inside: the
-        voxelization, the raytraced views (each frame of the dataset),
-        bf_recon without them and the query, host seconds with the card
-        synced around each → {part: s}."""
-        torch = self.torch
-        from kaolin_tpu_torch.ops.gaussians import densifier
-        from kaolin_tpu_torch.ops.spc import raytraced_spc_dataset as rds
-        bfr = sys.modules["kaolin_tpu_torch.ops.spc.bf_recon"]
-        split = dict(voxelization=0.0, views=0.0, bf_recon=0.0, query=0.0)
-        patched = [(densifier, "gs_to_voxelgrid", "voxelization"),
-                   (rds.RayTracedSPCDataset, "__getitem__", "views"),
-                   (bfr, "bf_recon", "bf_recon"),
-                   (bfr, "unbatched_query", "query")]
-        originals = [getattr(obj, name) for obj, name, _ in patched]
-
-        def timed(fn, part):
-            def run(*args, **kwargs):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-                split[part] += time.perf_counter() - t0
-                return out
-            return run
-
-        for (obj, name, part), fn in zip(patched, originals):
-            setattr(obj, name, timed(fn, part))
-        try:
-            yield split
-        finally:
-            for (obj, name, _), fn in zip(patched, originals):
-                setattr(obj, name, fn)
-            split["bf_recon"] -= split["views"]   # the frames are made in it
-
-    def gauss_window_ms(self, graphs, reps=3):
-        """ms/step of a 100-step rollout window from the path's start,
-        CUDA events, median of ``reps`` after a warm window; and the Newton
-        iterations a step."""
-        torch, ex, g = self.torch, self.gauss_ex, self.gauss
-        scene, steps = g["scene"], ex.BENCH["steps"]
-        times = []
-        before = self.newton.iterations
-        for rep in range(reps + 1):
-            scene.sim_z, scene.sim_z_prev, scene.sim_z_dot = (
-                x.clone() for x in g["start"])
-            scene.use_cuda_graphs = graphs
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            ex.rollout(scene, g["idx"], steps)
-            b.record()
-            b.synchronize()
-            if rep:
-                times.append(a.elapsed_time(b) / steps)
-        iters = (self.newton.iterations - before) / ((reps + 1) * steps)
-        return statistics.median(times), iters
-
-    def phase_gauss_timing(self):
-        """Config 5 on the card: the 100-step window eager and from the
-        graph (ms/step, CUDA events, median of 3 windows from the path's
-        start); a step's profile eager and as a replay (device busy, idle
-        share, largest ops) and the LBS move; the step's bound; the flood
-        fill densifier at level 6 with gs_to_voxelgrid's share, each with
-        its peak memory; the shares of phase_gauss_path's level-8 carve
-        (voxelization, the 86 raytraced views, bf_recon, the query)."""
-        torch, ex, g = self.torch, self.gauss_ex, self.gauss
-        from kaolin_tpu_torch.ops.conversions import gs_to_voxelgrid
-        self.check_precision("phase_gauss_timing")
-        if "scene" not in g:
-            raise RuntimeError("phase_gauss_path did not run")
-        scene, idx = g["scene"], g["idx"]
-        e_ms, e_iters = self.gauss_window_ms(False)
-        g_ms, _ = self.gauss_window_ms(True)
-        g.update(eager_ms=e_ms, graph_ms=g_ms, iterations=e_iters)
-        print(f"config-5 step in the 100-step window (LBS move included), "
-              f"medians of 3 windows: eager {e_ms:.4f} ms "
-              f"({e_iters:.2f} Newton iterations a step), graph "
-              f"{g_ms:.4f} ms [{self.card}]", flush=True)
-        scene.use_cuda_graphs = False
-        g["eager_busy"] = self.profile_path(
-            "config-5 step, eager", (), scene.run_sim_step)
-        scene.use_cuda_graphs = True
-        g["graph_busy"] = self.profile_path(
-            "config-5 step, graph replay", (), scene.run_sim_step)
-        self.profile_path("config-5 LBS move of 2,000 gaussians", (),
-                          lambda: scene.get_object_deformed_pts(
-                              idx, points="rendered"))
-        self.gauss_bound()
-
-        shell = self.gauss_shells()["bench"]
-        nrm = self.gauss_normalized(shell)[:4]
-        parts = {}
-        for label, fn in (
-                ("the flood-fill densifier", lambda: ex.densify(
-                    shell, ex.BENCH["num_samples"], "cuda")),
-                ("its gs_to_voxelgrid", lambda: gs_to_voxelgrid(
-                    *nrm, level=6, device="cuda"))):
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            times = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            parts[label] = statistics.median(times)
-            print(f"config 5, {label} at level 6: {1e3 * parts[label]:.3f} "
-                  f"ms host wall (synced, median of 3), peak "
-                  f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 20:.1f}"
-                  f" MiB above what was held [{self.card}]", flush=True)
-        split = g["split"]
-        print(f"config 5: gs_to_voxelgrid's share of the level-6 flood fill "
-              f"{parts['its gs_to_voxelgrid'] / parts['the flood-fill densifier']:.3f}"
-              f"; the level-8 carve {g['carve_s']:.3f} s (peak "
-              f"{g['carve_peak'] / 2 ** 20:.1f} MiB): " + ", ".join(
-                  f"{k} {v / g['carve_s']:.3f}" for k, v in split.items())
-              + f" of it [{self.card}]", flush=True)
-
-    def gauss_bound(self):
-        """The config-5 step's bound, reckoned as config 1's is
-        (``sim_bound``: the dense products and factorizations per Newton
-        iteration over 67 TFLOP/s; bytes: B, dF/dz and BMB read once), plus
-        the dense broad phase's N(N-1)/2 pair tests at 19 operations each
-        once a step; the contact terms are not counted."""
-        g, scene = self.gauss, self.gauss["scene"]
-        d, n, m = scene.total_dofs, scene.total_qp, scene.max_ls_steps
-        per_iter = sum(dense_step_ops(d, n, m))
-        detect = 19 * n * (n - 1) // 2
-        nbytes = 4 * (12 * n * d + d * d)
-        for label, iters, ms in (
-                ("graph (fixed trip)", scene.max_newton_steps,
-                 g.get("graph_busy")),
-                ("eager (stops early)", g["iterations"], g.get("eager_busy"))):
-            ops = per_iter * iters + detect
-            t_ops = ops / FP32_OPS_S * 1e3
-            t_bytes = nbytes / HBM_BYTES_S * 1e3
-            bound = max(t_ops, t_bytes)
-            busy = "not measured" if ms is None else \
-                f"{ms:.4f} ms, share {bound / ms:.4f}"
-            print(f"config-5 sim step, {label}: {iters:g} Newton iterations "
-                  f"x {per_iter / 1e9:.4f} GFLOP + {detect / 1e6:.1f} M "
-                  f"detection = {ops / 1e9:.4f} GFLOP -> {t_ops:.6f} ms; "
-                  f"{nbytes} bytes -> {t_bytes:.6f} ms; bound {bound:.6f} ms "
-                  f"by {'operations' if t_ops >= t_bytes else 'bytes'}; "
-                  f"device busy {busy} [{self.card}]")
 
     # -- the full render (examples/torch_easy_render.py) ------------------
     def render_errs(self, card, cpu):
@@ -4072,8 +3603,10 @@ class Smoke:
         defaults at 512² (knum 300, face_chunk 1,024, pixel_chunk 8,192)
         with depths non-increasing along knum wherever face_idx ≥ 0 and
         hits packed first; the three tutorials at full size, each with its
-        own checks, launching #1 and nothing else."""
-        torch, ex, r = self.torch, self.render_ex, self.render
+        own checks, launching #1 and nothing else. Also #1's winner ids at
+        the 81,408-face render's shape against its plain version on the
+        same CUDA tensors."""
+        torch, ex = self.torch, self.render_ex
         names = list(self.counters())
         others = [k for k in names
                   if k not in ("winner", *TEXTURE_KERNELS, *REGATHER_KERNELS)]
@@ -4097,6 +3630,10 @@ class Smoke:
                    f"passes, {covered} covered pixels, finite; launches "
                    f"{n} ({maps} texture maps); under {ex.NUM_SG} lobes "
                    f"{n_env}")
+        big = ex.scene("cuda", *ex.ASSET)
+        self.check_winner_at(f"81,408 faces at {RENDER_RES}²",
+                             lambda: ex.render(big))
+        del big
         state = ex.fit_setup("cuda", RENDER_RES)
         fit_maps = self.maps_sampled(state["mesh"])
         torch.cuda.synchronize()
@@ -4106,8 +3643,7 @@ class Smoke:
             loss, n = self.drive(names, lambda: ex.fit_step(state))
             losses.append(float(loss))
             counts.append(n)
-        r["fit_s"] = time.perf_counter() - t0
-        r["losses"] = losses
+        fit_s = time.perf_counter() - t0
         self.check(all(only_winner(c, fit_maps, True) for c in counts),
                    f"fit: every one of {RENDER_STEPS} steps launched #1 once, "
                    f"#7 {fit_maps} times each way ({fit_maps} texture maps) "
@@ -4118,7 +3654,7 @@ class Smoke:
                    and losses[-1] < 0.5 * losses[0],
                    f"fit: L1 {losses[0]:.5f} -> {losses[-1]:.5f} in "
                    f"{RENDER_STEPS} steps (below half the start), "
-                   f"{r['fit_s']:.2f} s host with a sync a step")
+                   f"{fit_s:.2f} s host with a sync a step")
         inputs = ex.deftet_inputs(mesh)
         with torch.no_grad():
             ((uv, z), idx), n = self.drive(names,
@@ -4127,11 +3663,10 @@ class Smoke:
         hit = idx >= 0
         ordered = bool(((z[..., :-1] >= z[..., 1:]) | ~hit[..., 1:]).all())
         packed = bool((hit[..., :-1] | ~hit[..., 1:]).all())
-        r["deftet_hits"] = int(hit.sum())
-        self.check(ordered and packed and not any(n.values())
-                   and r["deftet_hits"] > 0,
+        hits = int(hit.sum())
+        self.check(ordered and packed and not any(n.values()) and hits > 0,
                    f"DefTet at its defaults at {RENDER_RES}x{RENDER_RES} "
-                   f"(knum {ex.KNUM}): {r['deftet_hits']} hits, up to "
+                   f"(knum {ex.KNUM}): {hits} hits, up to "
                    f"{int(hit.sum(-1).max())} a pixel, depths non-increasing "
                    f"along knum {ordered}, hits first {packed}; launches {n}")
         for name in ("torch_tutorial_easy_mesh_render",
@@ -4144,147 +3679,6 @@ class Smoke:
                        and self.texture_launches(n, 0),
                        f"{name} at full size passed its checks in "
                        f"{time.perf_counter() - t0:.2f} s; launches {n}")
-
-    def peak_mib(self, fn):
-        """MiB that ``fn`` allocates above what was held before it."""
-        torch = self.torch
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-
-    def render_bound(self, label, tensors, ops, busy=None):
-        """The least time for ``ops`` float32 operations and for moving
-        ``tensors`` (each read or written once) → (bound ms, by what)."""
-        nbytes = sum(t.numel() * t.element_size() for t in tensors)
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = ops / FP32_OPS_S * 1e3
-        bound = max(t_bytes, t_ops)
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        share = "" if busy is None else \
-            f"; device busy {busy:.4f} ms, share {bound / busy:.5f}"
-        print(f"{label} bound: {nbytes} bytes -> {t_bytes:.6f} ms, "
-              f"{ops / 1e6:.1f} M operations -> {t_ops:.6f} ms; "
-              f"{bound:.6f} ms by {by}{share} [{self.card}]", flush=True)
-        return bound, by
-
-    def mesh_tensors(self, mesh):
-        """The render's inputs: the mesh's given tensors and its
-        materials' textures and values."""
-        out = [mesh.get_attribute(a) for a in ("vertices", "faces",
-                                               "vertex_features", "face_uvs",
-                                               "material_assignments")]
-        for m in mesh.materials:
-            out += [t for a in m.get_attributes(only_tensors=True)
-                    for t in [getattr(m, a)]]
-        return out
-
-    def phase_render_timing(self):
-        """The full render's times on the card: the render at 512² at 4,992
-        and at 81,408 faces (CUDA events, median of 10; device busy, idle
-        share, the largest ops and #1's share; peak memory; bound), the
-        81,408-face set-up once (scene, render, environment fit and render,
-        host wall, synced) and #1's winner ids at that shape against its
-        plain version on the same CUDA tensors, the render under 32 environment lobes (ms,
-        peak), the fit step (forward, backward, Adam: ms, profile, peak,
-        bound) and DefTet at its defaults (ms, median of 3; peak)."""
-        torch, ex, r = self.torch, self.render_ex, self.render
-        self.check_precision("phase_render_timing")
-        res = RENDER_RES
-        pixels = res * res
-        light = ex.default_lighting("cuda")
-        for label, size in (("4,992 faces", (ex.N_LAT, ex.N_LON)),
-                            ("81,408 faces", ex.ASSET)):
-            if size == ex.ASSET:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                mesh = ex.scene("cuda", *size)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                with torch.no_grad():
-                    ex.render(mesh)
-                    torch.cuda.synchronize()
-                    t2 = time.perf_counter()
-                    env = ex.environment_lighting("cuda")
-                    torch.cuda.synchronize()
-                    t3 = time.perf_counter()
-                    ex.env_render(mesh, env)
-                    torch.cuda.synchronize()
-                    t4 = time.perf_counter()
-                print(f"set-up at {label}, once, host wall synced: scene "
-                      f"{t1 - t0:.4f} s, first render {t2 - t1:.4f} s, "
-                      f"environment fit {t3 - t2:.4f} s, first environment "
-                      f"render {t4 - t3:.4f} s [{self.card}]", flush=True)
-                self.check_winner_at(f"{label} at {res}²",
-                                     lambda: ex.render(mesh))
-            else:
-                mesh = ex.scene("cuda", *size)
-            with torch.no_grad():
-                fn = lambda: ex.render(mesh, light)  # noqa: E731
-                ms = statistics.median(self.time_ms(fn, RENDER_TIMED))
-                peak = self.peak_mib(fn)
-                busy, kms = self.profile_path(
-                    f"render at {res}x{res}, {label}", ("winner",), fn,
-                    record=False)
-                out = fn()
-            r[label] = dict(ms=ms, peak=peak, busy=busy,
-                            winner=kms["winner"])
-            print(f"render at {res}x{res}, {label}: {ms:.4f} ms (CUDA "
-                  f"events, median of {RENDER_TIMED}); #1 "
-                  f"{kms['winner']:.4f} device ms, {kms['winner'] / busy:.4f}"
-                  f" of busy; peak {peak:.1f} MiB [{self.card}]", flush=True)
-            self.render_bound(
-                f"render at {res}x{res}, {label}",
-                self.mesh_tensors(mesh) + list(out.values()),
-                pixels * RENDER_PIXEL_OPS, busy)
-
-        mesh = ex.scene("cuda")
-        env = ex.environment_lighting("cuda")
-        with torch.no_grad():
-            fn = lambda: ex.env_render(mesh, env)  # noqa: E731
-            ms = statistics.median(self.time_ms(fn, RENDER_TIMED))
-            peak = self.peak_mib(fn)
-        r["env"] = dict(ms=ms, peak=peak)
-        print(f"render at {res}x{res} under {ex.NUM_SG} environment lobes: "
-              f"{ms:.4f} ms (CUDA events, median of {RENDER_TIMED}); peak "
-              f"{peak:.1f} MiB [{self.card}]", flush=True)
-
-        state = ex.fit_setup("cuda", res)
-        for _ in range(5):
-            ex.fit_step(state)
-        fn = lambda: ex.fit_step(state)  # noqa: E731
-        ms = statistics.median(self.time_ms(fn, RENDER_TIMED))
-        peak = self.peak_mib(fn)
-        busy, _ = self.profile_path(f"fit step at {res}x{res}", ("winner",),
-                                    fn, record=False)
-        r["step"] = dict(ms=ms, peak=peak, busy=busy)
-        print(f"fit step at {res}x{res} (render, L1, backward, Adam): "
-              f"{ms:.4f} ms (CUDA events, median of {RENDER_TIMED}); peak "
-              f"{peak:.1f} MiB [{self.card}]", flush=True)
-        params = list(state["params"].values())
-        n_params = sum(p.numel() for p in params)
-        with torch.no_grad():
-            out = ex.render(state["mesh"])
-        # Adam reads a parameter, its gradient and both moments and writes
-        # the parameter and the moments
-        self.render_bound(
-            f"fit step at {res}x{res}",
-            self.mesh_tensors(state["mesh"]) + list(out.values())
-            + [state["target"]] + params * 7,
-            3 * pixels * RENDER_PIXEL_OPS + ADAM_OPS * n_params, busy)
-
-        inputs = ex.deftet_inputs(mesh)
-        with torch.no_grad():
-            fn = lambda: ex.deftet_render(inputs)  # noqa: E731
-            ms = statistics.median(self.time_ms(fn, 3))
-            peak = self.peak_mib(fn)
-        r["deftet"] = dict(ms=ms, peak=peak)
-        print(f"DefTet at its defaults at {res}x{res} (knum {ex.KNUM}, "
-              f"4,992 faces streamed in chunks of 1,024, 8,192 pixels a "
-              f"block): {ms:.4f} ms (CUDA events, median of 3); peak "
-              f"{peak:.1f} MiB [{self.card}]", flush=True)
 
     # -- the asset from disk (examples/torch_asset_render.py) -------------
     def asset_errs(self, meshes, a):
@@ -4465,7 +3859,7 @@ class Smoke:
         import tempfile
         import warnings
 
-        torch, ex, r = self.torch, self.asset_ex, self.io
+        torch, ex, r = self.torch, self.asset_ex, {}
         names = list(self.counters())
         others = [k for k in names
                   if k not in ("winner", *TEXTURE_KERNELS, *REGATHER_KERNELS)]
@@ -4586,129 +3980,6 @@ class Smoke:
         _, n = self.drive(names, lambda: mod.main("cuda"))
         self.check(not any(n.values()), "torch_tutorial_working_with_meshes "
                    f"at full size passed its checks; launches {n}")
-
-    def gcn_bound(self, mesh, widths, batch, nnz):
-        """GraphConv's forward and backward: per layer the two products
-        (adjacency side and self layer) of 2·B·N·in·out operations each,
-        the sparse product's 2·B·nnz·out forward and again backward, the
-        weight gradients' products and the input gradients' (not the first
-        layer's, whose features need none) → (bytes of the inputs read
-        and the gradients written, operations)."""
-        n = mesh.vertices.shape[0]
-        ops = 0
-        weights = 0
-        for i, (di, do) in enumerate(zip(widths[:-1], widths[1:])):
-            mm = 2 * batch * n * di * do
-            sp = 2 * batch * nnz * do
-            ops += 2 * mm + sp                        # forward
-            ops += 2 * mm + (2 * mm if i else 0) + sp  # backward
-            weights += 2 * (di * do + do)
-        nbytes = 4 * (batch * n * widths[0] + 2 * weights) + 12 * nnz
-        return nbytes, ops
-
-    def phase_io_timing(self):
-        """The asset path's times on the card: each format's import on the
-        host clock, synced (median of 3), file bytes;
-        the 512² render of the OBJ and GLB imports (CUDA events, median of
-        10; device busy, idle share, largest ops, #1's share; peak); the
-        2^20-gaussian export and import (host clock) and transform (CUDA
-        events, median of 10; peak); GraphConv's forward and backward
-        (CUDA events, median of 10; peak; bound); the dataset's pool
-        against its serial loop (measured in phase_io_path)."""
-        import tempfile
-
-        torch, ex, r = self.torch, self.asset_ex, self.io
-        self.check_precision("phase_io_timing")
-        with tempfile.TemporaryDirectory() as d:
-            paths, a = ex.write_asset(d)
-            meshes = {}
-            for fmt, path in paths.items():
-                kw = dict(with_materials=True, raw_materials=False) \
-                    if fmt == "obj" else {}
-                times = []
-                for _ in range(3):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    meshes[fmt] = self.kio.import_mesh(path, **kw)
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t0)
-                tex = a["checker"].shape[0]
-                maps = {"obj": f", 2 PNG maps of {tex}²",
-                        "glb": f", 4 embedded PNGs of {tex}²"}
-                print(f"import {fmt.upper()} ({os.path.getsize(path)} bytes"
-                      f"{maps.get(fmt, '')}; {a['faces'].shape[0]} faces): "
-                      f"{statistics.median(times):.4f} s host wall synced "
-                      f"(median of 3) [{self.card}]", flush=True)
-            with torch.no_grad():
-                for fmt in ("obj", "glb"):
-                    mesh = meshes[fmt]
-                    fn = lambda: ex.render_asset(mesh)  # noqa: E731
-                    ms = statistics.median(self.time_ms(fn, IO_TIMED))
-                    peak = self.peak_mib(fn)
-                    busy, kms = self.profile_path(
-                        f"render of the {fmt.upper()} import at "
-                        f"{RENDER_RES}²", ("winner",), fn, record=False)
-                    print(f"render of the {fmt.upper()} import at "
-                          f"{RENDER_RES}²: {ms:.4f} ms (CUDA events, median "
-                          f"of {IO_TIMED}); #1 {kms['winner']:.4f} device ms"
-                          f", {kms['winner'] / busy:.4f} of busy; peak "
-                          f"{peak:.1f} MiB [{self.card}]", flush=True)
-            g = ex._random_gaussians(ex.GAUSSIANS)
-            path = os.path.join(d, "g.ply")
-            t0 = time.perf_counter()
-            self.kio.ply.export_gaussiancloud(
-                path, g["positions"], g["orientations"], g["scales"],
-                g["opacities"], g["sh_coeff"])
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            model = self.kio.import_gaussiancloud(path)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            transform = torch.as_tensor(ex.gs_transform(), device="cuda")
-
-            def fn():
-                return ex.transform_gaussians(
-                    model.positions, model.orientations, model.scales,
-                    transform, sh_coeff=model.sh_coeff)
-
-            ms = statistics.median(self.time_ms(fn, IO_TIMED))
-            peak = self.peak_mib(fn)
-            print(f"{ex.GAUSSIANS} gaussians at SH degree 3 "
-                  f"({os.path.getsize(path)} bytes): export {t1 - t0:.4f} s "
-                  f"(from host arrays), import to the card {t3 - t2:.4f} s "
-                  f"(host wall synced); transform_gaussians with the SH "
-                  f"rotation {ms:.4f} ms (CUDA events, median of "
-                  f"{IO_TIMED}), peak {peak:.1f} MiB [{self.card}]",
-                  flush=True)
-            del model, g
-        mesh = meshes["obj"]
-        step, _, _, adj = ex.graph_conv(mesh)
-        fwd_layers = ex.graph_conv(mesh)[1]
-        fwd = lambda: self.gcn_forward(mesh, fwd_layers)  # noqa: E731
-        f_ms = statistics.median(self.time_ms(fwd, IO_TIMED))
-        s_ms = statistics.median(self.time_ms(step, IO_TIMED))
-        peak = self.peak_mib(step)
-        busy, _ = self.profile_path(
-            f"GraphConv {ex.GCN_WIDTHS} forward and backward", (), step,
-            record=False)
-        nbytes, ops = self.gcn_bound(mesh, ex.GCN_WIDTHS, ex.GCN_BATCH,
-                                     adj[1].shape[0])
-        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
-        bound = max(t_bytes, t_ops)
-        print(f"GraphConv {ex.GCN_WIDTHS} at B = {ex.GCN_BATCH} on "
-              f"{mesh.vertices.shape[0]} vertices, {adj[1].shape[0]} edges: "
-              f"forward {f_ms:.4f} ms, forward and backward {s_ms:.4f} ms "
-              f"(CUDA events, median of {IO_TIMED}), device busy "
-              f"{busy:.4f} ms a step, peak {peak:.1f} MiB; bound {nbytes} "
-              f"bytes -> {t_bytes:.6f} ms, {ops / 1e9:.2f} G operations -> "
-              f"{t_ops:.6f} ms; {bound:.6f} ms by "
-              f"{'bytes' if t_bytes >= t_ops else 'operations'}, share "
-              f"{bound / s_ms:.4f} [{self.card}]", flush=True)
-        print(f"CachedDataset preprocessing of {ex.MODELS} models "
-              f"({ex.SAMPLES} samples each): {ex.WORKERS} spawned workers "
-              f"{r['pool_s']:.4f} s, the serial loop {r['serial_s']:.4f} s "
-              f"(host wall, phase_io_path) [{self.card}]", flush=True)
 
     # -- the asset through USD, the native library, the visualizers -------
     @contextlib.contextmanager
@@ -4924,7 +4195,7 @@ class Smoke:
         import filecmp
         import tempfile
 
-        torch, ex, r = self.torch, self.usd_ex, self.usd
+        torch, ex, r = self.torch, self.usd_ex, {}
         names = list(self.counters())
         others = [k for k in names
                   if k not in ("winner", *TEXTURE_KERNELS, *REGATHER_KERNELS)]
@@ -5017,7 +4288,6 @@ class Smoke:
             t0 = time.perf_counter()
             fit, n = self.drive(names, lambda: ex.log_fit(logdir))
             r["fit_s"] = time.perf_counter() - t0
-            r["fit"] = fit
             parser = self.visualize.TimelapseParser(logdir)
             times = parser.dir_info["mesh"]["fit"][0]["times"]
             last = self.usd_io.import_mesh(
@@ -5070,115 +4340,6 @@ class Smoke:
                    f"the same events (<= {USD_TOL['camera']:g})")
         self.check_winner_at("a turntable frame at "
                              f"{RENDER_RES}²", lambda: viz.render(viz.camera))
-        r["mesh"], r["viz"] = mesh, viz
-
-    def usd_split(self, fn):
-        """``fn`` (an import) once, its host wall synced, split by wrapping
-        what it calls: the layer read (the file, or the Crate reader and
-        its text), the prim scan, the PNG maps' decode and the moves to
-        tensors on the device (synced) → (seconds, {part: seconds})."""
-        torch, core, kio = self.torch, self.usd_core, self.kio
-        spent = {"read": 0.0, "scan": 0.0, "maps": 0.0, "to tensors": 0.0}
-        where = {"read": (core, "_read_usd_text"),
-                 "scan": (core, "_scan_prims"),
-                 "maps": (kio.utils, "read_image"),
-                 "to tensors": (core, "_on_device")}
-        kept = {k: getattr(mod, name) for k, (mod, name) in where.items()}
-
-        def timed(key, f):
-            def g(*args, **kwargs):
-                t0 = time.perf_counter()
-                out = f(*args, **kwargs)
-                torch.cuda.synchronize()
-                spent[key] += time.perf_counter() - t0
-                return out
-            return g
-
-        for k, (mod, name) in where.items():
-            setattr(mod, name, timed(k, kept[k]))
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            total = time.perf_counter() - t0
-        finally:
-            for k, (mod, name) in where.items():
-                setattr(mod, name, kept[k])
-        return total, spent
-
-    def phase_usd_timing(self):
-        """The USD path's times on the card: each import (host wall synced,
-        median of 3) split into the layer read, the prim scan, the maps'
-        decode, the moves to tensors and the rest (the attributes' text to
-        arrays); the ``.usdc`` import's 512² render (CUDA events, median of
-        10; device ops, busy, idle share, #1's ms; peak); the 11-checkpoint
-        Timelapse of the fit; a turntable frame (CUDA events, median of
-        10, the copy of its image to the host included); the native
-        ``check_sign`` of the torus's 100,000 candidates against the
-        device's (host wall synced, median of 3)."""
-        import tempfile
-
-        torch, ex, r = self.torch, self.usd_ex, self.usd
-        with tempfile.TemporaryDirectory() as d:
-            a = ex.asset_arrays()
-            for ext in ("usda", "usdc"):
-                path = ex.write_usd(os.path.join(d, ext, f"asset.{ext}"), a)
-                runs = sorted((self.usd_split(lambda: ex.import_usd(path))
-                               for _ in range(3)), key=lambda x: x[0])
-                total, parts = runs[1]
-                rest = total - sum(parts.values())
-                print(f"import .{ext} ({os.path.getsize(path)} bytes, "
-                      f"{a['faces'].shape[0]} faces, 2 PNG maps of "
-                      f"{ex.TEX}²): {total:.4f} s host wall synced (median "
-                      "of 3): " + ", ".join(f"{k} {v:.4f} s" for k, v in
-                                            parts.items())
-                      + f", the rest (text to arrays) {rest:.4f} s "
-                      f"[{self.card}]", flush=True)
-        mesh, viz = r["mesh"], r["viz"]
-        with torch.no_grad():
-            fn = lambda: ex.render(mesh)  # noqa: E731
-            ms = statistics.median(self.time_ms(fn, USD_TIMED))
-            peak = self.peak_mib(fn)
-            busy, kms = self.profile_path(
-                f"render of the .usdc import at {RENDER_RES}²", ("winner",),
-                fn, record=False)
-            print(f"render of the .usdc import at {RENDER_RES}²: {ms:.4f} "
-                  f"ms (CUDA events, median of {USD_TIMED}); #1 "
-                  f"{kms['winner']:.4f} device ms, "
-                  f"{kms['winner'] / busy:.4f} of busy; peak {peak:.1f} MiB "
-                  f"[{self.card}]", flush=True)
-            frame = statistics.median(self.time_ms(viz.render_update,
-                                                   USD_TIMED))
-        with tempfile.TemporaryDirectory() as d:
-            logged = self.relog(d, r["fit"], "cuda")
-        print(f"Timelapse of the fit: {len(r['fit']['vertices'])} checkpoints "
-              f"of {r['fit']['faces'].shape[0]} faces and {ex.CLOUD} points "
-              f"written in {logged:.4f} s from the card's tensors (host "
-              f"wall); the fit with its logging {r['fit_s']:.4f} s "
-              f"(phase_usd_path); a turntable frame at {RENDER_RES}² "
-              f"{frame:.4f} ms (CUDA events, median of {USD_TIMED}, the "
-              f"image's copy to the host included) [{self.card}]",
-              flush=True)
-        from kaolin_tpu_torch.ops.mesh import check_sign
-        verts, faces, cand = self.torus_candidates("cuda")
-        times = {}
-        for key in ("native", None):
-            fn = lambda: check_sign(verts[None], faces, cand[None],  # noqa
-                                    backend=key)
-            times[key] = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                times[key].append(time.perf_counter() - t0)
-        print(f"check_sign of the torus ({faces.shape[0]} faces) and "
-              f"{cand.shape[0]} candidates on the card's tensors: native "
-              f"(host C++, the copies to and from the host included) "
-              f"{statistics.median(times['native']):.4f} s, the device's "
-              f"ray parity {statistics.median(times[None]):.4f} s (host "
-              f"wall synced, median of 3) [{self.card}]", flush=True)
 
     # -- the table gather and the probe path ------------------------------
     def gather_case(self, n_tab, shape, lo=0, seed=0):
@@ -5554,38 +4715,32 @@ class Smoke:
         self.check(err <= SIM_Z_TOL, f"config-1 graph vs eager after "
                    f"{ex.STEPS} steps: max |dz| / max|z| {err:.3e}, bit for "
                    f"bit {same}")
+        del runs, za, zb   # F14's graph is captured after these are freed
         self.check_kinematic_graph()
+        self.check_graph_after_fill()
 
-    def phase_sim_timing(self):
-        """Steps/s of config 1: eager ``run_sim_step``, one graph replay a
-        step, ``run_sim_steps(150)`` eager and from the graph; CUDA-event
-        medians. The graph scene is captured after the earlier phases'
-        graphs were freed, and the memory their constants would free is
-        filled with NaN before it replays (fault F14): its states are held
-        against the eager scene's, which took the same steps from the same
-        start, and a graph time is reported only from a run in which no
-        step ran again eagerly."""
+    def check_graph_after_fill(self):
+        """Config 1's graph captured after the earlier phases' graphs were
+        freed, the memory its constants would free filled with NaN before
+        it replays (fault F14), held against an eager scene that takes the
+        same steps from the same start: SIM_FILL_STEPS single steps, then
+        four calls of ``run_sim_steps(150)`` from rest."""
         torch, ex = self.torch, self.sim_ex
-        self.check_precision("phase_sim_timing")
         eager = self.sim_scene("config1", "cuda")
         graph = self.sim_scene("config1", "cuda", use_cuda_graphs=True)
         graph.run_sim_step()       # the capture
         graph.reset_scene()
         junk = self.fill_freed_memory(graph)
-        n = SIM_TIMED_STEPS
-        before = self.newton.iterations
-        e_ms = statistics.median(self.time_ms(eager.run_sim_step, n))
-        iters = (self.newton.iterations - before) / (n + 1)
-        g_ms = statistics.median(self.time_ms(graph.run_sim_step, n))
-        single = (eager.sim_z, graph.sim_z)
+        for _ in range(SIM_FILL_STEPS):
+            eager.run_sim_step()
+            graph.run_sim_step()
+        single = (eager.sim_z.clone(), graph.sim_z.clone())
         rerun_single = graph.graph_steps_rerun
         eager.reset_scene()
         graph.reset_scene()
-        # 4 x 150 steps each from rest: a warm-up call, then 3 timed
-        re_ms = statistics.median(self.time_ms(
-            lambda: eager.run_sim_steps(ex.STEPS), 3))
-        r_ms = statistics.median(self.time_ms(
-            lambda: graph.run_sim_steps(ex.STEPS), 3))
+        for _ in range(4):
+            eager.run_sim_steps(ex.STEPS)
+            graph.run_sim_steps(ex.STEPS)
         del junk
         rerun = graph.graph_steps_rerun
         errs = [float((a - b).abs().max() / a.abs().max()) for a, b in
@@ -5593,31 +4748,14 @@ class Smoke:
         same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
                 for a, b in (single, (eager.sim_z, graph.sim_z))]
         self.check(max(errs) <= SIM_Z_TOL and rerun == 0,
-                   f"config-1 timed graph scene against eager from the same "
-                   f"start, after {n + 1} single steps and after "
+                   f"config-1 graph scene after a NaN fill of freed memory "
+                   f"against eager from the same start, after "
+                   f"{SIM_FILL_STEPS} single steps and after "
                    f"{4 * ex.STEPS} steps of run_sim_steps({ex.STEPS}): max "
                    f"|dz| / max|z| {errs[0]:.3e}, {errs[1]:.3e}, bit for bit "
                    f"{same}; {rerun} of the graph's "
-                   f"{n + 1 + 4 * ex.STEPS} steps run again eagerly "
+                   f"{SIM_FILL_STEPS + 4 * ex.STEPS} steps run again eagerly "
                    f"({rerun_single} in the single steps)")
-        self.sim.update(iterations=iters, dofs=eager.total_dofs,
-                        points=eager.total_qp, newton=eager.max_newton_steps,
-                        ls=eager.max_ls_steps)
-        if rerun == 0:
-            graph_line = (
-                f"graph replay {g_ms:.4f} ms ({1e3 / g_ms:.1f} steps/s, "
-                f"{eager.max_newton_steps} iterations); run_sim_steps"
-                f"({ex.STEPS}) from the graph {r_ms:.4f} ms "
-                f"({ex.STEPS * 1e3 / r_ms:.1f} steps/s)")
-        else:
-            graph_line = (f"graph times not reported: {rerun} steps ran "
-                          f"again eagerly")
-        print(f"config-1 sim step, the first {n} steps from rest, medians:"
-              f" eager run_sim_step {e_ms:.4f} ms ({1e3 / e_ms:.1f} steps/s,"
-              f" {iters:.2f} Newton iterations a step); {graph_line}; eager "
-              f"run_sim_steps({ex.STEPS}) {re_ms:.4f} ms "
-              f"({ex.STEPS * 1e3 / re_ms:.1f} steps/s) [{self.card}]",
-              flush=True)
 
     # -- contact (collision_10k) ---------------------------------------------
     def qr_conv(self, card, cpu):
@@ -5978,7 +5116,6 @@ class Smoke:
                    f"floor at -0.6; {scene.graph_steps_rerun} graph steps "
                    f"run again eagerly; graph vs eager max |d(B z)| / "
                    f"max|B z| {err:.3e}")
-        self.col.update(scene=scene, start=start, pairs=runs["eager"]["pairs"])
         self.check_resize_under_graph()
 
     def check_resize_under_graph(self):
@@ -6020,45 +5157,6 @@ class Smoke:
                    f"{col.max_occupied_cells}; flags {flags}; graph vs eager "
                    f"max |d(B z)| / max|B z| {err:.3e}")
 
-    def phase_collision_timing(self):
-        """Steps/s of collision_10k from the path's start: eager
-        ``run_sim_step``, one graph replay a step and ``run_sim_steps(20)``
-        from the graph, CUDA-event medians."""
-        torch = self.torch
-        self.check_precision("phase_collision_timing")
-        scene, start = self.col["scene"], self.col["start"]
-        n = COLLISION_TIMED_STEPS
-
-        def reset(graphs):
-            scene.sim_z, scene.sim_z_prev, scene.sim_z_dot = (
-                x.clone() for x in start)
-            scene.use_cuda_graphs = graphs
-
-        reset(False)
-        before = self.newton.iterations
-        e_ms = statistics.median(self.time_ms(scene.run_sim_step, n))
-        iters = (self.newton.iterations - before) / (n + 1)
-        reset(True)
-        rerun = scene.graph_steps_rerun
-        g_ms = statistics.median(self.time_ms(scene.run_sim_step, n))
-        reset(True)
-        r_ms = statistics.median(self.time_ms(
-            lambda: scene.run_sim_steps(COLLISION_STEPS), 3))
-        rerun = scene.graph_steps_rerun - rerun
-        flags = scene.check_collision_capacity()
-        self.check(rerun == 0 and flags == 0,
-                   f"collision_10k timed steps: {rerun} graph steps run "
-                   f"again eagerly, flags {flags}")
-        self.col.update(eager_ms=e_ms, graph_ms=g_ms, iterations=iters)
-        print(f"collision_10k step, medians from the path's start: eager "
-              f"run_sim_step {e_ms:.4f} ms ({1e3 / e_ms:.2f} steps/s, "
-              f"{iters:.2f} Newton iterations a step); graph replay "
-              f"{g_ms:.4f} ms ({1e3 / g_ms:.2f} steps/s, "
-              f"{scene.max_newton_steps} iterations); run_sim_steps"
-              f"({COLLISION_STEPS}) from the graph {r_ms:.4f} ms "
-              f"({COLLISION_STEPS * 1e3 / r_ms:.2f} steps/s) [{self.card}]",
-              flush=True)
-
     # -- training (the easy-API path of config 1) ----------------------------
     @contextlib.contextmanager
     def train_log(self):
@@ -6087,31 +5185,6 @@ class Smoke:
         ex = self.train_ex
         verts, faces = ex.torus_mesh(device=device)
         return verts, faces, ex.candidates(verts, ex.CANDIDATES, seed=0)
-
-    def train_step_fn(self, pts, seed=0):
-        """``create_with_mlp``'s Adam step at full width (33 handles, 6
-        layers, 1,000 samples, batch 10) on the points ``pts``, normalized
-        to their box as ``create_with_mlp`` does, from a generator on their
-        device → (step(i) → (le, lo), the MLP)."""
-        torch, ex = self.torch, self.train_ex
-        from kaolin_tpu_torch.physics.simplicits import (
-            PhysicsPoints,
-            SimplicitsMLP,
-            training,
-        )
-
-        phys = PhysicsPoints(pts, 1e4, 0.45, 500.0, ex.torus_volume())
-        gen = torch.Generator(device=pts.device).manual_seed(seed)
-        lo, hi = pts.amin(dim=0), pts.amax(dim=0)
-        mlp = SimplicitsMLP(3, 64, ex.NUM_HANDLES, ex.LAYERS, bb_min=lo,
-                            bb_max=hi, key=gen)
-        step = training._adam_step_fn(
-            mlp, (pts - lo) / (hi - lo), phys,
-            phys.appx_vol / float(torch.prod(hi - lo)), gen,
-            num_samples=ex.NUM_SAMPLES, batch_size=ex.BATCH,
-            num_steps=ex.TRAIN_STEPS, lr_start=1e-3, lr_end=1e-3,
-            le_coeff=1e-1, lo_coeff=1e6)
-        return step, mlp
 
     def check_sign_parity(self):
         """check_sign on the torus's 100,000 candidates, card against CPU:
@@ -6416,131 +5489,6 @@ class Smoke:
                    f"{errs[0]:.2e}, {errs[1]:.2e} (tolerance {GRAD_TOL:g}); "
                    f"finite {finite}")
 
-    def phase_train_timing(self):
-        """CUDA-event medians on the card: a training step at full width
-        (steps 100 to 300 of one run, event to event), check_sign of the
-        100,000 candidates, FPS (256 of 1,000, 1,000 of 100,000), one
-        differentiable config-1 step forward and backward; and
-        ``create_with_rkpm`` on the host clock."""
-        torch, ex = self.torch, self.train_ex
-        from kaolin_tpu_torch.ops import farthest_point_sampling as fps
-        from kaolin_tpu_torch.physics.simplicits import (
-            PhysicsPoints,
-            SimplicitsObject,
-        )
-
-        self.check_precision("phase_train_timing")
-        verts, faces, cand = self.torus_candidates("cuda")
-        inside = ex.check_sign(verts[None], faces, cand[None])[0]
-        pts = cand[inside]
-        step, _ = self.train_step_fn(pts)
-        a, b = TRAIN_TIMED
-        events = []
-        for i in range(b + 1):
-            if i >= a:
-                events.append(torch.cuda.Event(enable_timing=True))
-                events[-1].record()
-            if i < b:
-                step(i)
-        torch.cuda.synchronize()
-        step_ms = statistics.median(x.elapsed_time(y) for x, y in
-                                    zip(events[:-1], events[1:]))
-        cs_ms = statistics.median(self.time_ms(
-            lambda: ex.check_sign(verts[None], faces, cand[None]), 5))
-        p1 = torch.as_tensor(self.sim_ex.config1_points()["pts"],
-                             device="cuda")
-        fps_small = statistics.median(self.time_ms(lambda: fps(p1[None],
-                                                               256), 5))
-        fps_big = statistics.median(self.time_ms(lambda: fps(cand[None],
-                                                             1000), 3))
-        phys = PhysicsPoints(p1, 1e4, 0.45, 500.0, 1.0)
-        rkpm_s = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            SimplicitsObject.create_with_rkpm(phys, RKPM_CASE["handles"],
-                                              RKPM_CASE["nodes"])
-            torch.cuda.synchronize()
-            rkpm_s.append(time.perf_counter() - t0)
-        scene = self.sim_scene("config1", "cuda", differentiable=True)
-        fn, consts = scene.build_functional_step()
-        z0 = scene.sim_z.detach().clone()
-
-        def fwd_bwd():
-            z = z0.clone().requires_grad_(True)
-            zn, _, _ = fn(consts, z, scene.sim_z_prev, scene.sim_z_dot)
-            (consts["B"] @ zn).square().sum().backward()
-
-        grad_ms = statistics.median(self.time_ms(fwd_bwd, 5))
-        self.train.update(step_ms=step_ms, check_sign_ms=cs_ms,
-                          fps_ms=(fps_small, fps_big),
-                          rkpm_s=statistics.median(rkpm_s), grad_ms=grad_ms,
-                          points=pts.shape[0])
-        print(f"training step at full width (33 handles, 6 layers, "
-              f"{ex.NUM_SAMPLES} samples, batch {ex.BATCH}, "
-              f"{pts.shape[0]} points), steps {a}-{b} of one run, median "
-              f"event to event: {step_ms:.4f} ms ({1e3 / step_ms:.1f} "
-              f"steps/s); check_sign of {ex.CANDIDATES} candidates against "
-              f"{faces.shape[0]} faces {cs_ms:.4f} ms; FPS 256 of 1,000 "
-              f"{fps_small:.4f} ms, 1,000 of 100,000 {fps_big:.4f} ms; "
-              f"create_with_rkpm (1,000 points, 33 handles, 256 nodes) "
-              f"{statistics.median(rkpm_s):.3f} s host (runs "
-              + ", ".join(f"{s:.3f}" for s in rkpm_s)
-              + f"); one differentiable config-1 step (D "
-              f"{scene.total_dofs}, 5 Newton iterations) forward and "
-              f"backward {grad_ms:.4f} ms [{self.card}]", flush=True)
-
-    def profile_train(self):
-        """One full-width training step, eager: device busy, idle share
-        and the largest ops (``profile_path``)."""
-        if "step_ms" not in self.train:
-            raise RuntimeError("phase_train_timing did not run")
-        ex = self.train_ex
-        verts, faces, cand = self.torus_candidates("cuda")
-        pts = cand[ex.check_sign(verts[None], faces, cand[None])[0]]
-        step, _ = self.train_step_fn(pts, seed=1)
-        count = iter(range(10 ** 6))
-        for _ in range(20):
-            step(next(count))
-        self.train["busy"] = self.profile_path(
-            "training step (full width, eager)", (),
-            lambda: step(next(count)))
-
-    def train_bound(self):
-        """The training step's bound: its float32 operations over 67
-        TFLOP/s, counted from the MLP's shapes. A step runs the MLP on
-        7,000 rows (1,000 sample points and their 6,000 finite-difference
-        probes), forward (2 operations a weight a row) and backward (twice
-        the forward); the LBS of the probes under the batch's transforms,
-        forward and backward, adds 3 x 2 x 12 (H - 1) x batch operations a
-        probe; the energies and Adam are elementwise (under 1%). Bytes:
-        Adam's weights and two moments read and written, the sampled
-        points and their materials read, the transforms read."""
-        ex = self.train_ex
-        if "busy" not in self.train:
-            raise RuntimeError("profile_train did not run")
-        sizes = ([3] + [64] * (ex.LAYERS + 1) + [ex.NUM_HANDLES - 1])
-        weights = sum(a * b + b for a, b in zip(sizes[:-1], sizes[1:]))
-        rows = 7 * ex.NUM_SAMPLES
-        mlp = 3 * 2 * weights * rows
-        lbs = 3 * 2 * 12 * (ex.NUM_HANDLES - 1) * ex.BATCH * 6 * \
-            ex.NUM_SAMPLES
-        ops = mlp + lbs
-        nbytes = 4 * (6 * weights + 6 * ex.NUM_SAMPLES
-                      + 12 * (ex.NUM_HANDLES - 1) * ex.BATCH)
-        t_ops = ops / FP32_OPS_S * 1e3
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        bound = max(t_ops, t_bytes)
-        busy = self.train["busy"]
-        print(f"training step bound: MLP {weights} weights x {rows} rows x "
-              f"6 = {mlp / 1e9:.4f} GFLOP, LBS {lbs / 1e9:.4f} GFLOP -> "
-              f"{t_ops:.6f} ms; {nbytes} bytes (weights and Adam moments in "
-              f"and out, sampled points, transforms) -> {t_bytes:.6f} ms; "
-              f"bound {bound:.6f} ms by "
-              f"{'operations' if t_ops >= t_bytes else 'bytes'}; device busy"
-              f" {busy:.4f} ms (share {bound / busy:.4f}); a step "
-              f"{self.train['step_ms']:.4f} ms (share "
-              f"{bound / self.train['step_ms']:.4f}) [{self.card}]")
-
     def phase_probe_path(self):
         buf = io.StringIO()
         try:
@@ -6606,17 +5554,6 @@ class Smoke:
                   "tracing again", flush=True)
         raise RuntimeError(f"{label}: no device time in {attempts} traces")
 
-    def wall_ms(self, fn, reps):
-        """Host wall ms per call of ``fn`` over ``reps`` calls, synced,
-        without the profiler."""
-        fn()
-        self.torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        self.torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps
-
     def device_ms(self, label, fn, reps=20, names=None, alone=None):
         """Device ms per call of ``fn``, warm: every kernel and copy it
         launches, or those whose names hold one of ``names``. Where the
@@ -6638,40 +5575,33 @@ class Smoke:
         return sum(us for n, us in events if names is None
                    or any(x in n for x in names)) / reps / 1e3
 
-    def profile_path(self, label, names, fn, n=PROFILE_STEPS, record=True):
-        """Device busy ms a step of ``fn``, its idle share against the host
-        wall, the kernels ``names``' device ms (helpers included) and
-        launches a step, and the largest ops. ``record`` keeps the kernels'
-        numbers as their kernel-table entries; else they are returned:
-        (busy, {kernel: device ms})."""
+    def profile_path(self, label, names, fn, n=PROFILE_STEPS):
+        """The kernels ``names``' device ms (helpers included) and launches
+        a step of ``fn``, kept as their kernel-table entries, beside the
+        step's device busy ms and its largest ops."""
         events = self.device_events(label, fn, n)
         busy = sum(us for _, us in events) / n / 1e3
-        wall = self.wall_ms(fn, n)
         print(f"{label}: {len(events) / n:.1f} device ops per step, device "
-              f"busy {busy:.4f} ms of {wall:.4f} ms host wall per step "
-              f"(idle share {1 - busy / wall:.3f}) [{self.card}]")
-        kernel_ms = {}
+              f"busy {busy:.4f} ms per step [{self.card}]")
         for k in names:
             main, *helpers = DEVICE_NAMES[k]
             mine = [us for name, us in events if main in name]
             extra = [us for name, us in events
                      if any(h in name for h in helpers)]
-            kernel_ms[k] = (sum(mine) + sum(extra)) / n / 1e3
-            if record:
-                self.results[k]["device_ms"] = kernel_ms[k]
-                self.per_step[k] = len(mine) / n
+            ms = (sum(mine) + sum(extra)) / n / 1e3
+            self.results[k]["device_ms"] = ms
+            self.per_step[k] = len(mine) / n
             self.check(len(mine) > 0, f"{label} profile holds {k}")
-            print(f"  {k}: {kernel_ms[k]:.4f} device ms "
+            print(f"  {k}: {ms:.4f} device ms "
                   f"({sum(extra) / n / 1e3:.4f} of it in "
                   f"{len(extra) / n:g} helper launches), "
                   f"{len(mine) / n:g} launches per step, "
-                  f"{100 * kernel_ms[k] / busy:.1f}% of busy")
+                  f"{100 * ms / busy:.1f}% of busy")
         top = {}
         for name, us in events:
             top[name] = top.get(name, 0.0) + us / n / 1e3
         for name, ms in sorted(top.items(), key=lambda x: -x[1])[:8]:
             print(f"    {ms:.4f} ms  {name[:160]}")
-        return busy if record else (busy, kernel_ms)
 
     def phase_profile(self):
         torch = self.torch
@@ -6685,26 +5615,6 @@ class Smoke:
                           lambda: self.sr.raster_first_hit(
                               rspc, cam, tile_px=tile_px, s_max=s_max,
                               c_cap=c_cap))
-        self.check_precision("phase_profile")
-        self.profile_newton()
-        eager = self.sim_scene("config1", "cuda")
-        self.sim["eager_busy"] = self.profile_path(
-            "config-1 sim step, eager", (), eager.run_sim_step)
-        graph = self.sim_scene("config1", "cuda", use_cuda_graphs=True)
-        try:
-            busy = self.profile_path(
-                "config-1 sim step, graph replay", (), graph.run_sim_step)
-        except RuntimeError as err:    # the profiler may not see graphs
-            print(f"graph replay profile: {err}; device time not measured")
-        else:
-            self.check(graph.graph_steps_rerun == 0,
-                       f"profiled graph steps: {graph.graph_steps_rerun} "
-                       f"run again eagerly")
-            if graph.graph_steps_rerun == 0:
-                self.sim["graph_busy"] = busy
-        self.profile_collision()
-        self.profile_train()
-        self.profile_flexi()
         for k in (*DIBR_KERNELS, "spc_raster"):
             self.results[k]["library_ms"] = None
         b = self.spc_bins(rspc, cam, (tile_px, s_max, c_cap))
@@ -6856,45 +5766,6 @@ class Smoke:
                   f"device ms [{self.card}]", flush=True)
         return out
 
-    def profile_collision(self):
-        """collision_10k from the path's start: an eager step and a graph
-        replay (device busy, idle share, the largest ops), and detection
-        alone at that state, its share of each."""
-        torch = self.torch
-        if "scene" not in self.col:
-            raise RuntimeError("phase_collision_path did not run")
-        scene, start = self.col["scene"], self.col["start"]
-        busy = {}
-        for label, graphs in (("eager", False), ("graph replay", True)):
-            scene.sim_z, scene.sim_z_prev, scene.sim_z_dot = (
-                x.clone() for x in start)
-            scene.use_cuda_graphs = graphs
-            rerun = scene.graph_steps_rerun
-            busy[label] = self.profile_path(f"collision_10k step, {label}",
-                                            (), scene.run_sim_step,
-                                            n=COLLISION_PROFILE_STEPS)
-            self.check(scene.graph_steps_rerun == rerun,
-                       f"profiled collision_10k {label} steps: "
-                       f"{scene.graph_steps_rerun - rerun} run again eagerly")
-        scene.sim_z, scene.sim_z_prev, scene.sim_z_dot = (
-            x.clone() for x in start)
-        col = scene.force_dict["collision"]["object"]
-        w = scene.build_functional_step()[1]["col_w"]
-        with torch.no_grad():
-            dx = (scene.sim_B @ scene.sim_z).reshape(-1, 3)
-        det = self.device_ms("collision_10k detection", lambda: (
-            col.detect_collisions(dx, scene.sim_pts, scene.qp_to_object_map,
-                                  scene.qp_is_kinematic, weights=w,
-                                  return_diag=True)))
-        self.col.update(eager_busy=busy["eager"],
-                        graph_busy=busy["graph replay"], detection_ms=det)
-        print(f"collision_10k detection alone (grid, from the start state): "
-              f"{fmt_ms(det)} device ms, "
-              f"{fmt_ms(det and det / busy['eager'], '.3f')} of an eager "
-              f"step's busy time, "
-              f"{fmt_ms(det and det / busy['graph replay'], '.3f')} of a "
-              f"replay's [{self.card}]", flush=True)
-
     # -- bounds ------------------------------------------------------------
     def set_bound(self, name, nbytes, ops, what):
         t_bytes = nbytes / HBM_BYTES_S * 1e3
@@ -6928,128 +5799,6 @@ class Smoke:
             return (rows.sum(dim=1) * cols.sum(dim=1)).long()
         # exact in float32: every partial count is below 2^24
         return ((rows @ where.float()) * cols).sum(dim=1).long()
-
-    def sim_bound(self):
-        """The config-1 sim step's bound: its float32 operations over 67
-        TFLOP/s (the step's bytes, B, dF/dz and BMB read once, take far
-        less). Counted per Newton iteration from the scene's sizes, the
-        dense products and factorizations only (the elementwise material
-        terms add under 1%): the gradient's four products with B and dF/dz
-        and BMB·δ; the Hessian's dx and F, its batched (3x3 and 9x9) block
-        products and its two (D, ·) x (·, D) reductions; Cholesky (D³/3)
-        and LU (2D³/3) with their solves; the line search's QR turns and
-        its K = 2m + 2 energies (a product with B and dF/dz each, and the
-        kinetic term)."""
-        r = self.sim
-        if "dofs" not in r:
-            raise RuntimeError("phase_sim_timing did not run")
-        d, n, m = r["dofs"], r["points"], r["ls"]
-        grad, hess, solve, search = dense_step_ops(d, n, m)
-        per_iter = grad + hess + solve + search
-        nbytes = 4 * (12 * n * d + d * d)
-        for label, iters, ms in (
-                ("graph (fixed trip)", r["newton"], r.get("graph_busy")),
-                ("eager (stops early)", r["iterations"], r.get("eager_busy"))):
-            ops = per_iter * iters
-            t_ops = ops / FP32_OPS_S * 1e3
-            t_bytes = nbytes / HBM_BYTES_S * 1e3
-            bound = max(t_ops, t_bytes)
-            busy = "not measured" if ms is None else \
-                f"{ms:.4f} ms, share {bound / ms:.4f}"
-            print(f"config-1 sim step, {label}: {iters:g} Newton iterations"
-                  f" x {per_iter / 1e9:.4f} GFLOP ({grad / 1e6:.1f} M "
-                  f"gradient, {hess / 1e6:.1f} M Hessian, {solve / 1e6:.1f} M"
-                  f" solves, {search / 1e6:.1f} M line search) = "
-                  f"{ops / 1e9:.4f} GFLOP -> {t_ops:.6f} ms; {nbytes} bytes "
-                  f"-> {t_bytes:.6f} ms; bound {bound:.6f} ms by "
-                  f"{'operations' if t_ops >= t_bytes else 'bytes'}; device "
-                  f"busy {busy} [{self.card}]")
-
-    def grid_tests(self, scene):
-        """The pairs the grid's narrow phase needs at the scene's state: in
-        each occupied cell its pairs, and its points against those of its 13
-        half-stencil neighbours (the capacities' padding not counted)."""
-        col = scene.force_dict["collision"]["object"]
-        if col.grid_dims is None:
-            return scene.total_qp * (scene.total_qp - 1) // 2
-        with self.torch.no_grad():
-            cur = (scene.sim_pts + (scene.sim_B @ scene.sim_z).reshape(-1, 3)
-                   ).cpu().numpy()
-        dims = np.asarray(col.grid_dims)
-        cell = np.clip(((cur - col.grid_origin) / np.float32(col.grid_cell)
-                        ).astype(np.int64), 0, dims - 1)
-        counts = {}
-        for c in map(tuple, cell):
-            counts[c] = counts.get(c, 0) + 1
-        tests = 0
-        offsets = ((0, 0, 1), (0, 1, -1), (0, 1, 0), (0, 1, 1),
-                   (1, -1, -1), (1, -1, 0), (1, -1, 1), (1, 0, -1),
-                   (1, 0, 0), (1, 0, 1), (1, 1, -1), (1, 1, 0), (1, 1, 1))
-        for (x, y, z), n in counts.items():
-            tests += n * (n - 1) // 2
-            for ox, oy, oz in offsets:
-                tests += n * counts.get((x + ox, y + oy, z + oz), 0)
-        return tests
-
-    def collision_bound(self):
-        """collision_10k's step bound: the dense products counted as config
-        1's are (``sim_bound``), object by object where the operators are
-        block-diagonal (the work the step needs, not the zeros the dense
-        scene matrices hold), over 67 TFLOP/s; plus the contact terms at
-        this run's contact count C: per Newton iteration the offsets of the
-        gradient, Hessian, bounds and the line search's K energies (2 sides
-        x 2·3·4H·C each), the pullback (2·4H·3·C), the reduced Hessian's
-        nine (4H, C) x (C, 4H) products (9·2·(4H)²·C) and ~200 elementwise
-        operations a contact; once a step the narrow phase's tests (19
-        operations a pair: two squared distances, the compares) and the
-        compaction. Bytes: B and dF/dz blocks, BMB and the contact factors
-        read once."""
-        c = self.col
-        if "iterations" not in c or "pairs" not in c:
-            raise RuntimeError("the collision_10k phases did not run")
-        scene = c["scene"]
-        objs = list(scene.sim_obj_dict.values())
-        d = scene.total_dofs
-        d_dyn = len(scene.dyn_idx)
-        nd = sum(o.num_qp * 12 * o.num_handles for o in objs)
-        nd2 = sum(o.num_qp * (12 * o.num_handles) ** 2 for o in objs)
-        m = scene.max_ls_steps
-        k = 2 * m + 2
-        grad = 4 * 2 * 12 * nd + 2 * d * d
-        hess = 2 * 2 * 12 * nd + 2 * nd * (9 + 81) + 2 * 12 * nd2 \
-            + 3 * d * d
-        solve = d_dyn ** 3 / 3 + 2 * d_dyn ** 3 / 3 + 4 * 2 * d_dyn ** 2
-        search = 2 * d * d + 2 * (k - 1) * d * d + k * (2 * 12 * nd
-                                                       + 2 * d * d)
-        h4 = d // 3
-        cc = c["pairs"]
-        offsets = (3 + k) * 2 * 2 * 3 * h4 * cc
-        contact = offsets + 2 * h4 * 3 * cc + 9 * 2 * h4 * h4 * cc \
-            + (200 + 9 * h4) * cc
-        per_iter = grad + hess + solve + search + contact
-        tests = self.grid_tests(scene)
-        detect = tests * 19 + 16 * scene.total_qp
-        nbytes = 4 * (12 * nd + d * d) + 4 * 2 * h4 * cc
-        for label, iters, ms in (
-                ("graph (fixed trip)", scene.max_newton_steps,
-                 c.get("graph_busy")),
-                ("eager (stops early)", c["iterations"], c.get("eager_busy"))):
-            ops = per_iter * iters + detect
-            t_ops = ops / FP32_OPS_S * 1e3
-            t_bytes = nbytes / HBM_BYTES_S * 1e3
-            bound = max(t_ops, t_bytes)
-            busy = "not measured" if ms is None else \
-                f"{ms:.4f} ms, share {bound / ms:.4f}"
-            print(f"collision_10k step, {label}: {iters:g} Newton iterations"
-                  f" x {per_iter / 1e9:.4f} GFLOP ({grad / 1e6:.1f} M "
-                  f"gradient, {hess / 1e6:.1f} M Hessian, {solve / 1e6:.1f} M"
-                  f" solves, {search / 1e6:.1f} M line search, "
-                  f"{contact / 1e6:.1f} M contact terms at C = {cc}) + "
-                  f"{detect / 1e6:.1f} M detection ({tests} pair tests) = "
-                  f"{ops / 1e9:.4f} GFLOP -> {t_ops:.6f} ms; {nbytes} bytes "
-                  f"-> {t_bytes:.6f} ms; bound {bound:.6f} ms by "
-                  f"{'operations' if t_ops >= t_bytes else 'bytes'}; device "
-                  f"busy {busy} [{self.card}]")
 
     def gather_bounds(self):
         """The gathers' bounds in HBM bytes (the table once, 8 bytes an
@@ -7143,9 +5892,6 @@ class Smoke:
                        f"{t_p} depths and ids read, as many written")
         self.gather_bounds()
         torch.cuda.synchronize()
-        self.sim_bound()
-        self.collision_bound()
-        self.train_bound()
 
         # the order in which to make the kernels faster: first those slower
         # than their library call, largest factor first; then by launches
@@ -7351,8 +6097,7 @@ class Smoke:
         run from the same state; the Timelapse's last checkpoint equal to
         the state it logged to the 6 significant digits the .usda keeps.
         Then the JAX tests' cube dropped onto a plane (80 steps) and a
-        sphere (60) on the card, with their asserts. Each step of the
-        rollout is timed by CUDA events (median)."""
+        sphere (60) on the card, with their asserts."""
         torch = self.torch
         import tempfile
         ex = load_example("torch_newton_coupling")
@@ -7364,20 +6109,14 @@ class Smoke:
         state = model.state()
         rest = model.simplicits_scene.sim_pts
         timelapse = ex.Timelapse(out)
-        states, times = [], []
+        states = []
         for i in range(120):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
             state = solver.step(state)
-            end.record()
             states.append(state)
             if i % 10 == 0:
                 timelapse.add_pointcloud_batch(
                     iteration=i, pointcloud_list=[state.particle_q],
                     category="soft_cube")
-            end.synchronize()
-            times.append(start.elapsed_time(end))
         q = torch.stack([s.particle_q for s in states]).cpu().numpy()
         finite = bool(np.isfinite(q).all())
         centre = np.array([0.05, -0.1, 0.0])
@@ -7410,11 +6149,6 @@ class Smoke:
         self.check(gap <= 5.2e-6, f"newton Timelapse checkpoint 110 = the "
                    f"state it logged to {gap:.2e} relative (the .usda's 6 "
                    f"significant digits, read back in float32: <= 5.2e-6)")
-        step_ms = statistics.median(times)
-        self.newton_ms = step_ms
-        print(f"newton example step (125 particles, 8 handles, 2 shapes): "
-              f"{step_ms:.4f} ms median over 120 steps, CUDA events "
-              f"[{self.card}]", flush=True)
 
         for label, add, steps in (
                 ("plane", lambda b: b.add_ground_plane(height=-0.5), 80),
@@ -7443,19 +6177,6 @@ class Smoke:
                 what = f"nearest to the centre {d:.4f} (> 0.7)"
             self.check(bool(ok), f"newton cube onto the {label} on the card, "
                        f"{steps} steps: {what}")
-
-    def profile_newton(self):
-        """The bridge's step in ``torch.profiler`` over 10 steps: device
-        busy and idle share."""
-        ex = load_example("torch_newton_coupling")
-        model, solver = ex.build(None)
-        box = [model.state()]
-
-        def step():
-            box[0] = solver.step(box[0])
-        for _ in range(30):
-            step()
-        self.profile_path("newton example step", (), step)
 
     def parallel_mesh(self):
         """A group of world size 1 from a FileStore in a temporary
@@ -7567,28 +6288,6 @@ class Smoke:
         self.check(int((got[2] >= 0).sum()) > 0, "sharded DIB-R covers "
                    f"{int((got[2] >= 0).sum())} pixels")
 
-        def fwd(sharded):
-            with torch.no_grad():
-                if sharded:
-                    return sharded_dibr_rasterization(mesh, RES, RES, fvz,
-                                                      fvi, feats, nz)
-                return dibr_rasterization(RES, RES, fvz, fvi, feats, nz)
-
-        for label, fn in (("forward", fwd), ("forward + backward", run)):
-            for sharded in (True, False):
-                ms = statistics.median(self.time_ms(lambda: fn(sharded), 10))
-                busy, kms = self.profile_path(
-                    f"{'sharded' if sharded else 'unsharded'} DIB-R "
-                    f"{label}, 8 x 512²",
-                    DIBR_KERNELS if label != "forward" else DIBR_KERNELS[:2],
-                    lambda: fn(sharded), record=False)
-                print(f"{'sharded' if sharded else 'unsharded'} DIB-R "
-                      f"{label}, 8 views x 512², 4,992 faces: {ms:.4f} ms "
-                      f"(CUDA events, median of 10); device busy "
-                      f"{busy:.4f} ms; "
-                      + ", ".join(f"{k} {v:.4f}" for k, v in kms.items())
-                      + f" device ms [{self.card}]", flush=True)
-
     def parallel_mlp(self, mesh):
         torch = self.torch
         from kaolin_tpu_torch.parallel import sharded_mlp_train_step
@@ -7606,11 +6305,6 @@ class Smoke:
             out[dev] = sharded_mlp_train_step(
                 mesh, p, *args, torch.Generator().manual_seed(1),
                 batch_size=10)
-            if dev == "cuda":
-                ms = statistics.median(self.time_ms(
-                    lambda: sharded_mlp_train_step(
-                        mesh, p, *args, torch.Generator().manual_seed(1),
-                        batch_size=10), 10))
         (pc, lc), (ph, lh) = out["cuda"], out["cpu"]
         err = max(float((a[k].cpu() - b[k]).abs().max() / b[k].abs().max())
                   for a, b in zip(pc, ph) for k in ("w", "b"))
@@ -7620,8 +6314,6 @@ class Smoke:
                    f"points, batch 10) card vs CPU: params within {err:.2e} "
                    f"of max|p|, loss {float(lc):.6e} vs {float(lh):.6e} "
                    f"(rel {lrel:.2e})")
-        print(f"sharded MLP step: {ms:.4f} ms (CUDA events, median of 10) "
-              f"[{self.card}]", flush=True)
 
     def config1_scene(self, i, num_qp, num_handles, bucket=None):
         """A drop scene of config 1's kind on the card (``config1_points``
@@ -7649,56 +6341,14 @@ class Smoke:
                               floor_penalty=10000.0)
         return scene
 
-    def batch_steps(self, mesh, scenes, steps, label):
-        """``steps`` sharded batch steps → (z on the card, ms a step). Then
-        one batched step split in two and printed: the sharded step,
-        ``stack_scenes`` (each scene's step constants built, checked and
-        stacked) and ``batch_step``, the vmapped step alone on constants
-        stacked once, timed in turn for 5 rounds (host wall, synced,
-        medians); the vmapped step's device busy ms, and the share of it
-        in the batched LU's factorization kernels."""
-        torch = self.torch
+    def batch_steps(self, mesh, scenes, steps):
+        """``steps`` sharded batch steps from the scenes' own state → z on
+        the card."""
         from kaolin_tpu_torch.parallel import sharded_scene_batch_step
-        from kaolin_tpu_torch.parallel.simplicits import (batch_step,
-                                                          stack_scenes)
-        state = sharded_scene_batch_step(mesh, scenes)   # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         state = None
         for _ in range(steps):
             state = sharded_scene_batch_step(mesh, scenes, state=state)
-        torch.cuda.synchronize()
-        batch_ms = (time.perf_counter() - t0) * 1e3 / steps
-        step, consts, start = stack_scenes(scenes)
-        parts = {"sharded": lambda: sharded_scene_batch_step(mesh, scenes),
-                 "stack": lambda: stack_scenes(scenes),
-                 "step": lambda: batch_step(step, consts, *start)}
-        times = {k: [] for k in parts}
-        with torch.no_grad():
-            for _ in range(5):
-                for k, fn in parts.items():
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    fn()
-                    torch.cuda.synchronize()
-                    times[k].append((time.perf_counter() - t0) * 1e3)
-            events = self.device_events(f"{label}, the vmapped step alone",
-                                        parts["step"], 3)
-        ms = {k: statistics.median(v) for k, v in times.items()}
-        busy = sum(us for _, us in events) / 3 / 1e3
-        lu = [us for name, us in events
-              if any(k in name for k in ("getf2", "laswp", "pivinfo"))]
-        rest = ms["sharded"] - ms["stack"] - ms["step"]
-        print(f"{label}: a sharded batch step {ms['sharded']:.4f} ms "
-              f"= stack_scenes {ms['stack']:.4f} ms + the vmapped step "
-              f"{ms['step']:.4f} ms + {rest:.4f} ms else (host wall, "
-              f"synced, medians of 5 rounds in turn); "
-              f"the vmapped step: {len(events) / 3:.1f} device ops, busy "
-              f"{busy:.4f} ms (idle share {1 - busy / ms['step']:.3f}), "
-              f"{sum(lu) / 3 / 1e3:.4f} ms of it in {len(lu) / 3:g} "
-              f"launches of the batched LU's factorization (getf2, laswp, "
-              f"pivinfo) [{self.card}]", flush=True)
-        return state[0].to_local(), batch_ms
+        return state[0].to_local()
 
     def parallel_scenes(self, mesh):
         from kaolin_tpu_torch.parallel import make_demo_scene
@@ -7711,10 +6361,10 @@ class Smoke:
         label = ("config-1 scene batch, 8 scenes of 1,000 points and 33 "
                  f"handles (4 of 800 and 29 padded to {bucket[0]} and "
                  f"{bucket[1]}), no contact")
-        z, batch_ms = self.batch_steps(mesh, scenes, 10, label)
+        z = self.batch_steps(mesh, scenes, 10)
         self.scene_batch_report(
             label, [(s, o, z[i], nq) for i, (s, o, (nq, _)) in
-                    enumerate(zip(scenes, own, sizes))], z, 10, batch_ms)
+                    enumerate(zip(scenes, own, sizes))], z, 10)
         # the padded scenes' real points against the unpadded scenes' (the
         # bound of tests/parallel/test_heterogeneous_batch.py)
         for o in unpadded:
@@ -7732,30 +6382,24 @@ class Smoke:
         demo = [make_demo_scene(s, device="cuda") for s in range(8)]
         own_demo = [make_demo_scene(s, device="cuda") for s in range(8)]
         label = "demo batch, 8 make_demo_scene with grid contact"
-        z, batch_ms = self.batch_steps(mesh, demo, 3, label)
+        z = self.batch_steps(mesh, demo, 3)
         self.scene_batch_report(
             label, [(s, o, z[i], 32)
-                    for i, (s, o) in enumerate(zip(demo, own_demo))],
-            z, 3, batch_ms)
+                    for i, (s, o) in enumerate(zip(demo, own_demo))], z, 3)
         flags = [int(o._col_overflow) for o in own_demo]
         self.check(all(f == 0 for f in flags),
                    f"demo scenes' overflow flags after 3 steps {flags}")
 
-    def scene_batch_report(self, label, own, z, steps, batch_ms):
+    def scene_batch_report(self, label, own, z, steps):
         """Each scene's own ``run_sim_step``s against its row of the batch
         by B z of its real points (within 1e-4 of max|B z|; ``own`` holds
         (batched scene, the same scene stepped alone, its row of z, real
-        points)), the batch's step time beside the sequential steps'."""
+        points))."""
         torch = self.torch
-        seq = 0.0
         errs, phantom = [], 0.0
         for s, o, zi, n in own:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             for _ in range(steps):
                 o.run_sim_step()
-            torch.cuda.synchronize()
-            seq += (time.perf_counter() - t0) * 1e3 / steps
             got = (s.sim_B.double() @ zi.double()).reshape(-1, 3)
             want = (o.sim_B.double() @ o.sim_z.double()).reshape(-1, 3)
             errs.append(float((got[:n] - want[:n]).abs().max()
@@ -7771,9 +6415,6 @@ class Smoke:
                    f"own run_sim_step (<= 1e-4); the phantom points moved "
                    f"{phantom:.2e} of it (not 0 in either package: ROADMAP "
                    f"Queue C)")
-        print(f"{label}: {batch_ms:.4f} ms a batched step, {seq:.4f} ms "
-              f"for the {len(own)} scenes' sequential run_sim_step (host "
-              f"wall, synced) [{self.card}]", flush=True)
 
     def parallel_chamfer(self, mesh):
         torch = self.torch
@@ -7846,14 +6487,9 @@ class Smoke:
                       self.phase_device_defaults, self.phase_newton_parity,
                       self.phase_newton_path, self.phase_parallel_path,
                       self.phase_recipes,
-                      self.phase_timing, self.phase_texfit_timing,
-                      self.phase_spc_timing,
-                      self.phase_gather_timing, self.phase_sim_timing,
-                      self.phase_collision_timing, self.phase_train_timing,
-                      self.phase_flexi_timing, self.phase_gauss_timing,
-                      self.phase_render_timing, self.phase_io_timing,
-                      self.phase_usd_timing, self.phase_profile, self.phase_spcrt_timing,
-                      self.phase_bounds):
+                      self.phase_timing, self.texture_timing,
+                      self.phase_spc_timing, self.phase_gather_timing,
+                      self.phase_profile, self.phase_bounds):
             print(f"== {phase.__name__}", flush=True)
             t0 = time.perf_counter()
             try:

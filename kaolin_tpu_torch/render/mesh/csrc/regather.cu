@@ -36,8 +36,7 @@
 //   --fmad=false), the interpolation taken as (w0·f0 + w1·f1) + w2·f2, so
 //   the output is the plain version's, bit for bit. D is a loop bound: any
 //   number of channels.
-// * regather_zero_kernel: the gradients' zero-fill, and the pixel counters'
-//   zeroing at a session's first launch.
+// * regather_zero_kernel: the gradients' zero-fill.
 // * regather_bwd_kernel, the same tiles and threads:
 //   - A missed pixel adds nothing: the plain version's where() gives its
 //     cotangent as exactly 0.
@@ -57,8 +56,6 @@
 //     its 3D feature gradients w_k·g, one RED each.
 //   - The adds come in no fixed order, so the gradients repeat only to
 //     rounding from launch to launch: float32 sums in any order.
-// * Given the two int64 pixel counters (cuda_regather.PIXELS), each block
-//   of the backward adds the pixels it takes and those that added.
 
 #include <cuda_runtime.h>
 
@@ -157,22 +154,16 @@ __device__ __forceinline__ void zero_floats(float* __restrict__ g,
 
 __global__ void __launch_bounds__(kZeroThreads)
     regather_zero_kernel(float* __restrict__ gscaled, long long n_scaled,
-                         float* __restrict__ gfeats, long long n_feats,
-                         unsigned long long* __restrict__ counters,
-                         int reset) {
+                         float* __restrict__ gfeats, long long n_feats) {
   const long long first =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (first == 0 && reset && counters != nullptr) {
-    counters[0] = 0ull;
-    counters[1] = 0ull;
-  }
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   zero_floats(gscaled, n_scaled, first, step);
   zero_floats(gfeats, n_feats, first, step);
 }
 
 // gout (B, H, W, D); gscaled (B, F, 3, 2) or null; gfeats (B, F, 3, D) or
-// null; counters: the two pixel counters or null.
+// null.
 __global__ void __launch_bounds__(kThreads)
     regather_bwd_kernel(const int* __restrict__ face_idx,
                         const float* __restrict__ scaled,
@@ -181,8 +172,7 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ gout,
                         float* __restrict__ gscaled,
                         float* __restrict__ gfeats, int F, int H, int W,
-                        int D, float sx, float sy, float eps,
-                        unsigned long long* __restrict__ counters) {
+                        int D, float sx, float sy, float eps) {
   const int col = tile_col();
   const int row = tile_row();
   const bool in = col < W && row < H;
@@ -193,14 +183,6 @@ __global__ void __launch_bounds__(kThreads)
   bool live = false;
   if (f >= 0) {
     for (int c = 0; c < D; ++c) live |= __ldg(g + c) != 0.0f;  // NaN: live
-  }
-  if (counters != nullptr) {   // null or not for the whole grid
-    const int taken = __syncthreads_count(in);
-    const int added = __syncthreads_count(live);
-    if (threadIdx.x == 0) {
-      atomicAdd(counters, static_cast<unsigned long long>(taken));
-      atomicAdd(counters + 1, static_cast<unsigned long long>(added));
-    }
   }
   const unsigned live_lanes = __ballot_sync(kFullWarp, live);
   if (!live) return;
@@ -281,29 +263,26 @@ extern "C" int kaolin_regather_fwd(const void* face_idx, const void* scaled,
 }
 
 // gout: (B, H, W, D); gscaled: (B, F, 3, 2) or null; gfeats: (B, F, 3, D)
-// or null; counters: the two pixel counters or null, zeroed first where
-// reset is set. The zero-fill launches where there is a gradient or
-// counters to zero.
+// or null. The zero-fill launches where there is a gradient to zero.
 extern "C" int kaolin_regather_bwd(const void* face_idx, const void* scaled,
                                    const void* feats, long long feat_bstride,
                                    const void* gout, void* gscaled,
                                    void* gfeats, int B, int F, int H, int W,
                                    int D, float sx, float sy, float eps,
-                                   void* counters, int reset, void* stream) {
+                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned long long* c = static_cast<unsigned long long*>(counters);
   float* gs = static_cast<float*>(gscaled);
   float* gf = static_cast<float*>(gfeats);
   const long long faces = static_cast<long long>(B) * F;
   const long long n_scaled = gs == nullptr ? 0 : faces * 6;
   const long long n_feats = gf == nullptr ? 0 : faces * 3 * D;
-  if (n_scaled + n_feats > 0 || (reset && c != nullptr)) {
+  if (n_scaled + n_feats > 0) {
     const long long quads = (std::max(n_scaled, n_feats) + 3) / 4;
     const int blocks = static_cast<int>(std::max(
         1ll, std::min<long long>((quads + kZeroThreads - 1) / kZeroThreads,
                                  kZeroBlocks)));
     regather_zero_kernel<<<blocks, kZeroThreads, 0, st>>>(
-        gs, n_scaled, gf, n_feats, c, reset);
+        gs, n_scaled, gf, n_feats);
   }
   if (static_cast<long long>(B) * H * W == 0) {
     return static_cast<int>(cudaGetLastError());
@@ -311,6 +290,6 @@ extern "C" int kaolin_regather_bwd(const void* face_idx, const void* scaled,
   regather_bwd_kernel<<<tile_grid(B, H, W), kThreads, 0, st>>>(
       static_cast<const int*>(face_idx), static_cast<const float*>(scaled),
       static_cast<const float*>(feats), feat_bstride,
-      static_cast<const float*>(gout), gs, gf, F, H, W, D, sx, sy, eps, c);
+      static_cast<const float*>(gout), gs, gf, F, H, W, D, sx, sy, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,8 +32,7 @@
 //   v10·(1−tx)·ty + v11·tx·ty taken left to right, so the samples are the
 //   plain version's bits. The texture is read through L2 (0.8 and 12.6 MB
 //   at the fit's sizes, inside its 50 MB).
-// * texture_zero_kernel: the texture gradient's zero-fill, and the pixel
-//   counters' zeroing at a session's first launch.
+// * texture_zero_kernel: the texture gradient's zero-fill.
 // * texture_bwd_kernel, one thread a (view, pixel):
 //   - A pixel whose output gradient is exactly 0 in every channel adds
 //     nothing to the texture and writes a UV gradient of +0. For finite UVs
@@ -57,9 +56,6 @@
 //     only to rounding from launch to launch. A texel-sorted order would
 //     repeat bit for bit, at the cost of a sort's launches in a loop whose
 //     host sets the pace.
-// * Given the two int64 pixel counters (cuda_texture.PIXELS), each block of
-//   the backward adds the pixels it takes and those that added to the
-//   texture.
 
 #include <cuda_runtime.h>
 
@@ -152,15 +148,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 __global__ void __launch_bounds__(kThreads)
-    texture_zero_kernel(float* __restrict__ g, long long n,
-                        unsigned long long* __restrict__ counters,
-                        int reset) {
+    texture_zero_kernel(float* __restrict__ g, long long n) {
   const long long first =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (first == 0 && reset && counters != nullptr) {
-    counters[0] = 0ull;
-    counters[1] = 0ull;
-  }
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   float4* g4 = reinterpret_cast<float4*>(g);   // the allocator's alignment
   for (long long i = first; i < n / 4; i += step) {
@@ -170,8 +160,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // guv: (B, N, 2) or null; gtex: the texture's gradient or null, its views
-// gtex_bstride apart (0: one gradient all views share); counters: the two
-// pixel counters or null.
+// gtex_bstride apart (0: one gradient all views share).
 template <bool kBilinear>
 __global__ void __launch_bounds__(kThreads)
     texture_bwd_kernel(const float* __restrict__ uv, int uv_stride,
@@ -179,8 +168,7 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ gout,
                        float* __restrict__ guv, float* __restrict__ gtex,
                        long long gtex_bstride, int N, long long total, int C,
-                       int H, int W,
-                       unsigned long long* __restrict__ counters) {
+                       int H, int W) {
   const long long p =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool in = p < total;
@@ -188,14 +176,6 @@ __global__ void __launch_bounds__(kThreads)
   bool live = false;
   if (in) {
     for (int c = 0; c < C; ++c) live |= g[c] != 0.0f;   // a NaN is live
-  }
-  if (counters != nullptr) {   // null or not for the whole grid
-    const int taken = __syncthreads_count(in);
-    const int added = __syncthreads_count(live);
-    if (threadIdx.x == 0) {
-      atomicAdd(counters, static_cast<unsigned long long>(taken));
-      atomicAdd(counters + 1, static_cast<unsigned long long>(added));
-    }
   }
   float2* guv2 = reinterpret_cast<float2*>(guv);
   if (in && !live && guv != nullptr) guv2[p] = make_float2(0.0f, 0.0f);
@@ -277,25 +257,22 @@ extern "C" int kaolin_texture_fwd(const void* uv, int uv_stride,
 }
 
 // gout: (B, N, C); guv: (B, N, 2) or null; gtex: gtex_numel floats or
-// null, its views gtex_bstride apart (0: one gradient); counters: the two
-// pixel counters or null, zeroed first where reset is set. The zero-fill
-// launches where there is a texture gradient or counters to zero.
+// null, its views gtex_bstride apart (0: one gradient). The zero-fill
+// launches where there is a texture gradient to zero.
 extern "C" int kaolin_texture_bwd(const void* uv, int uv_stride,
                                   const void* tex, long long tex_bstride,
                                   const void* gout, void* guv, void* gtex,
                                   long long gtex_bstride,
                                   long long gtex_numel, int B, int N, int C,
-                                  int H, int W, int bilinear, void* counters,
-                                  int reset, void* stream) {
+                                  int H, int W, int bilinear, void* stream) {
   const long long total = static_cast<long long>(B) * N;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned long long* c = static_cast<unsigned long long*>(counters);
   float* gt = static_cast<float*>(gtex);
   const long long n = gt == nullptr ? 0 : gtex_numel;
-  if (n > 0 || (reset && c != nullptr)) {
+  if (n > 0) {
     const int blocks = static_cast<int>(
         std::max(1ll, std::min<long long>(blocks_for(n / 4), kZeroBlocks)));
-    texture_zero_kernel<<<blocks, kThreads, 0, st>>>(gt, n, c, reset);
+    texture_zero_kernel<<<blocks, kThreads, 0, st>>>(gt, n);
   }
   if (total == 0) return static_cast<int>(cudaGetLastError());
   const float* u = static_cast<const float*>(uv);
@@ -305,11 +282,11 @@ extern "C" int kaolin_texture_bwd(const void* uv, int uv_stride,
   if (bilinear) {
     texture_bwd_kernel<true><<<blocks_for(total), kThreads, 0, st>>>(
         u, uv_stride, t, tex_bstride, g, gu, gt, gtex_bstride, N, total, C,
-        H, W, c);
+        H, W);
   } else {
     texture_bwd_kernel<false><<<blocks_for(total), kThreads, 0, st>>>(
         u, uv_stride, t, tex_bstride, g, gu, gt, gtex_bstride, N, total, C,
-        H, W, c);
+        H, W);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,8 +16,7 @@ change no sum. The live pixels of a warp that share a face sum their
 coordinate gradients before one add; the adds come in no fixed order.
 
 Counters (:mod:`kaolin_tpu_torch.utils.profiling`): the launches of each
-(``FWD_LAUNCHES``, ``BWD_LAUNCHES``), and while the profiler runs the
-pixels the backward takes and those that added (``PIXELS``).
+(``FWD_LAUNCHES``, ``BWD_LAUNCHES``).
 """
 
 import ctypes
@@ -32,13 +31,9 @@ _F = ctypes.c_float
 _FWD_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_F] * 3 \
     + [_P]
 _BWD_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, _P, _P, _P] + [_I] * 5 \
-    + [_F] * 3 + [_P, _I, _P]
+    + [_F] * 3 + [_P]
 FWD_LAUNCHES = "render.mesh.regather_fwd.launches"
 BWD_LAUNCHES = "render.mesh.regather_bwd.launches"
-# the backward's device counters: the pixels it takes, and those that hit
-# and whose output gradient is not 0 in every channel, which add
-PIXELS = ("render.mesh.regather_bwd.pixels",
-          "render.mesh.regather_bwd.pixels_added")
 for _name in (FWD_LAUNCHES, BWD_LAUNCHES):
     profiling.count(_name, 0)
 
@@ -122,7 +117,6 @@ def regather_bwd_cuda(face_idx, scaled, features, grad_out, multiplier, eps,
                    if need_scaled else None)
     grad_feats = (torch.empty((b, f, 3, d), dtype=torch.float32, device=dev)
                   if need_features else None)
-    counters, reset = profiling.device_counters(PIXELS, dev)
     fn = cuda_build.function("kaolin_regather_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(cuda_build.ptr(face_idx), cuda_build.ptr(scaled),
@@ -133,7 +127,7 @@ def regather_bwd_cuda(face_idx, scaled, features, grad_out, multiplier, eps,
                     None if grad_feats is None
                     else cuda_build.ptr(grad_feats),
                     b, f, height, width, d, *_scales(face_idx, multiplier),
-                    eps, counters, int(reset), cuda_build.stream(scaled))
+                    eps, cuda_build.stream(scaled))
     cuda_build.check(status, "kaolin_regather_bwd")
     profiling.count(BWD_LAUNCHES)
     return grad_scaled, grad_feats

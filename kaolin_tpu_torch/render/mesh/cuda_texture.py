@@ -16,9 +16,7 @@ exactly 0 in every channel adds nothing and gets a UV gradient of 0: for
 finite UVs and texture its adds would all be ±0, which change no sum.
 
 Counters (:mod:`kaolin_tpu_torch.utils.profiling`): the launches of each
-(``FWD_LAUNCHES``, ``BWD_LAUNCHES``), and while the profiler runs the
-pixels the backward takes and those that added to the texture
-(``PIXELS``).
+(``FWD_LAUNCHES``, ``BWD_LAUNCHES``).
 """
 
 import ctypes
@@ -31,15 +29,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _FWD_ARGTYPES = [_P, _I, _P, _L, _P] + [_I] * 6 + [_P]
-_BWD_ARGTYPES = [_P, _I, _P, _L, _P, _P, _P, _L, _L] + [_I] * 6 \
-    + [_P, _I, _P]
+_BWD_ARGTYPES = [_P, _I, _P, _L, _P, _P, _P, _L, _L] + [_I] * 6 + [_P]
 MODES = ("bilinear", "nearest")
 FWD_LAUNCHES = "render.mesh.texture_fwd.launches"
 BWD_LAUNCHES = "render.mesh.texture_bwd.launches"
-# the backward's device counters: the pixels it takes, and those whose
-# output gradient is not 0 in every channel, which add to the texture
-PIXELS = ("render.mesh.texture_bwd.pixels",
-          "render.mesh.texture_bwd.pixels_added")
 for _name in (FWD_LAUNCHES, BWD_LAUNCHES):
     profiling.count(_name, 0)
 
@@ -131,7 +124,6 @@ def texture_bwd_cuda(uv, texture, grad_out, mode, need_uv=True,
                if need_uv and bilinear else None)
     grad_tex = (torch.empty((bt, c, h, w), dtype=torch.float32,
                             device=uv.device) if need_texture else None)
-    counters, reset = profiling.device_counters(PIXELS, uv.device)
     fn = cuda_build.function("kaolin_texture_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(uv.device):
         status = fn(cuda_build.ptr(uv), uv_stride, cuda_build.ptr(texture),
@@ -139,8 +131,7 @@ def texture_bwd_cuda(uv, texture, grad_out, mode, need_uv=True,
                     None if grad_uv is None else cuda_build.ptr(grad_uv),
                     None if grad_tex is None else cuda_build.ptr(grad_tex),
                     c * h * w if bt > 1 else 0, bt * c * h * w, b, n, c, h,
-                    w, int(bilinear), counters, int(reset),
-                    cuda_build.stream(uv))
+                    w, int(bilinear), cuda_build.stream(uv))
     cuda_build.check(status, "kaolin_texture_bwd")
     profiling.count(BWD_LAUNCHES)
     return grad_uv, grad_tex

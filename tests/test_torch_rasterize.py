@@ -476,12 +476,10 @@ def test_regather_kernel_checks_raise(case, direction):
 def test_regather_launch_counters_listed():
     """Both launch counters are in the registry from the wrapper's import,
     at 0 where no card ran them, also after a CPU rasterization and its
-    backward (the plain version); the backward's two pixel counters are
-    device counters, listed only while the profiler runs."""
+    backward (the plain version)."""
     got = profiling.counters()
     assert got[cuda_regather.FWD_LAUNCHES] == 0
     assert got[cuda_regather.BWD_LAUNCHES] == 0
-    assert not set(cuda_regather.PIXELS) & set(got)
     t = from_numpy_tree(random_scene(1, 1, 20), "cpu")
     fvi = t["fvi"].requires_grad_(True)
     img, _ = rasterize(16, 24, t["fvz"], fvi, t["feats"],

@@ -153,12 +153,11 @@ def test_texture_kernel_checks_raise(case, direction):
 
 def test_texture_kernel_launch_counters_listed():
     """Both launch counters are in the registry from the wrapper's import,
-    at 0 where no card ran them; the backward's two pixel counters are
-    device counters, listed only while the profiler runs."""
+    at 0 where no card ran them, also after a CPU call and its backward
+    (the plain version)."""
     got = profiling.counters()
     assert got[cuda_texture.FWD_LAUNCHES] == 0
     assert got[cuda_texture.BWD_LAUNCHES] == 0
-    assert not set(cuda_texture.PIXELS) & set(got)
     tutils.texture_mapping(torch.rand(2, 4, 2, requires_grad=True),
                            torch.rand(2, 3, 4, 4), "bilinear").sum().backward()
     got = profiling.counters()

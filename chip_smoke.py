@@ -237,11 +237,17 @@ peak rates and #1-3's names in a trace are read from the benchmark's
 8. the probe path: ``primitives_bench.main([])`` at its full sizes, counters
    set to 0 before and read after; every probe printed its line, both
    gather routes launched, and ``correct`` is true; then config 1's 150
-   steps eager (Newton stops early) and from a CUDA graph (fixed trip),
-   counters set to 0 before and read after (the path has no kernel): the
-   mean height falls and stays above the floor, nothing is NaN, no graph
-   step runs again eagerly, and the two end within 1e-4 of max|z|; a scene
-   with a kinematic object, moved mid-run, graph against eager; a graph
+   steps eager (Newton stops early) and from the CUDA graphs (Newton's
+   iterations replayed until the device's flag says converged), counters
+   set to 0 before and read after (the path has no kernel): the mean
+   height falls and stays above the floor, nothing is NaN, no graph step
+   runs again eagerly, and the two end within 1e-4 of max|z|; a scene
+   with a kinematic object, moved mid-run, graph against eager; the cell
+   ``simdrop.e50``'s scene (the benchmark's configuration at one seed) over
+   one 50-frame episode, a reset and 10 frames, from the graphs against a
+   graph of Newton's fixed trip (the design before, captured in the
+   phase): z, z_prev and z_dot bit for bit every frame, the iterations a
+   frame and the reruns printed; a graph
    captured after earlier graphs were freed and replayed after their
    memory was filled with NaN (fault F14), held against eager from the
    same start; then ``collision_10k`` at full size (10,712 contact
@@ -336,6 +342,11 @@ SIM_PARITY_STEPS = {"graft": 10, "config1": 3}
 SIM_Z_TOL = 1e-4
 # fault F14's check: single steps of a graph replayed over NaN-filled memory
 SIM_FILL_STEPS = 31
+# the graphs of Newton's iterations until converged against a fixed-trip
+# graph: the cell simdrop.e50's scene from this seed, its episode and these
+# frames after a reset
+SIM_SEGMENT_SEED = 2147484207
+SIM_SEGMENT_EXTRA = 10
 # contact: three seeded scenes of 3 x 400 points for the broad phases; the
 # example's stack at 2 x 300 points over a 10 x 10 plate (5 states) and
 # make_demo_scene's scene (10 steps a broad phase, 5 for the sweep) for the
@@ -4670,8 +4681,10 @@ class Smoke:
 
     def phase_sim_path(self):
         """Config 1 in full: 150 steps eager (Newton stops early) and from
-        the CUDA graph (fixed trip), mean height read every 30 steps; then
-        a scene with a kinematic object, graph against eager."""
+        the CUDA graphs (the same iterations), mean height read every 30
+        steps; then a scene with a kinematic object, graph against eager;
+        the cell's scene, the graphs against a fixed-trip graph; fault
+        F14's check."""
         torch, ex = self.torch, self.sim_ex
         self.check_precision("phase_sim_path")
         runs = {}
@@ -4717,7 +4730,85 @@ class Smoke:
                    f"bit {same}")
         del runs, za, zb   # F14's graph is captured after these are freed
         self.check_kinematic_graph()
+        self.check_segmented_graph()
         self.check_graph_after_fill()
+
+    def fixed_trip_graph(self, scene):
+        """One CUDA graph of the scene's step with Newton's fixed trip, the
+        design the scene replayed before its graphs ran the early-exit
+        loop's iterations: static z, z_prev and z_dot, Cholesky solves
+        only, a failure ORed into ``failed`` → (graph, state, failed, keep),
+        the state the scene's."""
+        torch = self.torch
+        step, consts = scene.build_functional_step(fixed_trip=True)
+        live = (scene.sim_z, scene.sim_z_prev, scene.sim_z_dot)
+        state = [b.clone() for b in live]
+        failed = torch.zeros((), dtype=torch.bool, device="cuda")
+
+        def advance():
+            with torch.no_grad(), self.opt.cholesky_only(failed):
+                failed.zero_()
+                z, z_prev, z_dot = state
+                z1, _, zd1 = step(consts, z, z_prev, z_dot)
+                z_prev.copy_(z)
+                z_dot.copy_(zd1)
+                z.copy_(z1)
+
+        graph, = scene._record_graphs([advance])
+        for buf, value in zip(state, live):
+            buf.copy_(value)
+        return graph, state, failed, (step, consts)
+
+    def check_segmented_graph(self):
+        """The cell ``simdrop.e50``'s scene (its configuration and traffic,
+        from SIM_SEGMENT_SEED) stepped by the scene's graphs and by a
+        fixed-trip graph (:meth:`fixed_trip_graph`) over one episode, a
+        reset and SIM_SEGMENT_EXTRA frames: z, z_prev and z_dot bit for bit
+        after every frame, no step run again, no fixed-trip Cholesky failed;
+        the iterations the graphs ran a frame printed."""
+        torch = self.torch
+        from portbench import harness
+        from portbench.fits import simplicits as fit
+
+        from kaolin_tpu_torch.physics.simplicits import simulation
+
+        _, _, cfg, mix = harness.cell(harness.benchmark(), "simdrop.e50")
+        inputs = fit.make_inputs(cfg, mix, SIM_SEGMENT_SEED, "cuda")
+        scene = fit.build(cfg, inputs, "cuda")["scene"]
+        graph, state, failed, keep = self.fixed_trip_graph(scene)
+        episode = inputs["episode_frames"]
+        iterations, differ, fixed_failed = [], [], 0
+        for frame in range(episode + SIM_SEGMENT_EXTRA):
+            if frame == episode:
+                scene.reset_scene()
+                for buf, value in zip(state, (scene.sim_z, scene.sim_z_prev,
+                                              scene.sim_z_dot)):
+                    buf.copy_(value)
+            before = self.profiling.counters()[simulation.NEWTON_ITERATIONS]
+            scene.run_sim_step()
+            iterations.append(self.profiling.counters()[
+                simulation.NEWTON_ITERATIONS] - before)
+            graph.replay()
+            fixed_failed += bool(failed)
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip((scene.sim_z, scene.sim_z_prev,
+                                        scene.sim_z_dot), state)):
+                differ.append(frame)
+        del keep
+        mean = sum(iterations) / len(iterations)
+        self.check(not differ and scene.graph_steps_rerun == 0
+                   and fixed_failed == 0 and min(iterations) >= 2
+                   and max(iterations) <= cfg["max_newton_steps"],
+                   f"simdrop.e50's scene (seed {SIM_SEGMENT_SEED}), "
+                   f"{len(iterations)} frames ({episode}, a reset, "
+                   f"{SIM_SEGMENT_EXTRA}) from the graphs against a "
+                   f"fixed-trip graph: frames whose z, z_prev or z_dot "
+                   f"differ {differ}; Newton iterations a frame min "
+                   f"{min(iterations)}, mean {mean:.3f}, max "
+                   f"{max(iterations)} of {cfg['max_newton_steps']} "
+                   f"({iterations}); {scene.graph_steps_rerun} steps run "
+                   f"again eagerly, {fixed_failed} fixed-trip Choleskys "
+                   f"failed [{self.card}]")
 
     def check_graph_after_fill(self):
         """Config 1's graph captured after the earlier phases' graphs were

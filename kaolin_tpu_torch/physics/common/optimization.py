@@ -19,6 +19,12 @@ Two loops:
   converges, which costs one host read an iteration. Both give the same x
   bit for bit.
 
+:func:`newton_iteration` is the loops' set-up and iteration on their own,
+for a caller that runs the iterations one at a time over buffers of its
+own: the Simplicits scene's CUDA graphs replay an iteration until the
+device's convergence flag is set, and so run the early-exit loop's
+iterations.
+
 Kinematic DOFs are removed by a static index list (``dyn_idx``).
 
 Spans (:mod:`kaolin_tpu_torch.utils.profiling`, while ``torch.profiler``
@@ -37,7 +43,7 @@ import torch
 
 from kaolin_tpu_torch.utils import profiling
 
-__all__ = ["newtons_method"]
+__all__ = ["newton_iteration", "newtons_method"]
 
 
 def _apply_bounds(direction, bounds, ts, qr_tfm, qr_tfm_inv):
@@ -187,47 +193,29 @@ def _cg_solve(red_H, red_g, tol, maxiter):
     return x
 
 
-def newtons_method(x,
-                   energy_fcn,
-                   gradient_fcn,
-                   hessian_fcn,
-                   bounds_fcn=None,
-                   dyn_idx=None,
-                   nm_max_iters=5,
-                   cg_tol=1e-4,
-                   cg_iters=100,
-                   conv_tol=1e-4,
-                   direct_solve=True,
-                   ls_alpha=1e-3,
-                   ls_beta=0.6,
-                   max_ls_steps=10,
-                   bounds_qr_tfm=None,
-                   bounds_qr_tfm_inv=None,
-                   differentiable=False):
-    """Minimize an implicit-integration energy over the DOFs x.
-
-    Args:
-        x: (D,) initial guess (full DOF vector).
-        energy_fcn: x → scalar; the line search calls it through
-            ``torch.func.vmap``.
-        gradient_fcn: x → (D,).
-        hessian_fcn: x → (D, D) dense.
-        bounds_fcn: (dx_full, x) → (D,) per-DOF step bounds, or None.
-        dyn_idx: the dynamic (non-kinematic) DOFs, an int array or an
-            int64 tensor, or None for all. A tensor on x's device is used as
-            it is: nothing is copied from the host, which a CUDA graph
-            capture needs.
-        direct_solve: dense Cholesky (LU where it fails) vs CG.
-        bounds_qr_tfm / bounds_qr_tfm_inv: (R, R) reduced-basis rotation for
-            clamping bounds in the raw pre-QR basis (with ``bounds_fcn``
-            only).
-        differentiable: run the fixed trip of ``nm_max_iters`` iterations
-            with no host read (see the module docstring).
-
-    Returns:
-        (D,) optimized DOFs. ``newtons_method.iterations`` counts the
-        iterations run on the host, over all calls.
-    """
+def newton_iteration(x,
+                     energy_fcn,
+                     gradient_fcn,
+                     hessian_fcn,
+                     bounds_fcn=None,
+                     dyn_idx=None,
+                     cg_tol=1e-4,
+                     cg_iters=100,
+                     conv_tol=1e-4,
+                     direct_solve=True,
+                     ls_alpha=1e-3,
+                     ls_beta=0.6,
+                     max_ls_steps=10,
+                     bounds_qr_tfm=None,
+                     bounds_qr_tfm_inv=None):
+    """Newton's set-up at the start point x → ``newton_iter(x_cur,
+    converged) -> (x_new, converged)``, one iteration of
+    :func:`newtons_method` (the arguments are its own): the assembly, the
+    solve, the convergence test on the Newton decrement at ``x_cur`` and
+    the line search; where ``converged`` (a 0-dim bool tensor) is or
+    becomes set, x_new is ``x_cur``. The kinematic DOFs keep their values
+    at x. Nothing is read back to the host, but for the solve's fallback
+    outside :func:`cholesky_only`."""
     d = x.shape[0]
     all_dynamic = dyn_idx is None or len(dyn_idx) == d
     if all_dynamic:
@@ -286,6 +274,56 @@ def newtons_method(x,
             x_new = x_new + x_kinematic
         return x_new, converged
 
+    return newton_iter
+
+
+def newtons_method(x,
+                   energy_fcn,
+                   gradient_fcn,
+                   hessian_fcn,
+                   bounds_fcn=None,
+                   dyn_idx=None,
+                   nm_max_iters=5,
+                   cg_tol=1e-4,
+                   cg_iters=100,
+                   conv_tol=1e-4,
+                   direct_solve=True,
+                   ls_alpha=1e-3,
+                   ls_beta=0.6,
+                   max_ls_steps=10,
+                   bounds_qr_tfm=None,
+                   bounds_qr_tfm_inv=None,
+                   differentiable=False):
+    """Minimize an implicit-integration energy over the DOFs x.
+
+    Args:
+        x: (D,) initial guess (full DOF vector).
+        energy_fcn: x → scalar; the line search calls it through
+            ``torch.func.vmap``.
+        gradient_fcn: x → (D,).
+        hessian_fcn: x → (D, D) dense.
+        bounds_fcn: (dx_full, x) → (D,) per-DOF step bounds, or None.
+        dyn_idx: the dynamic (non-kinematic) DOFs, an int array or an
+            int64 tensor, or None for all. A tensor on x's device is used as
+            it is: nothing is copied from the host, which a CUDA graph
+            capture needs.
+        direct_solve: dense Cholesky (LU where it fails) vs CG.
+        bounds_qr_tfm / bounds_qr_tfm_inv: (R, R) reduced-basis rotation for
+            clamping bounds in the raw pre-QR basis (with ``bounds_fcn``
+            only).
+        differentiable: run the fixed trip of ``nm_max_iters`` iterations
+            with no host read (see the module docstring).
+
+    Returns:
+        (D,) optimized DOFs. ``newtons_method.iterations`` counts the
+        iterations run on the host, over all calls.
+    """
+    newton_iter = newton_iteration(
+        x, energy_fcn, gradient_fcn, hessian_fcn, bounds_fcn=bounds_fcn,
+        dyn_idx=dyn_idx, cg_tol=cg_tol, cg_iters=cg_iters, conv_tol=conv_tol,
+        direct_solve=direct_solve, ls_alpha=ls_alpha, ls_beta=ls_beta,
+        max_ls_steps=max_ls_steps, bounds_qr_tfm=bounds_qr_tfm,
+        bounds_qr_tfm_inv=bounds_qr_tfm_inv)
     converged = torch.zeros((), dtype=torch.bool, device=x.device)
     for _ in range(nm_max_iters):
         x, converged = newton_iter(x, converged)

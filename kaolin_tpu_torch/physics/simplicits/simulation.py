@@ -11,12 +11,15 @@ through ``torch.linalg``.
 
 A scene runs on the CUDA device unless it is given ``device="cpu"``; with
 no CUDA device and no ``device`` it raises. ``use_cuda_graphs=True``
-captures one step (its fixed-trip Newton loop, Cholesky solves only) in a
-``torch.cuda.CUDAGraph`` over static state buffers, and each step replays
-it; a step whose Cholesky failed runs again eagerly, with the LU fallback.
-With contact the Cholesky fails often (friction makes the Hessian not
-symmetric), so that graph solves by LU beside every Cholesky and takes it
-where the Cholesky failed, as the eager step does.
+captures the step (Cholesky solves only) in ``torch.cuda.CUDAGraph``s over
+static state buffers: the set-up and two Newton iterations, one more
+iteration, and the state's update. Each step replays the first, the second
+while the device's convergence flag, read by the host, is not set, and the
+last, so it runs the early-exit loop's iterations; a step whose Cholesky
+failed runs again eagerly, with the LU fallback. With contact the Cholesky
+fails often (friction makes the Hessian not symmetric), so that step is
+one graph of Newton's fixed trip, which solves by LU beside every Cholesky
+and takes it where the Cholesky failed, as the eager step does.
 
 Contact (:meth:`SimplicitsScene.enable_collisions`,
 :mod:`kaolin_tpu_torch.physics.common.collisions`) runs inside the step:
@@ -30,14 +33,17 @@ overflow re-measures the capacities and builds the step (and graph) anew.
 Spans (:mod:`kaolin_tpu_torch.utils.profiling`, while ``torch.profiler``
 runs): ``physics.simplicits.step`` around :meth:`SimplicitsScene.run_sim_step`
 and :meth:`~SimplicitsScene.run_sim_steps`; inside it
-``physics.simplicits.capture`` (a graph's capture),
-``physics.simplicits.replay`` (a replay and the read of its flag, or the
-read of the LU count after the replays) and ``physics.simplicits.rerun`` (a
-step whose Cholesky failed, run again eagerly); ``physics.newton.*`` inside
-each eager step and capture; and ``physics.simplicits.deformed_pts`` around
+``physics.simplicits.capture`` (the graphs' capture),
+``physics.simplicits.replay`` (a step's replays and flag reads, or the
+read of the LU count after the replays), inside it
+``physics.simplicits.iterate`` (a replay of one more iteration and its
+read), and ``physics.simplicits.rerun`` (a step whose Cholesky failed, run
+again eagerly); ``physics.newton.*`` inside each eager step and capture;
+and ``physics.simplicits.deformed_pts`` around
 :meth:`~SimplicitsScene.get_object_deformed_pts`. Host counters, always on:
-``CAPTURES`` and ``GRAPH_REPLAYS``; a scene counts its own reruns and LU
-steps (``graph_steps_rerun``, ``graph_steps_lu``).
+``CAPTURES``, ``GRAPH_REPLAYS`` (one a step) and ``NEWTON_ITERATIONS`` (the
+iterations the graphs without the LU ran); a scene counts its own reruns
+and LU steps (``graph_steps_rerun``, ``graph_steps_lu``).
 """
 
 import warnings
@@ -48,6 +54,7 @@ import torch
 from kaolin_tpu_torch.physics.common.collisions import Collision
 from kaolin_tpu_torch.physics.common.optimization import (
     cholesky_only,
+    newton_iteration,
     newtons_method,
 )
 from kaolin_tpu_torch.physics.common.scene_forces import (
@@ -83,9 +90,14 @@ __all__ = ["SimulatedObject", "SimplicitsScene"]
 # precision (see SimulatedObject._apply_qr_decomposition)
 QR_ROUNDING_LIMIT = 1e-2
 
+# the Newton iterations the graph without the LU runs before its first
+# read of the convergence flag: every step that moves runs two
+START_ITERATIONS = 2
+
 CAPTURES = "physics.simplicits.captures"
 GRAPH_REPLAYS = "physics.simplicits.graph_replays"
-for _name in (CAPTURES, GRAPH_REPLAYS):
+NEWTON_ITERATIONS = "physics.simplicits.newton_iterations"
+for _name in (CAPTURES, GRAPH_REPLAYS, NEWTON_ITERATIONS):
     profiling.count(_name, 0)
 
 
@@ -240,11 +252,13 @@ class SimplicitsScene:
     """Scene assembly and implicit time stepping.
 
     ``device``: where the scene runs; None means the CUDA device, and raises
-    without one. ``use_cuda_graphs``: capture a step in a CUDA graph and
-    replay it (CUDA only); the graph runs Newton's fixed trip, which gives
-    the early-exit loop's z bit for bit, and reads one flag a step, or with
-    contact one a :meth:`run_sim_steps` call (see :meth:`_replay`).
-    ``differentiable``: Newton's fixed trip on the eager path too, so that
+    without one. ``use_cuda_graphs``: capture a step in CUDA graphs and
+    replay them (CUDA only); they run the early-exit loop's Newton
+    iterations and give its z bit for bit, with one host read after the
+    first two iterations and one after each later one; with contact,
+    Newton's fixed trip, with one read a :meth:`run_sim_steps` call (see
+    :meth:`_capture`).
+    ``differentiable``: Newton's fixed trip on the eager path, so that
     the step of :meth:`build_functional_step` is differentiable by
     ``torch.autograd`` with respect to z, z_prev and z_dot (through the
     solves, the line search's choice and the energies). It cannot go with
@@ -715,10 +729,37 @@ class SimplicitsScene:
         adds a fourth output, the step's int32 contact-overflow bitmask
         (:meth:`Collision.diag_flags`; 0 without contact).
         ``fixed_trip=True`` runs Newton's fixed trip whatever
-        ``differentiable`` says.
+        ``differentiable`` says. The step is :meth:`_newton_system`'s
+        problem solved by ``newtons_method``."""
+        system, consts = self._newton_system()
+        dt = self.timestep
+        nm_kwargs = dict(nm_max_iters=self.max_newton_steps,
+                         differentiable=self.differentiable or fixed_trip)
 
-        With contact, detection runs once at the step's start from z, and
-        its contacts carry the factors w ⊗ [x;1] of their LBS rows, so the
+        def step(c, z, z_prev_in, z_dot):
+            fns, kwargs, flags = system(c, z, z_dot)
+            z_new = newtons_method(z, *fns, **kwargs, **nm_kwargs)
+            z_dot_new = (z_new - z) / dt
+            if with_diag:
+                return z_new, z, z_dot_new, flags
+            return z_new, z, z_dot_new
+
+        return step, consts
+
+    def _newton_system(self):
+        """The step's Newton problem as a function over the scene constants
+        → ``(system, consts)`` with
+
+        ``system(consts, z, z_dot) -> ((energy, gradient, hessian), kwargs,
+        flags)``
+
+        for the step from z at velocity z_dot: the energy of the implicit
+        step and its derivatives as functions of the new z, the rest of
+        ``newton_iteration``'s arguments, and the step's int32
+        contact-overflow bitmask (0 without contact).
+
+        With contact, detection runs once in ``system``, from z, and its
+        contacts carry the factors w ⊗ [x;1] of their LBS rows, so the
         contact terms inside Newton are dense products in the raw (pre-QR)
         basis, taken to z's basis by the QR rotation."""
         dt = self.timestep
@@ -730,12 +771,9 @@ class SimplicitsScene:
                          and not self._collision_provably_empty())
         collision_bounds = (has_collision
                             and self.force_dict["collision"]["object"].bounds)
-        nm_kwargs = dict(nm_max_iters=self.max_newton_steps,
-                         cg_tol=self.cg_tol, cg_iters=self.cg_iters,
-                         conv_tol=self.conv_tol,
-                         direct_solve=self.direct_solve,
-                         max_ls_steps=self.max_ls_steps,
-                         differentiable=self.differentiable or fixed_trip)
+        solver = dict(cg_tol=self.cg_tol, cg_iters=self.cg_iters,
+                      conv_tol=self.conv_tol, direct_solve=self.direct_solve,
+                      max_ls_steps=self.max_ls_steps)
         eye3 = torch.eye(3, dtype=self.dtype, device=self.device)
         eye_d = torch.eye(total_dofs, dtype=self.dtype, device=self.device)
         objs = list(self.sim_obj_dict.values())
@@ -775,7 +813,7 @@ class SimplicitsScene:
                 # made here, outside any capture, and held by the graph
                 consts["grid_tensors"] = collision.grid_tensors(self.device)
 
-        def step(c, z, z_prev_in, z_dot):
+        def system(c, z, z_dot):
             B, dFdz, BMB, pts = c["B"], c["dFdz"], c["BMB"], c["pts"]
 
             def dx_of(z_):
@@ -866,16 +904,12 @@ class SimplicitsScene:
                     dzq = dz_full if qr is None else qr @ dz_full
                     return col.get_bounds_q(contacts, dzq, zq_of(z_))
 
-            z_new = newtons_method(
-                z, energy_fn, grad_fn, hess_fn, bounds_fcn=bounds_fn,
-                dyn_idx=dyn_idx, bounds_qr_tfm=c["qr_red"],
-                bounds_qr_tfm_inv=c["qr_red_inv"], **nm_kwargs)
-            z_dot_new = (z_new - z) / dt
-            if with_diag:
-                return z_new, z, z_dot_new, flags
-            return z_new, z, z_dot_new
+            kwargs = dict(bounds_fcn=bounds_fn, dyn_idx=dyn_idx,
+                          bounds_qr_tfm=c["qr_red"],
+                          bounds_qr_tfm_inv=c["qr_red_inv"], **solver)
+            return (energy_fn, grad_fn, hess_fn), kwargs, flags
 
-        return step, consts
+        return system, consts
 
     def _check_ready(self):
         if not self._ready_for_forces:
@@ -907,96 +941,186 @@ class SimplicitsScene:
                 and not self._collision_provably_empty())
 
     def _capture(self):
-        """One fixed-trip step captured in a CUDA graph that advances the
-        static state buffers (z, z_prev, z_dot and the overflow flag) in
-        place → (graph, state, start, failed, lu_steps, keep). The graph
-        first copies the state into ``start`` and ORs any Cholesky failure
-        of the step into ``failed``. Without LU (no contact) it keeps every
-        Cholesky solution, and :meth:`_replay` reads ``failed`` after each
-        replay; with it, the graph takes the LU where the Cholesky failed
-        and counts those steps in ``lu_steps``, read once a
-        :meth:`_replay`.
+        """The step captured in CUDA graphs that advance the static state
+        buffers (z, z_prev, z_dot and the overflow flag) in place →
+        (graphs, state, status, lu_steps, keep).
+
+        Without the LU (:meth:`_graph_takes_lu`), three graphs run Newton's
+        iterations as the early-exit loop runs them (:meth:`_segments`):
+        ``start``, ``iterate`` and ``finish``, with ``status`` the device's
+        [converged, failed] flags, which :meth:`_replay` reads after
+        ``start`` and after each ``iterate``. With the LU, one graph of the
+        fixed-trip step that counts the steps that took the LU in
+        ``lu_steps``: no step there runs again, so its replays run back to
+        back with one read a :meth:`_replay`, where an early exit would read
+        a flag every step; no cell measures contact yet to tell which pays.
 
         A replay reads the tensors the step was built over at the addresses
         they had at the capture: ``keep`` holds the step and its constants
         (the identity matrices, the dynamic-DOF index, the contact weights
-        and grid tensors, the ``Collision``), so that none of them is freed
-        and its memory handed to another tensor while the graph lives."""
+        and grid tensors, the ``Collision``) and every buffer one graph
+        hands another, so that none of them is freed and its memory handed
+        to another tensor while the graphs live."""
+        state = [b.clone() for b in self._live_state()]
+        if not self._graph_takes_lu():
+            status = torch.zeros(2, dtype=torch.bool, device=self.device)
+            fns, keep = self._segments(state, status)
+            return self._record_graphs(fns), state, status, None, keep
         step, consts = self.build_functional_step(with_diag=True,
                                                   fixed_trip=True)
-        with_lu = self._graph_takes_lu()
-        state = [self.sim_z.clone(), self.sim_z_prev.clone(),
-                 self.sim_z_dot.clone(), self._flags().clone()]
-        start = [torch.empty_like(b) for b in state]
         failed = torch.zeros((), dtype=torch.bool, device=self.device)
-        lu_steps = (torch.zeros((), dtype=torch.int32, device=self.device)
-                    if with_lu else None)
+        lu_steps = torch.zeros((), dtype=torch.int32, device=self.device)
 
         def advance():
-            failed.zero_()
-            for keep, buf in zip(start, state):
-                keep.copy_(buf)
-            z, z_prev, z_dot, ovf = state
-            z1, _, zd1, flags = step(consts, z, z_prev, z_dot)
-            z_prev.copy_(z)
-            z_dot.copy_(zd1)
-            z.copy_(z1)
-            ovf.bitwise_or_(flags)
-            if with_lu:
+            with torch.no_grad(), cholesky_only(failed, with_lu=True):
+                failed.zero_()
+                z, z_prev, z_dot, ovf = state
+                z1, _, zd1, flags = step(consts, z, z_prev, z_dot)
+                z_prev.copy_(z)
+                z_dot.copy_(zd1)
+                z.copy_(z1)
+                ovf.bitwise_or_(flags)
                 lu_steps.add_(failed)
 
-        # warm up on a side stream (workspaces, the step-size grid), as
-        # torch.cuda.graphs asks; the state is copied in before the replays
-        graph = torch.cuda.CUDAGraph()
+        graphs = self._record_graphs([advance])
+        lu_steps.zero_()
+        return graphs, state, None, lu_steps, (step, consts)
+
+    def _segments(self, state, status):
+        """The step without the LU as three functions of no argument over
+        the static buffers ``state`` and ``status`` → ((start, iterate,
+        finish), keep):
+
+        - ``start``: ``status`` cleared, Newton's set-up from z and its
+          first ``START_ITERATIONS`` iterations (all of them where
+          ``max_newton_steps`` is fewer);
+        - ``iterate``: one more iteration;
+        - ``finish``: z_prev, z_dot and z written from Newton's x, and the
+          step's overflow bits ORed into the flag.
+
+        Newton's x, its convergence flag (``status[0]``) and the Cholesky's
+        failure flag (``status[1]``, through ``cholesky_only``, which keeps
+        the Cholesky solution) are updated in place, so one function hands
+        the next static buffers only. An iteration tests convergence at its
+        own start and leaves x as it is once converged: every step that
+        moves runs two iterations at least, and the second after a first
+        that converged changes nothing. Only ``finish`` writes the state,
+        so a step whose Cholesky failed can run again from it."""
+        system, consts = self._newton_system()
+        z, z_prev, z_dot, ovf = state
+        converged, failed = status[0], status[1]
+        x = torch.empty_like(z)
+        newton = {}
+        dt = self.timestep
+        first = min(START_ITERATIONS, self.max_newton_steps)
+
+        def iterate():
+            with torch.no_grad(), cholesky_only(failed):
+                x_new, now_converged = newton["iter"](x, converged)
+                x.copy_(x_new)
+                converged.copy_(now_converged)
+
+        def start():
+            with torch.no_grad():
+                status.zero_()
+                x.copy_(z)
+                fns, kwargs, newton["flags"] = system(consts, z, z_dot)
+                newton["iter"] = newton_iteration(x, *fns, **kwargs)
+            for _ in range(first):
+                iterate()
+
+        def finish():
+            with torch.no_grad():
+                z_dot_new = (x - z) / dt
+                z_prev.copy_(z)
+                z_dot.copy_(z_dot_new)
+                z.copy_(x)
+                ovf.bitwise_or_(newton["flags"])
+
+        return (start, iterate, finish), (system, consts, x, newton)
+
+    def _record_graphs(self, fns):
+        """Each of ``fns`` (functions of no argument over static buffers)
+        captured in a CUDA graph → the graphs, in order. They are warmed up
+        in turn on a side stream first (workspaces, the step-size grid), as
+        ``torch.cuda.graphs`` asks, then captured in turn on torch's one
+        capture stream into the first graph's memory pool: the graphs may
+        share their temporaries' memory, so they replay one at a time, and
+        what one hands another stays allocated."""
+        current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(device=self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.no_grad(), torch.cuda.stream(side), \
-                cholesky_only(failed, with_lu):
-            advance()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        with torch.no_grad(), torch.cuda.graph(graph), \
-                cholesky_only(failed, with_lu):
-            advance()
-        if with_lu:
-            lu_steps.zero_()
-        return graph, state, start, failed, lu_steps, (step, consts)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for fn in fns:
+                fn()
+        current.wait_stream(side)
+        graphs, pool = [], None
+        for fn in fns:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                fn()
+            pool = graph.pool() if pool is None else pool
+            graphs.append(graph)
+        return graphs
 
     def _live_state(self):
         return (self.sim_z, self.sim_z_prev, self.sim_z_dot, self._flags())
 
     def _replay(self, num_steps):
-        """``num_steps`` replays from the scene's state. Without LU in the
-        graph, one host read of ``failed`` after each: a step whose Cholesky
-        failed is run again eagerly from its start, with the LU fallback
-        (``graph_steps_rerun`` counts them). With it, the replays run back
-        to back, and the steps that took the LU are read once at the end
-        (``graph_steps_lu``)."""
+        """``num_steps`` steps from the scene's state by the graphs of
+        :meth:`_capture`. Without the LU, each step by
+        :meth:`_replay_segments`; a step whose Cholesky failed is run again
+        eagerly from its start, with the LU fallback (``graph_steps_rerun``
+        counts them). With it, the replays run back to back, and the steps
+        that took the LU are read once at the end (``graph_steps_lu``)."""
         if self._graph is None:
             with profiling.span("physics.simplicits.capture"):
                 self._graph = self._capture()
             profiling.count(CAPTURES)
-        graph, state, start, failed, lu_steps, _ = self._graph
+        graphs, state, status, lu_steps, _ = self._graph
         for buf, value in zip(state, self._live_state()):
             buf.copy_(value)
         for _ in range(num_steps):
-            with profiling.span("physics.simplicits.replay"):
-                graph.replay()
-                rerun = lu_steps is None and bool(failed)
-            profiling.count(GRAPH_REPLAYS)
-            if rerun:
+            if lu_steps is not None:
+                with profiling.span("physics.simplicits.replay"):
+                    graphs[0].replay()
+            elif not self._replay_segments(graphs, status):
                 with profiling.span("physics.simplicits.rerun"):
                     (self.sim_z, self.sim_z_prev, self.sim_z_dot,
-                     self._col_overflow) = (b.clone() for b in start)
+                     self._col_overflow) = (b.clone() for b in state)
                     self._eager_step()
                     for buf, value in zip(state, self._live_state()):
                         buf.copy_(value)
                 self.graph_steps_rerun += 1
+            profiling.count(GRAPH_REPLAYS)
         if lu_steps is not None:
             with profiling.span("physics.simplicits.replay"):
                 self.graph_steps_lu += int(lu_steps)
             lu_steps.zero_()
         (self.sim_z, self.sim_z_prev, self.sim_z_dot,
          self._col_overflow) = (b.clone() for b in state)
+
+    def _replay_segments(self, graphs, status):
+        """One step by the graphs of :meth:`_segments`: ``start``, then
+        ``iterate`` while one host read of ``status`` finds neither flag set
+        and fewer than ``max_newton_steps`` iterations have run, then
+        ``finish`` → False where the Cholesky failed, which leaves the state
+        as the step found it. ``NEWTON_ITERATIONS`` counts the iterations
+        run."""
+        start, iterate, finish = graphs
+        with profiling.span("physics.simplicits.replay"):
+            start.replay()
+            ran = min(START_ITERATIONS, self.max_newton_steps)
+            converged, failed = status.tolist()
+            while not (converged or failed) and ran < self.max_newton_steps:
+                with profiling.span("physics.simplicits.iterate"):
+                    iterate.replay()
+                    converged, failed = status.tolist()
+                ran += 1
+            if not failed:
+                finish.replay()
+        profiling.count(NEWTON_ITERATIONS, ran)
+        return not failed
 
     def run_sim_step(self):
         """One implicit time step: the captured graph replayed once when

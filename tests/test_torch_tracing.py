@@ -6,6 +6,7 @@ session per profiler run; the kernels' launch counters in one registry;
 the Simplicits step's spans and graph counters, and a step the profiler
 leaves bit for bit as it was."""
 
+import contextlib
 import json
 import re
 from collections import Counter
@@ -14,6 +15,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from kaolin_tpu_torch.physics.common.optimization import newtons_method
 from kaolin_tpu_torch.physics.simplicits import (
     SimplicitsScene,
     SkinnedPhysicsPoints,
@@ -295,7 +297,8 @@ PHYSICS_NESTING = {
     "physics.newton.line_search": "physics.simplicits.step",
     "physics.simplicits.deformed_pts": None,
 }
-GRAPH_COUNTERS = (simulation.CAPTURES, simulation.GRAPH_REPLAYS)
+GRAPH_COUNTERS = (simulation.CAPTURES, simulation.GRAPH_REPLAYS,
+                  simulation.NEWTON_ITERATIONS)
 
 
 def _drop_scene(device="cpu", **kwargs):
@@ -358,61 +361,65 @@ def test_physics_spans_nest_on_the_eager_path():
     assert 3 <= sum(r.name == "physics.newton.solve" for r in records) <= 9
 
 
-class _FakeGraph:
-    """A CUDA graph's stand-in on the CPU: a replay runs the scene's
-    fixed-trip step on the state buffers, as the captured one does, and
-    marks the replays named in ``fail_on`` as failed (a Cholesky that
-    failed), or with ``lu_steps`` counts them as steps that took the LU."""
+@contextlib.contextmanager
+def _cholesky_fails():
+    """``torch.linalg.cholesky_ex`` reporting every factorization failed
+    (info 1), as an indefinite Hessian's would be."""
+    real = torch.linalg.cholesky_ex
 
-    def __init__(self, scene, fail_on, with_lu=False):
-        self.fn = scene.build_functional_step(with_diag=True,
-                                              fixed_trip=True)
-        self.state = [b.clone() for b in scene._live_state()]
-        self.start = [torch.empty_like(b) for b in self.state]
-        self.failed = torch.zeros((), dtype=torch.bool)
-        self.lu_steps = torch.zeros((), dtype=torch.int32) if with_lu \
-            else None
-        self.fail_on, self.replays = set(fail_on), 0
+    def failing(a, *args, **kwargs):
+        factor, info = real(a, *args, **kwargs)
+        return factor, torch.ones_like(info)
+
+    torch.linalg.cholesky_ex = failing
+    try:
+        yield
+    finally:
+        torch.linalg.cholesky_ex = real
+
+
+class _Replayed:
+    """A CUDA graph's stand-in on the CPU: a replay runs the captured
+    function, and the replays numbered in ``fail_on`` (from 1) run it with
+    every Cholesky failing."""
+
+    def __init__(self, fn, fail_on=()):
+        self.fn, self.fail_on, self.replays = fn, set(fail_on), 0
 
     def replay(self):
         self.replays += 1
-        failed = self.replays in self.fail_on
-        for keep, buf in zip(self.start, self.state):
-            keep.copy_(buf)
-        step, consts = self.fn
-        z, z_prev, z_dot, ovf = self.state
-        with torch.no_grad():
-            z1, _, zd1, flags = step(consts, z, z_prev, z_dot)
-        z_prev.copy_(z)
-        z_dot.copy_(zd1)
-        z.copy_(z1)
-        if self.lu_steps is None:
-            self.failed.fill_(failed)
-        else:
-            self.lu_steps.add_(int(failed))
-
-    def captured(self):
-        return (self, self.state, self.start, self.failed, self.lu_steps,
-                self.fn)
+        with (_cholesky_fails() if self.replays in self.fail_on
+              else contextlib.nullcontext()):
+            self.fn()
 
 
 def _graph_scene(fail_on, with_lu=False):
+    """The drop scene on its graph path, the graphs' functions run by
+    :class:`_Replayed` after their warm-up: the first graph's Cholesky
+    fails on the replays in ``fail_on``. ``with_lu``: the graph that takes
+    the LU, as contact makes it."""
     scene = _drop_scene()
     scene.use_cuda_graphs = True
+    if with_lu:
+        scene._graph_takes_lu = lambda: True
     graphs = []
 
-    def capture():
-        graphs.append(_FakeGraph(scene, fail_on, with_lu))
-        return graphs[-1].captured()
+    def record(fns):
+        for fn in fns:
+            fn()
+        graphs.append([_Replayed(fn, fail_on if i == 0 else ())
+                       for i, fn in enumerate(fns)])
+        return graphs[-1]
 
-    scene._capture = capture
+    scene._record_graphs = record
     return scene, graphs
 
 
 def test_graph_counters_count_captures_replays_and_reruns():
-    """One capture, a replay a step, and the replay whose Cholesky failed
-    run again eagerly inside its own span, with Newton's spans; with the
-    LU in the graph, the steps that took it, read once a call."""
+    """One capture, a replay a step, the graphs' Newton iterations, and the
+    replay whose Cholesky failed run again eagerly inside its own span,
+    with Newton's spans; with the LU in the graph, the steps that took it,
+    read once a call."""
     scene, graphs = _graph_scene(fail_on={2})
     before = _counts()
     _between_sessions()
@@ -420,46 +427,74 @@ def test_graph_counters_count_captures_replays_and_reruns():
         for _ in range(4):
             scene.run_sim_step()
     assert len(graphs) == 1
-    assert _delta(before) == {simulation.CAPTURES: 1,
-                              simulation.GRAPH_REPLAYS: 4}
-    assert (scene.graph_steps_rerun, scene.graph_steps_lu) == (1, 0)
     records = profiling.spans()
     by_id = {r.id: r for r in records}
     names = Counter(r.name for r in records)
+    # two iterations a step before the first read, then one an iterate
+    assert _delta(before) == {
+        simulation.CAPTURES: 1, simulation.GRAPH_REPLAYS: 4,
+        simulation.NEWTON_ITERATIONS: 2 * 4 + names[
+            "physics.simplicits.iterate"]}
+    assert (scene.graph_steps_rerun, scene.graph_steps_lu) == (1, 0)
     assert names["physics.simplicits.step"] == 4
     assert names["physics.simplicits.capture"] == 1
     assert names["physics.simplicits.replay"] == 4
     assert names["physics.simplicits.rerun"] == 1
     rerun, = [r for r in records if r.name == "physics.simplicits.rerun"]
     assert by_id[rerun.parent].name == "physics.simplicits.step"
-    # the stand-in's replays run Newton on the host, under their own spans
+    assert all(by_id[r.parent].name == "physics.simplicits.replay"
+               for r in records if r.name == "physics.simplicits.iterate")
+    # the capture's warm-up and the stand-in's replays run Newton on the
+    # host, under their own spans
     newton = Counter(by_id[r.parent].name for r in records
                      if r.name.startswith("physics.newton."))
     assert newton["physics.simplicits.rerun"] >= 3
-    assert set(newton) == {"physics.simplicits.rerun",
-                           "physics.simplicits.replay"}
+    assert newton["physics.simplicits.iterate"] == 3 * names[
+        "physics.simplicits.iterate"]
+    assert set(newton) == {"physics.simplicits.capture",
+                           "physics.simplicits.rerun",
+                           "physics.simplicits.replay"} | (
+        {"physics.simplicits.iterate"} if names["physics.simplicits.iterate"]
+        else set())
 
     scene, _ = _graph_scene(fail_on={1, 3}, with_lu=True)
     before = _counts()
     scene.run_sim_steps(3)
     assert _delta(before) == {simulation.CAPTURES: 1,
-                              simulation.GRAPH_REPLAYS: 3}
+                              simulation.GRAPH_REPLAYS: 3,
+                              simulation.NEWTON_ITERATIONS: 0}
     assert (scene.graph_steps_rerun, scene.graph_steps_lu) == (0, 2)
 
 
 def test_graph_counters_on_the_card():
-    """On the card, the real graph: one capture and a replay a step; the
-    drop's Cholesky never fails, so no step runs again."""
+    """On the card, the real graphs: one capture, a replay a step, and the
+    iterations of the early-exit loop, two at least a step, with its z bit
+    for bit; the drop's Cholesky never fails, so no step runs again."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     scene = _drop_scene("cuda", use_cuda_graphs=True)
+    eager = _drop_scene("cuda")
+    ran = []
+
+    def eager_steps(n):
+        for _ in range(n):
+            start = newtons_method.iterations
+            eager.run_sim_step()
+            ran.append(newtons_method.iterations - start)
+
     before = _counts()
     for _ in range(5):
         scene.run_sim_step()
+        eager_steps(1)
     scene.run_sim_steps(3)
-    assert _delta(before) == {simulation.CAPTURES: 1,
-                              simulation.GRAPH_REPLAYS: 8}
+    eager_steps(3)
+    assert _delta(before) == {
+        simulation.CAPTURES: 1, simulation.GRAPH_REPLAYS: 8,
+        simulation.NEWTON_ITERATIONS: sum(max(2, n) for n in ran)}
     assert (scene.graph_steps_rerun, scene.graph_steps_lu) == (0, 0)
+    for x, y in ((scene.sim_z, eager.sim_z),
+                 (scene.sim_z_dot, eager.sim_z_dot)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 def test_the_profiler_leaves_the_step_as_it_is():

@@ -85,7 +85,8 @@ peak rates and #1-3's names in a trace are read from the benchmark's
    seeded scenes of 3 x 400 points (grid and sweep equal to dense on both
    devices); at 5 states of the example's stack (2 x 300 points, a
    10 x 10 plate) the detection, the contact terms and the step's energy
-   within 1e-4 (``check_stack_step`` says why its step is not held); and
+   within 1e-4, in z's own basis (``check_stack_step`` says why its step
+   is not held); and
    ``make_demo_scene``'s scene, 10 steps (5 for the sweep) from the CPU's
    states, B z within 1e-4 of max|B z| plus twice the card's own spread;
    the training path's pieces on the card against the CPU: ``check_sign`` of
@@ -4937,11 +4938,12 @@ class Smoke:
 
         The rest of the step is printed, not held: this scene's QR rotation
         has entries up to 7.2e4 (sin(x·f) over a cube of side 0.5 leaves B's
-        columns nearly dependent), so ``qr.T @ c_H @ qr`` turns contact
-        Hessian entries of 1e8 into a Newton Hessian of some 6e3 whose
-        value float32 rounding decides (the JAX package has the same
-        rotations); and a 1e-7 change of z moves the next B z by a large
-        share of max|B z|. The card's step is checked finite."""
+        columns nearly dependent), so the scene takes the contact terms in
+        z's own basis (``simulation.CONTACT_ROUNDING_LIMIT``), where the
+        raw basis's ``qr.T @ c_H @ qr`` let float32 rounding decide the
+        Newton Hessian; the step's line search still turns with the last
+        bits of z (one iteration moves by up to 1e-3 of max|B z| under a
+        1e-7 change). The card's step is checked finite."""
         torch, ex, n = self.torch, self.col_ex, COLLISION_PARITY_STEPS
         f64 = torch.float64
         cpu = ex.stack_scene("cpu", **COLLISION_STACK)
@@ -4968,16 +4970,20 @@ class Smoke:
             c_c = col_c.detect_collisions(dx, cpu.sim_pts,
                                           cpu.qp_to_object_map,
                                           cpu.qp_is_kinematic,
-                                          weights=consts_c["col_w"])
+                                          weights=consts_c.get("col_w"),
+                                          factors=consts_c.get("col_q"))
             c_k = col_k.detect_collisions(dx.cuda(), card.sim_pts,
                                           card.qp_to_object_map,
                                           card.qp_is_kinematic,
-                                          weights=consts["col_w"])
+                                          weights=consts.get("col_w"),
+                                          factors=consts.get("col_q"))
             same_contacts &= all(torch.equal(getattr(c_k, f).cpu(),
                                              getattr(c_c, f))
                                  for f in ("indices_a", "indices_b", "valid"))
             pairs.append(int(c_c.valid.sum()))
-            zq = consts_c["qr_tfm"] @ (states[k + 1][0] - states[k][0])
+            zq = states[k + 1][0] - states[k][0]
+            if "qr_tfm" in consts_c:
+                zq = consts_c["qr_tfm"] @ zq
             terms = []
             for col, c, dev in ((col_c, c_c, "cpu"), (col_k, c_k, "cuda")):
                 z_, d_ = zq.to(dev), 2.0 * zq.to(dev)

@@ -582,7 +582,8 @@ class Collision:
 
     # -- detection --
     def detect_collisions(self, cp_dx, cp_x0, cp_obj_ids, cp_is_static=None,
-                          weights=None, cp_exclude=None, return_diag=False):
+                          weights=None, cp_exclude=None, return_diag=False,
+                          factors=None):
         """Find contact pairs → a :class:`Contacts` buffer of
         ``max_contacts`` entries, and with ``return_diag`` this detection's
         :meth:`detection_diagnostics` dict too.
@@ -590,9 +591,12 @@ class Collision:
         cp_dx (N, 3) current displacements; cp_x0 (N, 3) rest positions;
         cp_obj_ids (N,) int; cp_is_static (N,) int {0, 1}; weights (N, H)
         global skinning weights — with them the contacts carry the q-form
-        factors, without them ``dx0`` for the gather form; cp_exclude (N,)
-        bool leaves points out of detection. Reads nothing back to the
-        host."""
+        factors, without them ``dx0`` for the gather form; factors (N, 4H)
+        in place of ``weights``: each point's q-form factors as they are
+        (the rows of B = A ⊗ I₃ in another basis of the DOFs, A K₄ for z =
+        K₄⁻¹-rotated handles), which the contacts carry as ``qat``/``qbt``,
+        with no ``wa``/``xa``; cp_exclude (N,) bool leaves points out of
+        detection. Reads nothing back to the host."""
         n = cp_x0.shape[0]
         if cp_is_static is None:
             cp_is_static = torch.zeros((n,), dtype=torch.int32,
@@ -608,7 +612,9 @@ class Collision:
         ia, ib = torch.where(swap, ib, ia), torch.where(swap, ia, ib)
 
         chans = [cur, cp_x0, cp_is_static.to(cur.dtype)[:, None]]
-        if weights is not None:
+        if factors is not None:
+            chans.append(factors.to(cur.dtype))
+        elif weights is not None:
             chans.append(weights.to(cur.dtype))
         table = torch.cat(chans, 1)
         both = self._fetch_rows(table, torch.cat([ia, ib])).T
@@ -630,7 +636,11 @@ class Collision:
         b_on = valid & ~stat_b
         indices_a = torch.where(a_on, ia, NULL)
         indices_b = torch.where(b_on, ib, NULL)
-        if weights is not None:
+        if factors is not None:
+            wa = wb = xa = xb = dx0 = None
+            qat = torch.where(a_on[None], ra[7:], 0.0)
+            qbt = torch.where(b_on[None], rb[7:], 0.0)
+        elif weights is not None:
             one = torch.ones_like(ra[:1])
             wa = torch.where(a_on[None], ra[7:], 0.0).T
             wb = torch.where(b_on[None], rb[7:], 0.0).T

@@ -18,17 +18,21 @@ while the device's convergence flag, read by the host, is not set, and the
 last, so it runs the early-exit loop's iterations; a step whose Cholesky
 failed runs again eagerly, with the LU fallback. With contact the Cholesky
 fails often (friction makes the Hessian not symmetric), so that step is
-one graph of Newton's fixed trip, which solves by LU beside every Cholesky
-and takes it where the Cholesky failed, as the eager step does.
+a graph of detection and a graph of Newton's fixed trip, which solves by
+LU beside every Cholesky and takes it where the Cholesky failed, as the
+eager step does.
 
 Contact (:meth:`SimplicitsScene.enable_collisions`,
 :mod:`kaolin_tpu_torch.physics.common.collisions`) runs inside the step:
 detection once at its start, the contact energy, gradient and Hessian in
 the assembly, the contact bounds in the line search. Detection reads nothing
-back to the host, so the graph captures it too. Each step ORs its capacity
-overflow bits into a flag on the device; the host reads it every
+back to the host, so a graph captures it too. The contact terms are taken
+in z's own basis where the float32 QR rotation would lose them
+(``CONTACT_ROUNDING_LIMIT``), else in the raw basis and rotated. Each step
+ORs its capacity overflow bits into a flag on the device
+(:meth:`SimplicitsScene.collision_overflow_flags`); the host reads it every
 ``collision_resize_interval`` steps and after ``run_sim_steps``, and on an
-overflow re-measures the capacities and builds the step (and graph) anew.
+overflow re-measures the capacities and builds the step (and graphs) anew.
 
 Spans (:mod:`kaolin_tpu_torch.utils.profiling`, while ``torch.profiler``
 runs): ``physics.simplicits.step`` around :meth:`SimplicitsScene.run_sim_step`
@@ -37,13 +41,17 @@ and :meth:`~SimplicitsScene.run_sim_steps`; inside it
 ``physics.simplicits.replay`` (a step's replays and flag reads, or the
 read of the LU count after the replays), inside it
 ``physics.simplicits.iterate`` (a replay of one more iteration and its
-read), and ``physics.simplicits.rerun`` (a step whose Cholesky failed, run
-again eagerly); ``physics.newton.*`` inside each eager step and capture;
-and ``physics.simplicits.deformed_pts`` around
+read), ``physics.simplicits.rerun`` (a step whose Cholesky failed, run
+again eagerly) and ``physics.simplicits.detect`` (contact detection: the
+replay of its graph, or detection in an eager step or a capture);
+``physics.newton.*`` inside each eager step and capture; and
+``physics.simplicits.deformed_pts`` around
 :meth:`~SimplicitsScene.get_object_deformed_pts`. Host counters, always on:
 ``CAPTURES``, ``GRAPH_REPLAYS`` (one a step) and ``NEWTON_ITERATIONS`` (the
-iterations the graphs without the LU ran); a scene counts its own reruns
-and LU steps (``graph_steps_rerun``, ``graph_steps_lu``).
+iterations the graphs ran: ``max_newton_steps`` a replay of the fixed
+trip); a scene counts its own reruns and LU steps (``graph_steps_rerun``,
+``graph_steps_lu``). A device counter, while the profiler runs:
+``CONTACTS``, the live pairs each step's detection found.
 """
 
 import warnings
@@ -94,11 +102,27 @@ QR_ROUNDING_LIMIT = 1e-2
 # read of the convergence flag: every step that moves runs two
 START_ITERATIONS = 2
 
+# the largest ε₃₂ cond(B)² over a scene's dynamic QR objects at which
+# contact terms are taken in the raw basis and turned into z's by the
+# float32 QR rotation (see SimplicitsScene.enable_collisions)
+CONTACT_ROUNDING_LIMIT = 0.1
+
 CAPTURES = "physics.simplicits.captures"
 GRAPH_REPLAYS = "physics.simplicits.graph_replays"
 NEWTON_ITERATIONS = "physics.simplicits.newton_iterations"
 for _name in (CAPTURES, GRAPH_REPLAYS, NEWTON_ITERATIONS):
     profiling.count(_name, 0)
+DETECT_SPAN = "physics.simplicits.detect"
+# a device counter: the live contact pairs the steps detected
+CONTACTS = "physics.collision.contacts"
+
+
+def _count_contacts(live):
+    """Add a detection's live pairs (0-dim int64 on the device) to
+    ``CONTACTS`` while the profiler runs."""
+    counter = profiling.device_counter(CONTACTS, live.device)
+    if counter is not None:
+        counter.add_(live)
 
 
 class SimulatedObject(SkinnedPhysicsPoints):
@@ -158,6 +182,9 @@ class SimulatedObject(SkinnedPhysicsPoints):
         self.qr_tfm = None
         self.qr_tfm_inv = None
         self.qr_tfm64 = None
+        # the contact terms' per-point factors in z's own basis, set where
+        # the scene takes them there (SimplicitsScene.enable_collisions)
+        self.contact_factors = None
         if apply_qr:
             self._apply_qr_decomposition()
 
@@ -216,6 +243,76 @@ class SimulatedObject(SkinnedPhysicsPoints):
         if not self.is_kinematic:
             dfdz = dFdz_matrix(w, self.dwdx.cpu().double(), pts).numpy()
             self.dFdz_dense = rounded(dfdz @ tfm)
+
+    def _lbs_factors64(self):
+        """A = w ⊗ [x; 1] (N, 4H) in float64, on the host: row i holds
+        w_ih [x_i; 1]_s at column 4h + s, so that B = A ⊗ I₃ in B's own
+        column order 12h + 4r + s."""
+        pts = self.pts.cpu().double()
+        w = self.skinning_weights.cpu().double()
+        hom = torch.cat([pts, torch.ones_like(pts[:, :1])], dim=1)
+        return (w[:, :, None] * hom[:, None, :]).reshape(pts.shape[0], -1)
+
+    def contact_rounding(self):
+        """ε₃₂ cond(B)² over the real points and the handles that reach
+        them (padding adds neither), by R's diagonal ratio of a pivoted
+        float64 QR of their A: about the relative error of the
+        contact terms taken in the raw (pre-QR) basis in float32 and
+        turned into z's basis by the QR rotation K, which carries their
+        rounding, of the size of the raw terms, through both of its
+        factors."""
+        from scipy.linalg import qr
+
+        n = self.num_qp if self.num_real_qp is None else int(
+            self.num_real_qp)
+        a = self._lbs_factors64()[:n]
+        r = qr(a[:, a.abs().amax(0) > 0].numpy(), mode="r",
+               pivoting=True)[0]
+        diag = np.abs(np.diag(r))
+        return float(np.finfo(np.float32).eps) * (diag[0] / diag[-1]) ** 2
+
+    def _apply_contact_basis(self):
+        """Re-base z by K = I₃ ⊗ K₄ from a pivoted float64 QR of A = w ⊗
+        [x; 1] (A Π = Q R, K₄ = Π R⁻¹), so that B K = (A K₄) ⊗ I₃ keeps
+        B's Kronecker form: a contact's rows in z's basis are then the
+        factors A K₄ of its point (``contact_factors``, (N, 4H), made in
+        float64 and rounded once), and the contact terms are taken in z's
+        basis as they are in the raw one, with no float32 product with K.
+        B K and dF/dz K are made in float64 and rounded once, as past
+        ``QR_ROUNDING_LIMIT``. → the float64 (12H, 12H) map of the old z
+        basis to the new one."""
+        from scipy.linalg import qr, solve_triangular
+
+        dtype, device = self.B_dense.dtype, self.B_dense.device
+        a = self._lbs_factors64().numpy()
+        _, r, p = qr(a, mode="economic", pivoting=True)
+        pmat = np.eye(a.shape[1])[:, p]
+        k4 = pmat @ solve_triangular(r, np.eye(r.shape[0]))
+        k4_inv = r @ pmat.T
+
+        def kron3(m):
+            h = m.shape[0] // 4
+            out = np.zeros((h, 3, 4, h, 3, 4))
+            for rr in range(3):
+                out[:, rr, :, :, rr, :] = m.reshape(h, 4, h, 4)
+            return out.reshape(12 * h, 12 * h)
+
+        def rounded(m):
+            return torch.from_numpy(m).to(device=device, dtype=dtype)
+
+        k = kron3(k4)
+        old = (self.qr_tfm64.cpu().numpy() if self.qr_tfm64 is not None
+               else np.eye(k.shape[0]))
+        pts, w = self.pts.cpu().double(), self.skinning_weights.cpu().double()
+        self.qr_tfm = rounded(k)
+        self.qr_tfm_inv = rounded(kron3(k4_inv))
+        self.qr_tfm64 = torch.from_numpy(k).to(device)
+        self.B_dense = rounded(lbs_matrix(pts, w).numpy() @ k)
+        if not self.is_kinematic:
+            dfdz = dFdz_matrix(w, self.dwdx.cpu().double(), pts).numpy()
+            self.dFdz_dense = rounded(dfdz @ k)
+        self.contact_factors = rounded(a @ k4)
+        return torch.from_numpy(kron3(k4_inv) @ old)
 
     @classmethod
     def from_skinned_physics_points(cls, phys_pts, init_transform,
@@ -559,7 +656,43 @@ class SimplicitsScene:
                     collision.broad_phase = "dense"
         self.force_dict["collision"] = {"object": collision,
                                         "coeff": float(collision_penalty)}
+        self._rebase_for_contact()
         self._invalidate()
+
+    def _rebase_for_contact(self):
+        """Take the contact terms in z's own basis where the float32 QR
+        rotation would lose them: where some dynamic object with the QR has
+        ε₃₂ cond(B)² over ``CONTACT_ROUNDING_LIMIT``
+        (:meth:`SimulatedObject.contact_rounding`), every object with the
+        QR is re-based by :meth:`SimulatedObject._apply_contact_basis` and
+        the scene's state carried into the new bases. A contact row is
+        then its point's factors in z's basis, so the offsets, the
+        gradient's pull-back, the reduced Hessian and the step bounds are
+        taken with no product with K (whose entries reach 1e6 where B's
+        columns are nearly dependent). The step bounds of a DOF are then
+        the least of its object's contacts', as kaolin's per-handle bounds
+        in the raw basis are wherever no weight or rest coordinate is
+        exactly 0, and they clamp in z's basis. Scenes under the limit keep
+        the raw basis and the rotation, as the JAX package takes them."""
+        objs = list(self.sim_obj_dict.values())
+        if self._contact_in_z() or not any(
+                o.apply_qr and not o.is_kinematic
+                and o.contact_rounding() > CONTACT_ROUNDING_LIMIT
+                for o in objs):
+            return
+        maps = {i: o._apply_contact_basis() for i, o in enumerate(objs)
+                if o.apply_qr}
+        for i in maps:
+            objs[i].reset_sim_state()
+        state = [getattr(self, k) for k in ("sim_z", "sim_z_prev",
+                                            "sim_z_dot")]
+        self._compute_sim_constants()
+        for k, v in zip(("sim_z", "sim_z_prev", "sim_z_dot"), state):
+            v = v.clone()
+            for i, m in maps.items():
+                sl = self.obj_z_slices[i]
+                v[sl] = (m.to(v.device) @ v[sl].double()).to(v.dtype)
+            setattr(self, k, v)
 
     def _collision_provably_empty(self):
         """True when the collision force can never make a contact, so the
@@ -612,13 +745,26 @@ class SimplicitsScene:
 
     # ---- state ----
     def reset_scene(self):
+        """Every object back to its initial transform, at rest. With
+        contact the overflow bits the steps ORed on the device stay for
+        the next :meth:`check_collision_capacity`: an episode may end
+        between two checks, and the bits of its last steps would be lost
+        (without contact there are none, and nothing is read)."""
         self.current_sim_step = 0
         for obj in self.sim_obj_dict.values():
             obj.reset_sim_state()
         self.sim_z = torch.cat([o.z for o in self.sim_obj_dict.values()])
         self.sim_z_prev = torch.zeros_like(self.sim_z)
         self.sim_z_dot = torch.zeros_like(self.sim_z)
-        self._col_overflow = None
+        if "collision" not in self.force_dict:
+            self._col_overflow = None
+
+    def collision_overflow_flags(self):
+        """The contact-overflow bitmask the steps ORed on the device since
+        the last capacity check (:meth:`check_collision_capacity`), as the
+        device's 0-dim int32 tensor, not read back: 0 while every contact
+        fitted (:meth:`Collision.diag_flags` gives its bits)."""
+        return self._flags()
 
     def set_object_initial_transform(self, object_id, init_transform):
         if self.current_sim_step > 0:
@@ -731,7 +877,13 @@ class SimplicitsScene:
         ``fixed_trip=True`` runs Newton's fixed trip whatever
         ``differentiable`` says. The step is :meth:`_newton_system`'s
         problem solved by ``newtons_method``."""
-        system, consts = self._newton_system()
+        return self._functional_step(with_diag, fixed_trip)
+
+    def _functional_step(self, with_diag=False, fixed_trip=False,
+                         count_contacts=False):
+        """:meth:`build_functional_step`; ``count_contacts`` adds each
+        detection's live pairs to ``CONTACTS`` while the profiler runs."""
+        system, _, consts = self._newton_system(count_contacts)
         dt = self.timestep
         nm_kwargs = dict(nm_max_iters=self.max_newton_steps,
                          differentiable=self.differentiable or fixed_trip)
@@ -746,22 +898,35 @@ class SimplicitsScene:
 
         return step, consts
 
-    def _newton_system(self):
-        """The step's Newton problem as a function over the scene constants
-        → ``(system, consts)`` with
+    def _contact_in_z(self):
+        """Whether the contact terms are taken in z's own basis (see
+        :meth:`enable_collisions`)."""
+        return any(o.contact_factors is not None
+                   for o in self.sim_obj_dict.values())
 
-        ``system(consts, z, z_dot) -> ((energy, gradient, hessian), kwargs,
-        flags)``
+    def _newton_system(self, count_contacts=False):
+        """The step's Newton problem as a function over the scene constants
+        → ``(system, detect, consts)`` with
+
+        ``system(consts, z, z_dot, detected=None) -> ((energy, gradient,
+        hessian), kwargs, flags)``
 
         for the step from z at velocity z_dot: the energy of the implicit
         step and its derivatives as functions of the new z, the rest of
         ``newton_iteration``'s arguments, and the step's int32
         contact-overflow bitmask (0 without contact).
 
-        With contact, detection runs once in ``system``, from z, and its
-        contacts carry the factors w ⊗ [x;1] of their LBS rows, so the
-        contact terms inside Newton are dense products in the raw (pre-QR)
-        basis, taken to z's basis by the QR rotation."""
+        With contact, ``detect(consts, z, live=False) -> (contacts, flags,
+        live)`` runs detection from z, inside the span
+        ``physics.simplicits.detect`` (``live``: the live pairs, a 0-dim
+        int64 tensor, else None; ``count_contacts``: added to
+        ``CONTACTS`` while the profiler runs), and ``system`` runs it
+        where it is not given ``detected``. The contacts carry the factors
+        of their LBS rows, so the contact terms inside Newton are dense
+        products with them: in z's own basis where the scene took it for
+        contact (:meth:`enable_collisions`), else in the raw (pre-QR) basis,
+        taken to z's basis by the QR rotation. Without contact ``detect``
+        is None."""
         dt = self.timestep
         reg = self.newton_hessian_regularizer
         total_dofs = self.total_dofs
@@ -771,6 +936,7 @@ class SimplicitsScene:
                          and not self._collision_provably_empty())
         collision_bounds = (has_collision
                             and self.force_dict["collision"]["object"].bounds)
+        in_z = has_collision and self._contact_in_z()
         solver = dict(cg_tol=self.cg_tol, cg_iters=self.cg_iters,
                       conv_tol=self.conv_tol, direct_solve=self.direct_solve,
                       max_ls_steps=self.max_ls_steps)
@@ -784,36 +950,57 @@ class SimplicitsScene:
             "pts": self.sim_pts,
             "obj_Bs": [o.B_dense for o in objs],
             "obj_dFdzs": [o.dFdz_dense for o in objs],
-            "qr_red": self.sim_qr_tfm_red,
-            "qr_red_inv": self.sim_qr_tfm_inv_red,
+            "qr_red": None if in_z else self.sim_qr_tfm_red,
+            "qr_red_inv": None if in_z else self.sim_qr_tfm_inv_red,
             "pt_forces": [(f["object"], f["coeff"])
                           for f in self.force_dict["pt_wise"].values()],
             "defo_forces": [(f["object"], f["coeff"]) for f in
                             self.force_dict["defo_grad_wise"].values()],
         }
         no_flags = torch.zeros((), dtype=torch.int32, device=self.device)
+        detect = None
         if has_collision:
             collision = self.force_dict["collision"]["object"]
             consts["collision"] = collision
             consts["collision_coeff"] = self.force_dict["collision"]["coeff"]
-            consts["qr_tfm"] = self.sim_qr_tfm
             consts["qp_obj_ids"] = self.qp_to_object_map
             consts["qp_is_kin"] = self.qp_is_kinematic
             consts["qp_is_phantom"] = self._phantoms()
-            # the global block-diagonal skinning weights (N, H_total), from
-            # which detection makes the contacts' q-form factors
-            wblocks = self.sim_pts.new_zeros((self.total_qp,
-                                              self.total_dofs // 12))
-            h0 = 0
-            for o, (qsl, _) in zip(objs, obj_slices):
-                wblocks[qsl, h0:h0 + o.num_handles] = o.skinning_weights
-                h0 += o.num_handles
-            consts["col_w"] = wblocks
+            if in_z:
+                # the global block-diagonal factors (N, 4 H_total) of each
+                # point's LBS row in z's basis: A K₄ of a re-based object,
+                # w ⊗ [x;1] of one without the QR
+                consts["col_q"] = self._contact_factor_table(objs,
+                                                             obj_slices)
+            else:
+                consts["qr_tfm"] = self.sim_qr_tfm
+                # the global block-diagonal skinning weights (N, H_total),
+                # from which detection makes the contacts' q-form factors
+                wblocks = self.sim_pts.new_zeros((self.total_qp,
+                                                  self.total_dofs // 12))
+                h0 = 0
+                for o, (qsl, _) in zip(objs, obj_slices):
+                    wblocks[qsl, h0:h0 + o.num_handles] = o.skinning_weights
+                    h0 += o.num_handles
+                consts["col_w"] = wblocks
             if collision.broad_phase == "grid":
                 # made here, outside any capture, and held by the graph
                 consts["grid_tensors"] = collision.grid_tensors(self.device)
 
-        def system(c, z, z_dot):
+            def detect(c, z, live=False):
+                with profiling.span(DETECT_SPAN):
+                    contacts, det_diag = c["collision"].detect_collisions(
+                        (c["B"] @ z).reshape(-1, 3), c["pts"],
+                        c["qp_obj_ids"], c["qp_is_kin"],
+                        weights=c.get("col_w"), factors=c.get("col_q"),
+                        cp_exclude=c["qp_is_phantom"], return_diag=True)
+                    n_live = (contacts.valid.sum()
+                              if live or count_contacts else None)
+                    if count_contacts:
+                        _count_contacts(n_live)
+                return contacts, Collision.diag_flags(det_diag), n_live
+
+        def system(c, z, z_dot, detected=None):
             B, dFdz, BMB, pts = c["B"], c["dFdz"], c["BMB"], c["pts"]
 
             def dx_of(z_):
@@ -828,13 +1015,10 @@ class SimplicitsScene:
             flags = no_flags
             contacts = None
             if has_collision:
-                col, col_coeff, qr = (c["collision"], c["collision_coeff"],
-                                      c["qr_tfm"])
-                contacts, det_diag = col.detect_collisions(
-                    dx_of(z), pts, c["qp_obj_ids"], c["qp_is_kin"],
-                    weights=c["col_w"], cp_exclude=c["qp_is_phantom"],
-                    return_diag=True)
-                flags = Collision.diag_flags(det_diag)
+                col, col_coeff = c["collision"], c["collision_coeff"]
+                qr = None if in_z else c["qr_tfm"]
+                contacts, flags, _ = (detect(c, z) if detected is None
+                                      else detected)
 
                 def zq_of(z_):
                     dzq = z_ - z
@@ -909,7 +1093,23 @@ class SimplicitsScene:
                           bounds_qr_tfm_inv=c["qr_red_inv"], **solver)
             return (energy_fn, grad_fn, hess_fn), kwargs, flags
 
-        return system, consts
+        return system, detect, consts
+
+    def _contact_factor_table(self, objs, obj_slices):
+        """(N, 4 H_total): each point's contact factors in z's basis in its
+        object's 4H columns, 0 elsewhere."""
+        table = self.sim_pts.new_zeros((self.total_qp,
+                                        4 * (self.total_dofs // 12)))
+        h0 = 0
+        for o, (qsl, _) in zip(objs, obj_slices):
+            f = o.contact_factors
+            if f is None:
+                hom = torch.cat([o.pts, torch.ones_like(o.pts[:, :1])], 1)
+                f = (o.skinning_weights[:, :, None]
+                     * hom[:, None, :]).reshape(o.num_qp, -1)
+            table[qsl, 4 * h0:4 * (h0 + o.num_handles)] = f
+            h0 += o.num_handles
+        return table
 
     def _check_ready(self):
         if not self._ready_for_forces:
@@ -924,7 +1124,8 @@ class SimplicitsScene:
 
     def _eager_step(self):
         if self._step_fn is None:
-            self._step_fn = self.build_functional_step(with_diag=True)
+            self._step_fn = self._functional_step(with_diag=True,
+                                                  count_contacts=True)
         step, consts = self._step_fn
         with torch.no_grad():
             (self.sim_z, self.sim_z_prev, self.sim_z_dot,
@@ -949,42 +1150,58 @@ class SimplicitsScene:
         iterations as the early-exit loop runs them (:meth:`_segments`):
         ``start``, ``iterate`` and ``finish``, with ``status`` the device's
         [converged, failed] flags, which :meth:`_replay` reads after
-        ``start`` and after each ``iterate``. With the LU, one graph of the
-        fixed-trip step that counts the steps that took the LU in
-        ``lu_steps``: no step there runs again, so its replays run back to
-        back with one read a :meth:`_replay`, where an early exit would read
-        a flag every step; no cell measures contact yet to tell which pays.
+        ``start`` and after each ``iterate``. With the LU, Newton's fixed
+        trip, which counts the steps that took the LU in ``lu_steps``, in
+        a graph ``newton``, after a graph ``detect`` where there is contact
+        (the contacts from z, the overflow bits and the live pairs), the
+        two replayed back to back: no step there runs again, so the
+        replays of a :meth:`_replay` run with one read, where an early exit
+        would read a flag every step.
 
         A replay reads the tensors the step was built over at the addresses
         they had at the capture: ``keep`` holds the step and its constants
         (the identity matrices, the dynamic-DOF index, the contact weights
         and grid tensors, the ``Collision``) and every buffer one graph
-        hands another, so that none of them is freed and its memory handed
-        to another tensor while the graphs live."""
+        hands another (with the LU, ``keep["detected"]``: the contacts,
+        the flags and the live pairs), so that none of them is freed and
+        its memory handed to another tensor while the graphs live."""
         state = [b.clone() for b in self._live_state()]
         if not self._graph_takes_lu():
             status = torch.zeros(2, dtype=torch.bool, device=self.device)
             fns, keep = self._segments(state, status)
             return self._record_graphs(fns), state, status, None, keep
-        step, consts = self.build_functional_step(with_diag=True,
-                                                  fixed_trip=True)
+        system, detect, consts = self._newton_system()
         failed = torch.zeros((), dtype=torch.bool, device=self.device)
         lu_steps = torch.zeros((), dtype=torch.int32, device=self.device)
+        z, z_prev, z_dot, ovf = state
+        held = {}
+        dt = self.timestep
+
+        def find():
+            with torch.no_grad():
+                held["detected"] = detect(consts, z, live=True)
+        held["detected"] = None
 
         def advance():
             with torch.no_grad(), cholesky_only(failed, with_lu=True):
                 failed.zero_()
-                z, z_prev, z_dot, ovf = state
-                z1, _, zd1, flags = step(consts, z, z_prev, z_dot)
+                fns, kwargs, flags = system(consts, z, z_dot,
+                                            held["detected"])
+                z1 = newtons_method(z, *fns, **kwargs,
+                                    nm_max_iters=self.max_newton_steps,
+                                    differentiable=True)
+                zd1 = (z1 - z) / dt
                 z_prev.copy_(z)
                 z_dot.copy_(zd1)
                 z.copy_(z1)
                 ovf.bitwise_or_(flags)
                 lu_steps.add_(failed)
 
-        graphs = self._record_graphs([advance])
+        graphs = self._record_graphs([advance] if detect is None
+                                     else [find, advance])
         lu_steps.zero_()
-        return graphs, state, None, lu_steps, (step, consts)
+        held.update(system=system, detect=detect, consts=consts)
+        return graphs, state, None, lu_steps, held
 
     def _segments(self, state, status):
         """The step without the LU as three functions of no argument over
@@ -1006,7 +1223,7 @@ class SimplicitsScene:
         moves runs two iterations at least, and the second after a first
         that converged changes nothing. Only ``finish`` writes the state,
         so a step whose Cholesky failed can run again from it."""
-        system, consts = self._newton_system()
+        system, _, consts = self._newton_system()
         z, z_prev, z_dot, ovf = state
         converged, failed = status[0], status[1]
         x = torch.empty_like(z)
@@ -1077,13 +1294,18 @@ class SimplicitsScene:
             with profiling.span("physics.simplicits.capture"):
                 self._graph = self._capture()
             profiling.count(CAPTURES)
-        graphs, state, status, lu_steps, _ = self._graph
+        graphs, state, status, lu_steps, keep = self._graph
         for buf, value in zip(state, self._live_state()):
             buf.copy_(value)
         for _ in range(num_steps):
             if lu_steps is not None:
+                if len(graphs) == 2:
+                    with profiling.span(DETECT_SPAN):
+                        graphs[0].replay()
+                        _count_contacts(keep["detected"][2])
                 with profiling.span("physics.simplicits.replay"):
-                    graphs[0].replay()
+                    graphs[-1].replay()
+                profiling.count(NEWTON_ITERATIONS, self.max_newton_steps)
             elif not self._replay_segments(graphs, status):
                 with profiling.span("physics.simplicits.rerun"):
                     (self.sim_z, self.sim_z_prev, self.sim_z_dot,

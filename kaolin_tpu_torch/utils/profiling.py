@@ -24,7 +24,9 @@ The tools:
     launch times of a trace.
   - :func:`count` keeps host counters (launches of the port's kernels),
     always on; :func:`device_counters` hands kernels int64 counters on the
-    card that count their work while the profiler is on.
+    card that count their work while the profiler is on, and
+    :func:`device_counter` hands such a counter to code that adds to it
+    with tensor ops.
   - A session starts at the first instrumented call that finds the
     profiler on after one that found it off, and at :func:`trace`'s start:
     the span buffer and the device counters start afresh there.
@@ -58,7 +60,8 @@ from torch.autograd import Variable
 from torch.profiler import record_function as _record_function
 
 __all__ = ["trace", "time_fn", "sync", "Timing", "default_trace_dir", "span",
-           "backward_span", "current", "count", "device_counters", "spans",
+           "backward_span", "current", "count", "device_counters",
+           "device_counter", "spans",
            "counters", "self_ns", "Span"]
 
 
@@ -386,6 +389,23 @@ def device_counters(names, device):
     reset = key not in _session.zeroed
     _session.zeroed.add(key)
     return block.data_ptr(), reset
+
+
+def device_counter(name, device):
+    """The int64 counter ``name`` on ``device`` (a (1,) tensor) for code
+    that adds to it with tensor ops, zeroed at its first use in a session,
+    or None while the profiler is off. :func:`counters` reads it as it
+    reads :func:`device_counters`."""
+    key = ((name,), torch.device(device))
+    if key not in _device_blocks:
+        _device_blocks[key] = torch.zeros(1, dtype=torch.int64,
+                                          device=device)
+    if not _on():
+        return None
+    if key not in _session.zeroed:
+        _session.zeroed.add(key)
+        _device_blocks[key].zero_()
+    return _device_blocks[key]
 
 
 def spans():

@@ -365,17 +365,23 @@ def test_stack_step_is_decided_by_rounding_in_both_packages():
     """The example's stack at 2 x 300 points over a 10 x 10 plate: the QR
     rotations of its cubes have entries of 2e3 and above 1e4 (sin(x·f)
     over a cube of side 0.5 leaves B's columns nearly dependent), the JAX
-    package's the same to 1e-3 from the same baked points, so the contact
-    Hessian in z's basis is a float32 cancellation; a change of z by 1e-7
-    of its size moves even one Newton iteration of the port's step by a
-    large share of max|B z|. That is why the card is held to the CPU on
-    this scene's contact terms, not on its step (``chip_smoke.py``'s
-    ``check_stack_step``)."""
+    package's the same to 1e-3 from the same baked points, so contact
+    terms taken in the raw basis and rotated into z's are a float32
+    cancellation there: a change of z by 1e-7 of its size moved even one
+    Newton iteration of the step by more than 5% of max|B z|, in both
+    packages. The port takes them in z's own basis on such a scene
+    (``simulation.CONTACT_ROUNDING_LIMIT``), and the spread of one
+    iteration under that change is under 5e-3 of max|B z|: 3.7e-4 to
+    8.6e-4 in eight readings (four directions, both signs), left by the
+    line search's choice of a step size on its grid and the contact
+    bounds' least ratio, which the change can move; the raw basis read
+    ten times the bound."""
     from kaolin_tpu.physics.simplicits.simulation import (
         SimulatedObject as ObjectJax,
     )
 
     ps = stack.stack_scene("cpu", 2, 300, plate_side=10)
+    assert ps._contact_in_z()
     rotations = []
     for o in list(ps.sim_obj_dict.values())[:2]:
         w = (o.skinning_weights * o.handle_norms).numpy()
@@ -392,12 +398,13 @@ def test_stack_step_is_decided_by_rounding_in_both_packages():
     ps.max_newton_steps = 1
     fn, consts = ps.build_functional_step()
     z = (ps.sim_z, ps.sim_z_prev, ps.sim_z_dot)
-    u = torch.from_numpy(np.random.RandomState(0).choice(
-        [-1.0, 1.0], ps.total_dofs).astype(np.float32))
     with torch.no_grad():
         out = fn(consts, *z)[0]
         base, size = displacement(ps, out), float(out.abs().max())
-        spread = max(float(np.abs(displacement(ps, fn(
-            consts, z[0] + e * size * u, *z[1:])[0]) - base).max())
-            for e in (1e-7, -1e-7))
-    assert spread > 0.05 * float(np.abs(base).max())
+        for seed in range(4):
+            u = torch.from_numpy(np.random.RandomState(seed).choice(
+                [-1.0, 1.0], ps.total_dofs).astype(np.float32))
+            spread = max(float(np.abs(displacement(ps, fn(
+                consts, z[0] + e * size * u, *z[1:])[0]) - base).max())
+                for e in (1e-7, -1e-7))
+            assert spread < 5e-3 * float(np.abs(base).max()), (seed, spread)

@@ -419,7 +419,8 @@ def test_graph_counters_count_captures_replays_and_reruns():
     """One capture, a replay a step, the graphs' Newton iterations, and the
     replay whose Cholesky failed run again eagerly inside its own span,
     with Newton's spans; with the LU in the graph, the steps that took it,
-    read once a call."""
+    read once a call, and the fixed trip's iterations, all of them a
+    replay."""
     scene, graphs = _graph_scene(fail_on={2})
     before = _counts()
     _between_sessions()
@@ -462,7 +463,7 @@ def test_graph_counters_count_captures_replays_and_reruns():
     scene.run_sim_steps(3)
     assert _delta(before) == {simulation.CAPTURES: 1,
                               simulation.GRAPH_REPLAYS: 3,
-                              simulation.NEWTON_ITERATIONS: 0}
+                              simulation.NEWTON_ITERATIONS: 3 * 3}
     assert (scene.graph_steps_rerun, scene.graph_steps_lu) == (0, 2)
 
 
